@@ -1,21 +1,26 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
 Drives ``detjax_torch``'s serving path (RetinaNet-R50-FPN at 640, eval
-batch 8, bf16, seeded random weights) through the entry points a user
-calls, builds every CUDA kernel of that path from ``detjax_torch/csrc/``,
-holds each kernel against its plain PyTorch twin on the card, and checks
-that the path really launched the kernels. Prints JSON lines; the last
-line is ``{"ok": true, "device": {...}}`` and appears only when every
-phase passed. Exits non-zero without a CUDA device.
+batch 8, bf16, seeded random weights) and its training path (the same
+model, train batch 16, bf16 autocast over fp32 parameters, Adam, clip
+0.1, synthetic scenes) through the entry points a user calls. Builds
+every CUDA kernel of those paths from ``detjax_torch/csrc/`` (one nvcc per
+source, all started together), holds each kernel against its plain
+PyTorch twin on the card, and checks that each path really launched its
+kernel. Prints JSON lines; the last line is ``{"ok": true, "device":
+{...}}`` and appears only when every phase passed. Exits non-zero without
+a CUDA device.
 
     python3 chip_smoke.py
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -81,22 +86,47 @@ def nms_bound_ms(b: int, n: int, max_det: int, steps: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernel(report: dict) -> None:
+def phase_build() -> None:
+    """Build every kernel library at once, one nvcc process per source."""
+    from detjax_torch.kernels import matching as km
     from detjax_torch.kernels import postprocess as pp
     from detjax_torch.kernels._build import build_info
+
+    libs = {"detjax_nms": ("nms.cu", pp._lib),
+            "detjax_match": ("matching.cu", km._lib)}
+    errors: dict = {}
+
+    def build(name, fn):
+        try:
+            fn()
+        except Exception as exc:  # reported below, then fatal
+            errors[name] = repr(exc)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=build, args=(name, fn))
+               for name, (_, fn) in libs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall_s = time.perf_counter() - t0
+    if errors:
+        raise SystemExit(f"kernel build failed: {errors}")
+    for name, (source, _) in libs.items():
+        info = build_info[name]
+        emit({"phase": "build", "kernel": name,
+              "source": f"detjax_torch/csrc/{source}", "target": "sm_90a",
+              "nvcc_s": info["seconds"], "parallel_wall_s": wall_s,
+              "ptxas": [ln for ln in info["log"].splitlines()
+                        if "registers" in ln or "smem" in ln]})
+
+
+def phase_kernel(report: dict) -> None:
+    from detjax_torch.kernels import postprocess as pp
 
     b, n, max_det, thr, offset = 8, 1000, 100, 0.5, 642.0
     boxes, scores, labels = (torch.from_numpy(a).cuda()
                              for a in hard_candidates(0, b, n))
-    t0 = time.perf_counter()
-    pp._lib()
-    info = build_info["detjax_nms"]
-    emit({"phase": "build", "kernel": "detjax_nms",
-          "source": "detjax_torch/csrc/nms.cu", "target": "sm_90a",
-          "nvcc_s": info["seconds"],
-          "load_s": time.perf_counter() - t0,
-          "ptxas": [ln for ln in info["log"].splitlines()
-                    if "registers" in ln or "smem" in ln]})
 
     args = (boxes, scores, labels, thr, max_det, offset)
     ki, ks = pp.nms_cuda(*args)
@@ -124,6 +154,113 @@ def phase_kernel(report: dict) -> None:
         "replaces": "detjax/kernels/postprocess.py:102",
         "launches": None, "match": idx_equal and scores_equal,
         "max_abs_err": float((ks - rs).abs().max()),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None}
+
+
+def hard_gt(seed: int, anchors: np.ndarray, b: int = 16, g: int = 100):
+    """Seeded GT built to be hard for matching, on the 640 canvas: exact
+    duplicates (tied IoUs), padding between valid GTs, one image with no
+    valid GT and one with a single GT, zero-area GTs, GTs larger than the
+    canvas, GTs equal to an anchor (IoU exactly 1) and GTs at IoU 0.5 and
+    (as near as fp32 lets) 0.4 against an anchor."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(0, 640, (b, g, 2))
+    wh = rng.uniform(6, 420, (b, g, 2))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    labels = rng.integers(0, 80, (b, g)).astype(np.int32)
+    n_valid = rng.integers(10, g + 1, b)
+    for i in range(b):
+        labels[i, n_valid[i]:] = -1  # trailing padding
+    labels[::2, 3::7] = -1  # padding between valid GTs
+    for i in range(b):
+        src = rng.integers(0, g, 8)
+        boxes[i, rng.integers(0, g, 8)] = boxes[i, src]  # exact duplicates
+    boxes[:, 5, 2] = boxes[:, 5, 0]  # zero width
+    boxes[:, 6, 3] = boxes[:, 6, 1]  # zero height
+    boxes[:, 7] = [-60.0, -40.0, 700.0, 690.0]  # larger than the canvas
+    wh_a = anchors[:, 2:] - anchors[:, :2]
+    square = anchors[(wh_a[:, 0] == 32) & (wh_a[:, 1] == 32)]
+    picks = square[rng.choice(len(square), (b, 3), replace=False)]
+    boxes[:, 0] = picks[:, 0]  # IoU exactly 1
+    boxes[:, 1] = picks[:, 1]
+    boxes[:, 1, 3] = picks[:, 1, 1] + 16.0  # IoU exactly 0.5
+    boxes[:, 2] = picks[:, 2]
+    boxes[:, 2, 3] = picks[:, 2, 1] + 12.8  # IoU at fp32(0.4)
+    labels[:, :3] = rng.integers(0, 80, (b, 3))
+    labels[b - 1] = -1  # no valid GT
+    labels[b - 2] = -1
+    labels[b - 2, g // 2 - 1] = 7  # a single valid GT, behind padding
+    return anchors, boxes, labels
+
+
+# About 15 fp32 operations and one IEEE division per (anchor, GT) pair:
+# two min, two max, two subtractions and two clamps for the overlap, one
+# product, an add and a subtraction and a clamp for the union, the
+# division, the validity select and the running-max compare.
+MATCH_OPS_PER_PAIR = 16
+
+
+def match_bound_ms(b: int, a: int, g: int) -> tuple:
+    """Least time for matching at these shapes: anchors [A,4] f32 and GT
+    (box, valid, label) read once, the four outputs written once, over
+    the memory rate; the pairwise IoU work over the fp32 rate."""
+    nbytes = a * 16 + b * g * (16 + 1 + 4) + b * a * (4 + 4 + 16 + 4)
+    ops = float(MATCH_OPS_PER_PAIR) * b * a * g
+    t_bytes = nbytes / H100["bytes_per_s"] * 1e3
+    t_ops = ops / H100["fp32_flops"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_match_kernel(report: dict) -> None:
+    """match_iou_cuda against its twin on the hard GT set, at the training
+    shape of retinanet_r50_640: B=16, its 76,725 anchors, G=100."""
+    from detjax_torch.kernels import matching as km
+    from detjax_torch.modeling import anchor_config
+    from detjax_torch.ops.anchors import anchors_for_shape
+
+    cfg = smoke_config()
+    anchors_np = anchors_for_shape(cfg.model.image_size, anchor_config(cfg))
+    b, g = cfg.train.batch_size, cfg.train.max_gt
+    anchors, boxes, labels = (torch.from_numpy(x).cuda() for x in
+                              hard_gt(4, anchors_np, b, g))
+    valid = labels >= 0
+    args = (anchors, boxes, valid, labels)
+    got = km.match_iou_cuda(*args)
+    want = km.match_iou_reference(*args)
+    torch.cuda.synchronize()
+    names = ("max_iou", "argmax", "boxes", "labels")
+    equal = {n: torch.equal(x, y) for n, x, y in zip(names, got, want)}
+    max_iou = got[0]
+    edges = {"iou_1": int((max_iou == 1.0).sum()),
+             "iou_0.5": int((max_iou == 0.5).sum()),
+             "iou_within_1e-6_of_0.4": int(((max_iou - 0.4).abs()
+                                            < 1e-6).sum()),
+             "images_without_gt": int((max_iou == -1).all(dim=1).sum()),
+             "valid_gt_per_image": valid.sum(dim=1).tolist()}
+    a = anchors.shape[0]
+    ms = cuda_ms(lambda: km.match_iou_cuda(*args), iters=100, warmup=5)
+    plain_ms = cuda_ms(lambda: km.match_iou_reference(*args), iters=5,
+                       warmup=1)
+    bound_ms, bound_by = match_bound_ms(b, a, g)
+    emit({"phase": "match_kernel", "kernel": "match_iou_cuda", "B": b,
+          "A": a, "G": g, "bit_equal": equal, "edges": edges, "ms": ms,
+          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+          "library_ms": None,
+          "library_note": "no single PyTorch call computes it; "
+                          "torchvision's box_iou is not installed and "
+                          "would still need an argmax and gathers"})
+    if not all(equal.values()):
+        raise SystemExit(f"match_iou_cuda disagrees with its twin: {equal}")
+    if not (edges["iou_1"] and edges["iou_0.5"]
+            and edges["images_without_gt"] == 1):
+        raise SystemExit(f"the hard GT set lost its edges: {edges}")
+    report["match_iou_cuda"] = {
+        "name": "match_iou_cuda", "route": "cuda",
+        "source": "detjax_torch/csrc/matching.cu",
+        "replaces": "detjax/kernels/matching.py:88",
+        "launches": None, "match": True,
+        "max_abs_err": float((got[0] - want[0]).abs().max()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}
 
@@ -415,6 +552,162 @@ def phase_serve(state: dict) -> None:
                          "detect, or its requests did not coalesce")
 
 
+def train_batch(cfg, seed: int) -> dict:
+    """One uint8 training batch: seeded synthetic scenes at the canvas
+    size with 1-20 objects each, letterboxed and padded to max_gt."""
+    from detjax_torch.data.synthetic import SyntheticDetectionDataset
+    from detjax_torch.data.transforms import letterbox, pad_annotations
+
+    t = cfg.train
+    ds = SyntheticDetectionDataset(t.batch_size, cfg.model.image_size,
+                                   cfg.model.num_classes, max_objects=20,
+                                   seed=seed)
+    images, gt_boxes, gt_labels = [], [], []
+    for i in range(len(ds)):
+        rec = ds[i]
+        canvas, boxes, _ = letterbox(rec["image"], rec["boxes"],
+                                     cfg.model.image_size)
+        boxes, labels = pad_annotations(boxes, rec["labels"], t.max_gt)
+        images.append(canvas)
+        gt_boxes.append(boxes)
+        gt_labels.append(labels)
+    return {"images": np.stack(images), "gt_boxes": np.stack(gt_boxes),
+            "gt_labels": np.stack(gt_labels)}
+
+
+def _params(state) -> dict:
+    return {n: p.detach().clone() for n, p in state.model.named_parameters()}
+
+
+def phase_train(report: dict, state: dict) -> None:
+    """retinanet_r50_640 training at full width through make_train_state /
+    train_step on the default device: bs 16, bf16 autocast, 640 px, 80
+    classes, max_gt 100, Adam lr 1e-5, clip 0.1."""
+    import detjax_torch
+    from detjax_torch.data.pipeline import device_augment
+    from detjax_torch.kernels import matching as km
+    from detjax_torch.modeling import _anchors, anchor_config
+    from detjax_torch.ops.matching import match_anchors
+    from detjax_torch.train import step as tstep
+
+    t0 = time.perf_counter()
+    train = detjax_torch.make_train_state("retinanet_r50_640", seed=0)
+    cfg = train.cfg
+    b = cfg.train.batch_size
+    batch = train_batch(cfg, seed=0)
+    # seeded R50 towers saturate the focal loss (logit std near 17): the
+    # same output-conv rescale as the serving phases, before any step
+    scales = desaturate_(train.model, batch["images"][:4], cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_pos_gt = int((batch["gt_labels"] >= 0).sum())
+
+    # 1. kernel route vs twin route from one state and one batch
+    twin = copy.deepcopy(train)
+    dev = next(train.model.parameters()).device
+    images = torch.as_tensor(batch["images"]).to(dev)
+    _, gt_aug = device_augment(
+        images, torch.as_tensor(batch["gt_boxes"]).to(dev),
+        flip=tstep.flip_mask(cfg, 0, b), hflip_prob=0.0,
+        mean=cfg.data.mean, std=cfg.data.std)
+    anchors = _anchors(cfg.model.image_size, anchor_config(cfg), dev)
+    labels = torch.as_tensor(batch["gt_labels"]).to(dev)
+    m_kernel = match_anchors(anchors, gt_aug, labels, backend="auto")
+    m_twin = match_anchors(anchors, gt_aug, labels, backend="torch")
+    match_equal = {f: torch.equal(getattr(m_kernel, f), getattr(m_twin, f))
+                   for f in m_kernel._fields}
+    before = _params(train)
+    _, mk = detjax_torch.train_step(train, batch)
+    _, mt = detjax_torch.train_step(twin, batch, match_backend="torch")
+    after = _params(train)
+    unchanged = [n for n in before if torch.equal(before[n], after[n])]
+    bn_moved = sum(1 for n in before if (".bn" in n or n.startswith("bn")
+                                         or "downsample.1" in n)
+                   and n not in unchanged)
+    twin_params = _params(twin)
+    param_diff = max(float((after[n] - twin_params[n]).abs().max())
+                     for n in after)
+    loss_k, loss_t = float(mk["loss"]), float(mt["loss"])
+    del twin, before, after, twin_params
+    emit({"phase": "train_routes", "match_result_equal": match_equal,
+          "loss_kernel_route": loss_k, "loss_twin_route": loss_t,
+          "loss_tolerance": "1e-6 relative; bit-equal expected (the same "
+                            "forward and the same targets)",
+          "max_param_diff_after_step": param_diff,
+          "param_tolerance": "2 * lr: cuDNN's backward may sum in another "
+                             "order between two runs, and Adam's first "
+                             "step turns a noise-signed gradient into "
+                             "+-lr",
+          "trainable_tensors": len(_params(train)),
+          "unchanged_after_step_1": unchanged,
+          "bn_affine_tensors_moved": bn_moved})
+    if not all(match_equal.values()):
+        raise SystemExit(f"kernel and twin MatchResults differ: "
+                         f"{match_equal}")
+    if abs(loss_k - loss_t) > 1e-6 * abs(loss_t):
+        raise SystemExit(f"step-1 loss differs between the kernel and "
+                         f"twin routes: {loss_k} vs {loss_t}")
+    if param_diff > 2 * cfg.train.learning_rate:
+        raise SystemExit(f"parameters after one step differ by "
+                         f"{param_diff} between the routes")
+    if unchanged or bn_moved == 0:
+        raise SystemExit(f"trainable tensors unchanged by step 1: "
+                         f"{unchanged}")
+
+    # 2. the main path: warm-up, timed steps, one step split by events
+    warmup, timed = 2, 6
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    km.match_launches = 0
+    steps = []
+    for _ in range(warmup):
+        steps.append(detjax_torch.train_step(train, batch)[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        steps.append(detjax_torch.train_step(train, batch)[1])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / timed * 1e3
+    events = {"start": torch.cuda.Event(enable_timing=True)}
+
+    def record(name):
+        events[name] = torch.cuda.Event(enable_timing=True)
+        events[name].record()
+
+    events["start"].record()
+    steps.append(detjax_torch.train_step(train, batch, record=record)[1])
+    torch.cuda.synchronize()
+    launches = km.match_launches
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    order = ["start", "forward", "loss", "backward", "update"]
+    split = {f"{b_}_ms": events[a_].elapsed_time(events[b_])
+             for a_, b_ in zip(order, order[1:])}
+    split["step_ms"] = events["start"].elapsed_time(events["update"])
+    per_step = [{k: float(v) for k, v in m.items()} for m in steps]
+    for i, m in enumerate(per_step):
+        emit({"phase": "train_step", "step": i + 2, **m})
+    finite = all(np.isfinite(list(m.values())).all() for m in per_step)
+    emit({"phase": "train", "preset": cfg.model.name,
+          "depth": cfg.model.backbone_depth, "dtype": cfg.model.dtype,
+          "batch": b, "canvas": list(cfg.model.image_size),
+          "classes": cfg.model.num_classes, "max_gt": cfg.train.max_gt,
+          "anchors": int(anchors.shape[0]), "gt_per_batch": n_pos_gt,
+          "optimizer": cfg.train.optimizer, "lr": cfg.train.learning_rate,
+          "output_scales": scales, "setup_s": setup_s,
+          "steps_in_window": len(steps), "match_launches": launches,
+          "ms_per_step": step_ms, "img_per_s": b / step_ms * 1e3,
+          "split_one_step": split, "peak_memory_gib": peak_gb,
+          "card": state["card"]})
+    if not finite:
+        raise SystemExit("a training metric is not finite")
+    if min(m["num_pos"] for m in per_step) <= 0:
+        raise SystemExit("a training step had no positive anchor")
+    if launches != len(steps):
+        raise SystemExit(f"match kernel launched {launches} times in "
+                         f"{len(steps)} steps")
+    report["match_iou_cuda"]["launches"] = launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -430,10 +723,13 @@ def main() -> int:
 
     report: dict = {}
     state: dict = {"card": card}
+    phase_build()
     phase_kernel(report)
+    phase_match_kernel(report)
     phase_reference()
     phase_main(report, state)
     phase_serve(state)
+    phase_train(report, state)
     emit({"kernels": list(report.values())})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,13 @@
 """detjax_torch: the PyTorch and CUDA port of detjax, for one NVIDIA H100.
 
 detjax (the JAX package beside this one) is the reference. This package
-carries its serving path: ``build_model`` -> ``detect`` / ``detect_u8`` ->
-the micro-batching ``DetectionServer``, at the full width of every
-RetinaNet preset, with detjax's Pallas NMS kernel replaced by a CUDA
-kernel written by hand for ``sm_90a`` (``detjax_torch/csrc/nms.cu``).
+carries its serving path (``build_model`` -> ``detect`` / ``detect_u8`` ->
+the micro-batching ``DetectionServer``) and its training path
+(``make_train_state`` -> ``train_step``), at the full width of every
+RetinaNet preset. detjax's Pallas kernels on those paths are replaced by
+CUDA kernels written by hand for ``sm_90a``: NMS
+(``detjax_torch/csrc/nms.cu``) and anchor matching
+(``detjax_torch/csrc/matching.cu``).
 
 Ground rules:
 
@@ -30,6 +33,8 @@ Ground rules:
     >>> import detjax_torch
     >>> model = detjax_torch.build_model("retinanet_r50_640", seed=0)
     >>> dets = detjax_torch.detect_u8(model, canvases_u8)
+    >>> state = detjax_torch.make_train_state("retinanet_r50_640", seed=0)
+    >>> state, metrics = detjax_torch.train_step(state, batch)
 """
 
 from detjax_torch.config import (
@@ -41,7 +46,13 @@ from detjax_torch.config import (
     TrainConfig,
     get_config,
 )
-from detjax_torch.api import build_model, detect, detect_u8
+from detjax_torch.api import (
+    build_model,
+    detect,
+    detect_u8,
+    make_train_state,
+    train_step,
+)
 
 __version__ = "0.1.0"
 
@@ -65,5 +76,7 @@ __all__ = [
     "build_model",
     "detect",
     "detect_u8",
+    "make_train_state",
+    "train_step",
     "serve",
 ]

@@ -1,8 +1,5 @@
-"""Public API of the port: model build and detect (``detjax/api.py``).
-
-Training (``make_train_state``, ``train_step``) comes with the training
-slice of the port.
-"""
+"""Public API of the port: model build, train step and detect
+(``detjax/api.py``)."""
 
 from __future__ import annotations
 
@@ -14,6 +11,26 @@ def build_model(preset, seed: int = 0, device=None, **overrides):
     from detjax_torch.modeling import build_model as _impl
 
     return _impl(preset, seed, device, **overrides)
+
+
+def make_train_state(preset, seed: int = 0, device=None, **overrides):
+    """A fresh training state (model, optimizer, optional EMA) for
+    ``preset`` on ``device`` (default ``cuda``; raises without a GPU unless
+    ``device="cpu"``). See :func:`detjax_torch.train.step.make_train_state`.
+    """
+    from detjax_torch.train.step import make_train_state as _impl
+
+    return _impl(preset, seed, device, **overrides)
+
+
+def train_step(state, batch, **kwargs):
+    """One optimization step, updating ``state`` in place: augment,
+    forward, matching (the CUDA kernel on a GPU), focal + smooth-L1,
+    backward, clip, optimizer. Returns ``(state, metrics)``. See
+    :func:`detjax_torch.train.step.train_step`."""
+    from detjax_torch.train.step import train_step as _impl
+
+    return _impl(state, batch, **kwargs)
 
 
 def detect(model, images, preset="retinanet_r50_640", **overrides):

@@ -1,4 +1,5 @@
-"""Letterbox onto a fixed canvas (``detjax/data/transforms.py``).
+"""Letterbox onto a fixed canvas, and GT padding
+(``detjax/data/transforms.py``).
 
 Every image is scaled (aspect preserved) and placed top-left on a fixed
 (H, W) uint8 canvas, so every batch has one shape. The resize is PIL's
@@ -55,3 +56,15 @@ def letterbox(
     np.clip(out_boxes[:, 0::2], 0, nw, out=out_boxes[:, 0::2])
     np.clip(out_boxes[:, 1::2], 0, nh, out=out_boxes[:, 1::2])
     return canvas, out_boxes, scale
+
+
+def pad_annotations(boxes: np.ndarray, labels: np.ndarray, max_gt: int
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Pad or truncate to ``max_gt`` rows: boxes [max_gt, 4] f32 (zeros
+    pad), labels [max_gt] int32 (-1 pad), so every batch has one shape."""
+    n = min(len(boxes), max_gt)
+    out_boxes = np.zeros((max_gt, 4), np.float32)
+    out_labels = np.full((max_gt,), -1, np.int32)
+    out_boxes[:n] = boxes[:n]
+    out_labels[:n] = labels[:n]
+    return out_boxes, out_labels

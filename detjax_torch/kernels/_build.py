@@ -5,7 +5,9 @@ into ``detjax_torch/_build/<name>-<hash>/`` where the hash covers the
 sources, every header in ``csrc/`` and the flags; a changed source gets a
 new directory. The sources expose a plain C interface (pointers, ints,
 floats and a stream handle), so no PyTorch header is compiled and a build
-takes seconds. Nothing here runs when a module is imported.
+takes seconds. Libraries of different names build concurrently when
+loaded from different threads. Nothing here runs when a module is
+imported.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _name_locks
+_name_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build time (0.0 when found built), "log": nvcc output,
 #          "path": the shared library}
@@ -51,6 +54,8 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     """Compile ``sources`` (file names in ``csrc/``) into ``lib<name>.so``
     unless that exact build exists, then load it once per process."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _libs:
             return _libs[name]
         paths = [CSRC / s for s in sources]

@@ -30,12 +30,13 @@ RESNET_SPECS = {
 }
 
 # detjax ModelConfig knobs that serve training or the TPU; only their
-# defaults exist in the port so far.
+# defaults exist in the port so far. Each is queued in ROADMAP.md.
 _TPU_OR_TRAIN_KNOBS = {
     "fused_backbone": ("off", "the fused-bottleneck kernel slice"),
-    "dot_1x1": ("off", "the training slice"),
-    "remat_early": (0, "the training slice"),
-    "f8_remat_stages": (0, "the training slice"),
+    "dot_1x1": ("off", "a later slice (ROADMAP.md Queue 1, training knobs)"),
+    "remat_early": (0, "a later slice (ROADMAP.md Queue 1, training knobs)"),
+    "f8_remat_stages": (0, "a later slice (ROADMAP.md Queue 1, training "
+                           "knobs)"),
 }
 
 
@@ -50,15 +51,19 @@ def check_backbone_knobs(**knobs) -> None:
 
 
 class FrozenBatchNorm2d(nn.Module):
-    """Inference-statistics BatchNorm with ``weight/bias/running_mean/
-    running_var`` buffers and eps 1e-5; nothing updates them. Computed as
-    one scale and shift in fp32, applied in the activation's dtype."""
+    """BatchNorm with frozen statistics and a trainable affine, eps 1e-5.
+
+    As in detjax (flax ``BatchNorm(use_running_average=True)``), ``weight``
+    and ``bias`` are parameters that the optimizer updates, while
+    ``running_mean`` and ``running_var`` are buffers that nothing updates.
+    Computed as one scale and shift in fp32, applied in the activation's
+    dtype."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.register_buffer("weight", torch.ones(num_features))
-        self.register_buffer("bias", torch.zeros(num_features))
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 

@@ -1,12 +1,15 @@
-"""Box ops on tensors: area, pairwise IoU, delta decode, clipping.
+"""Box ops on tensors: area, pairwise IoU, delta encode/decode, clipping.
 
 The counterpart of ``detjax/ops/boxes.py``. All boxes are xyxy floats;
 every function broadcasts over leading dims. Each op is written in the
 same order of floating-point operations as detjax's, so that the NMS
 twin's IoU decisions agree bit for bit (tests/test_torch_port_ops.py).
 
-Decoding follows the lineage convention (Faster-RCNN deltas with std
-normalisation (0.1, 0.1, 0.2, 0.2) and zero mean)::
+Encoding and decoding follow the lineage convention (Faster-RCNN deltas
+with std normalisation (0.1, 0.1, 0.2, 0.2) and zero mean)::
+
+    dx = (gx_c - ax_c) / aw / std_x    dw = log(max(gw, 1) / aw) / std_w
+    dy = (gy_c - ay_c) / ah / std_y    dh = log(max(gh, 1) / ah) / std_h
 
     px = dx * std_x * aw + ax_c        pw = exp(dw * std_w) * aw
     py = dy * std_y * ah + ay_c        ph = exp(dh * std_h) * ah
@@ -51,6 +54,21 @@ def _to_cxcywh(boxes: torch.Tensor):
     cx = boxes[..., 0] + 0.5 * w
     cy = boxes[..., 1] + 0.5 * h
     return cx, cy, w, h
+
+
+def encode_boxes(gt_boxes: torch.Tensor, anchors: torch.Tensor,
+                 std: Sequence[float] = DEFAULT_BOX_STD) -> torch.Tensor:
+    """GT boxes -> regression targets against anchors; shapes broadcast.
+    GT width and height are clamped at 1 px before the log, as the lineage
+    does."""
+    gx, gy, gw, gh = _to_cxcywh(gt_boxes)
+    ax, ay, aw, ah = _to_cxcywh(anchors)
+    gw = torch.clamp(gw, min=1.0)
+    gh = torch.clamp(gh, min=1.0)
+    deltas = torch.stack([(gx - ax) / aw, (gy - ay) / ah,
+                          torch.log(gw / aw), torch.log(gh / ah)], dim=-1)
+    return deltas / torch.tensor(tuple(std), dtype=deltas.dtype,
+                                 device=deltas.device)
 
 
 def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor,
