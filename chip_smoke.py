@@ -99,7 +99,8 @@ def phase_build() -> None:
 
     libs = {"detjax_nms": ("nms.cu", pp._lib),
             "detjax_match": ("matching.cu", km._lib),
-            "detjax_bottleneck": ("bottleneck.cu", kb._lib)}
+            "detjax_bottleneck": ("bottleneck.cu", kb._lib),
+            "detjax_bottleneck_bwd": ("bottleneck_bwd.cu", kb._bwd_lib)}
     errors: dict = {}
 
     def build(name, fn):
@@ -384,6 +385,150 @@ def phase_bottleneck_kernel(report: dict) -> None:
                         "the port's unfused cuDNN block is unfused_cudnn_ms",
         "unfused_cudnn_ms": total["unfused_cudnn_ms"],
         "per": "one R50 forward at 640 px, bs 8: 2 layer1 + 3 layer2 "
+               "launches",
+        "shapes": per_shape}
+
+
+# The identity bottlenecks that fuse in R50 at 640 px, train batch 16:
+# (name, B, H, W, M, launches per step); C = 4 M.
+FUSED_TRAIN_SHAPES = (("layer1", 16, 160, 160, 64, 2),
+                      ("layer2", 16, 80, 80, 128, 3))
+
+
+def bottleneck_bwd_bound_ms(b: int, h: int, w: int, m: int) -> tuple:
+    """Least time for one fused block's backward: x and dy read once and
+    dx written once (bf16; the weights and their gradients are under 1 %)
+    over the memory rate, and three times the forward's multiply-adds
+    (recompute, the input gradient, the weight gradients) over the bf16
+    tensor-core rate."""
+    c = 4 * m
+    nbytes = 3 * b * h * w * c * 2
+    ops = 3 * 2.0 * (c * m + 9 * m * m + m * c) * b * h * w
+    t_bytes = nbytes / H100["bytes_per_s"] * 1e3
+    t_ops = ops / H100["bf16_flops"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+BWD_NAMES = ("dx", "dw1", "db1", "dw2", "db2", "dw3", "db3")
+# dx may leave the 0.02 x max|twin| bar on this share of its elements,
+# where a ReLU mask flips between the kernel's and cuDNN's fp32 sums
+# (measured on an H100: 8.5e-6 at layer1, 8.9e-5 at layer2)
+DX_FLIP_SHARE = 1e-3
+
+
+def phase_bottleneck_bwd_kernel(report: dict) -> None:
+    """The fused block's backward kernel against its twin (fp32 convs, TF32
+    off) at the two shapes R50's fused blocks have at 640 px, train batch
+    16, with detjax's bar for its backward (tests/test_kernels.py:196-197);
+    two runs on the same inputs bit-equal; times beside the bound, the
+    twin, the forward kernel and the port's unfused block's forward and
+    backward (cuDNN, bf16 autocast)."""
+    from detjax_torch.kernels import bottleneck as kb
+
+    per_shape = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for i, (name, b, h, w, m, n_step) in enumerate(FUSED_TRAIN_SHAPES):
+        x, block = kb.seeded_block(20 + i, b, h, w, m, "cuda")
+        rng = np.random.default_rng(30 + i)
+        dy = torch.from_numpy(rng.normal(0, 1, x.shape).astype(np.float32)
+                              ).to(x.device, torch.bfloat16)
+        with torch.no_grad():
+            wts = block.folded_weights()
+        args = (x, dy, *wts)
+        got = kb.bottleneck_identity_backward(*args)
+        again = kb.bottleneck_identity_backward(*args)
+        with tf32_off():
+            want = kb.bottleneck_identity_backward_reference(*args)
+        torch.cuda.synchronize()
+        bit_equal = all(torch.equal(g, a) for g, a in zip(got, again))
+        errs = {}
+        for key, g, r in zip(BWD_NAMES, got, want):
+            gf, rf = g.float(), r.float()
+            tol = 0.02 * max(float(rf.abs().max()), 1e-3)
+            err = (gf - rf).abs()
+            errs[key] = {"max_abs_err": float(err.max()), "tolerance": tol,
+                         "frac_over_tolerance": float((err > tol).float()
+                                                      .mean()),
+                         "norm_rel_err": float(torch.linalg.vector_norm(
+                             gf - rf) / torch.linalg.vector_norm(rf)),
+                         "finite": bool(torch.isfinite(gf).all())}
+            del err
+        dx_max = float(want[0].float().abs().max())
+        ulp_at_max = 2.0 ** (np.floor(np.log2(dx_max)) - 7)
+        dx_info = {"frac_differ": float((got[0] != want[0]).float().mean()),
+                   "max_bf16_ulps": bf16_ulps(got[0], want[0]),
+                   "max_err_in_bf16_ulps_at_max_twin":
+                       errs["dx"]["max_abs_err"] / ulp_at_max}
+        del got, again, want
+        ms = cuda_ms(lambda: kb.bottleneck_identity_backward(*args), iters=10)
+        with tf32_off():
+            plain_ms = cuda_ms(
+                lambda: kb.bottleneck_identity_backward_reference(*args),
+                iters=3, warmup=1)
+        fwd_ms = cuda_ms(lambda: kb.bottleneck_identity(x, *wts), iters=10)
+        block.requires_grad_(True)
+        x_nchw = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
+        dy_nchw = dy.permute(0, 3, 1, 2)
+
+        def unfused():
+            with torch.autocast(x.device.type, dtype=torch.bfloat16):
+                y = block(x_nchw)
+            y.backward(dy_nchw)
+        unfused_ms = cuda_ms(unfused, iters=10)
+        bound_ms, bound_by = bottleneck_bwd_bound_ms(b, h, w, m)
+        parts = min(sms, b * h)
+        row = {"shape": name, "B": b, "H": h, "W": w, "C": 4 * m, "M": m,
+               "launches_per_step": n_step, "outputs": errs,
+               "dx": dx_info, "bit_equal_across_two_runs": bit_equal,
+               "ms": ms, "plain_ms": plain_ms, "forward_kernel_ms": fwd_ms,
+               "unfused_cudnn_ms": unfused_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "smem_bytes": kb.bwd_smem_bytes(w, m), "blocks": parts,
+               "workspace_bytes": kb.bwd_workspace_bytes(parts, m)}
+        emit({"phase": "bottleneck_bwd_kernel",
+              "kernel": "bottleneck_identity_backward", **row,
+              "library_ms": None,
+              "bars": "the six fp32 sums within 0.02 * max(|twin|, 1e-3) "
+                      "(detjax's bar for its backward); dx within it on "
+                      f"all but {DX_FLIP_SHARE} of its elements and "
+                      "within 0.02 of the twin in the 2-norm: the kernel "
+                      "sums fp32 in other orders than cuDNN, which moves "
+                      "bf16 roundings of y1 and y2 by a step, and where "
+                      "y3 + x, y2 or y1 lies that close to 0 the two "
+                      "decide its ReLU mask differently and dx moves by up "
+                      "to |dy| there; two runs bit-equal (no atomics)"})
+        ok = all(e["finite"] for e in errs.values()) and all(
+            errs[k]["max_abs_err"] <= errs[k]["tolerance"]
+            for k in BWD_NAMES[1:])
+        ok = ok and (errs["dx"]["frac_over_tolerance"] <= DX_FLIP_SHARE
+                     and errs["dx"]["norm_rel_err"] <= 0.02)
+        if not (ok and bit_equal):
+            raise SystemExit(f"the bottleneck backward kernel disagrees with "
+                             f"its twin at {name}: {row}")
+        per_shape.append(row)
+        del x, dy, block, wts, args, x_nchw, dy_nchw
+    total = {k: sum(r[k] * r["launches_per_step"] for r in per_shape)
+             for k in ("ms", "plain_ms", "unfused_cudnn_ms", "bound_ms",
+                       "forward_kernel_ms")}
+    report["bottleneck_identity_bwd_cuda"] = {
+        "name": "bottleneck_identity_bwd_cuda", "route": "cuda",
+        "source": "detjax_torch/csrc/bottleneck_bwd.cu",
+        "replaces": "detjax/kernels/bottleneck.py:270",
+        "launches": None, "match": True,
+        "max_abs_err": max(e["max_abs_err"] for r in per_shape
+                           for e in r["outputs"].values()),
+        "max_abs_err_note": "dx at an element whose ReLU mask flips "
+                            "between the kernel's and cuDNN's fp32 sums",
+        "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "bound_ms": total["bound_ms"],
+        "bound_by": "/".join(sorted({r["bound_by"] for r in per_shape})),
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the fused block's "
+                        "backward; the port's unfused cuDNN block, forward "
+                        "and backward, is unfused_cudnn_ms",
+        "unfused_cudnn_ms": total["unfused_cudnn_ms"],
+        "forward_kernel_ms": total["forward_kernel_ms"],
+        "per": "one R50 train step at 640 px, bs 16: 2 layer1 + 3 layer2 "
                "launches",
         "shapes": per_shape}
 
@@ -1023,6 +1168,167 @@ def phase_train(report: dict, state: dict) -> None:
         raise SystemExit(f"match kernel launched {launches} times in "
                          f"{len(steps)} steps")
     report["match_iou_cuda"]["launches"] = launches
+    state["train"] = {"ms_per_step": step_ms, "img_per_s": b / step_ms * 1e3,
+                      "split_one_step": split, "peak_memory_gib": peak_gb}
+
+
+# The gradients train_fused holds the kernel route to: every parameter of
+# the five fused blocks and of layer1.0, below them (reached only through
+# the kernel's dx).
+FUSED_GRAD_PREFIXES = ("layer1.0.", "layer1.1.", "layer1.2.", "layer2.1.",
+                       "layer2.2.", "layer2.3.")
+
+
+def _fused_grads(train) -> dict:
+    return {n: p.grad.detach().clone()
+            for n, p in train.model.named_parameters()
+            if n.startswith(FUSED_GRAD_PREFIXES)}
+
+
+def phase_train_fused(report: dict, state: dict) -> None:
+    """retinanet_r50_640 training with model.fused_backbone="on" through
+    make_train_state / train_step: bs 16, bf16 autocast, 640 px, the batch
+    and desaturate_ of phase_train. The kernel route against the twin
+    route (model.bottleneck_backend = "torch": the forward twin, by plain
+    autograd) from one state and one batch; then timed steps beside the
+    unfused train phase, with 5 forward and 5 backward fused-block
+    launches and 1 matching launch a step."""
+    import detjax_torch
+    from detjax_torch.kernels import bottleneck as kb
+    from detjax_torch.kernels import matching as km
+    from detjax_torch.train import step as tstep
+
+    t0 = time.perf_counter()
+    train = detjax_torch.make_train_state(
+        "retinanet_r50_640", seed=0, **{"model.fused_backbone": "on"})
+    cfg = train.cfg
+    b = cfg.train.batch_size
+    n_fused = len(train.model.fused_blocks())
+    batch = train_batch(cfg, seed=0)
+    scales = desaturate_(train.model, batch["images"][:4], cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # 1. kernel route vs twin route from one state and one batch
+    twin = copy.deepcopy(train)
+    twin.model.bottleneck_backend = "torch"
+    kb.bottleneck_bwd_launches = 0
+    loss_k = float(tstep.compute_gradients(train, batch)[0])
+    route_bwd = kb.bottleneck_bwd_launches
+    grads_k = _fused_grads(train)
+    with tf32_off():
+        loss_t = float(tstep.compute_gradients(twin, batch)[0])
+    grads_t = _fused_grads(twin)
+    twin_bwd = kb.bottleneck_bwd_launches - route_bwd
+    del twin
+    grad_errs = {}
+    for n, gt in grads_t.items():
+        err = float((grads_k[n] - gt).abs().max())
+        tol = 0.05 * float(gt.abs().max())
+        grad_errs[n] = (err, tol)
+    bad = {n: v for n, v in grad_errs.items()
+           if not (np.isfinite(v[0]) and v[0] <= v[1])}
+    worst = max(grad_errs, key=lambda n: grad_errs[n][0]
+                / max(grad_errs[n][1], 1e-30))
+    before = _params(train)
+    _, m1 = detjax_torch.train_step(train, batch)
+    after = _params(train)
+    unchanged = [n for n in before if torch.equal(before[n], after[n])]
+    del before, after, grads_k, grads_t
+    emit({"phase": "train_fused_routes", "fused_blocks": n_fused,
+          "loss_kernel_route": loss_k, "loss_twin_route": loss_t,
+          "loss_tolerance": "1e-2 relative",
+          "bottleneck_bwd_launches": {"kernel_route": route_bwd,
+                                      "twin_route": twin_bwd},
+          "grads_compared": len(grad_errs),
+          "worst_grad": {"name": worst, "max_abs_err": grad_errs[worst][0],
+                         "tolerance": grad_errs[worst][1]},
+          "grads_outside": bad,
+          "grad_tolerance": "0.05 x max|twin| per tensor, over the fused "
+                            "blocks' and layer1.0's parameters: bf16 "
+                            "products summed in other orders (the kernels "
+                            "against cuDNN's fp32 twin convolutions), "
+                            "carried back through up to 5 blocks",
+          "trainable_tensors": len(_params(train)),
+          "unchanged_after_step_1": unchanged,
+          "step_1_loss": float(m1["loss"])})
+    if n_fused != 5 or route_bwd != 5 or twin_bwd != 0:
+        raise SystemExit(f"expected 5 fused blocks and 5 backward launches "
+                         f"on the kernel route only, got {n_fused}, "
+                         f"{route_bwd}, {twin_bwd}")
+    if not abs(loss_k - loss_t) <= 1e-2 * abs(loss_t):
+        raise SystemExit(f"fused-route loss differs from the twin route: "
+                         f"{loss_k} vs {loss_t}")
+    if bad:
+        raise SystemExit(f"fused-route gradients outside the bar: {bad}")
+    if unchanged:
+        raise SystemExit(f"trainable tensors unchanged by step 1 with "
+                         f"fused_backbone='on': {unchanged}")
+
+    # 2. the main path: warm-up, timed steps, one step split by events
+    warmup, timed = 2, 6
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kb.bottleneck_launches = kb.bottleneck_bwd_launches = 0
+    kb.bottleneck_bwd_grad_copies = 0
+    km.match_launches = 0
+    steps = []
+    for _ in range(warmup):
+        steps.append(detjax_torch.train_step(train, batch)[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        steps.append(detjax_torch.train_step(train, batch)[1])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / timed * 1e3
+    events = {"start": torch.cuda.Event(enable_timing=True)}
+
+    def record(name):
+        events[name] = torch.cuda.Event(enable_timing=True)
+        events[name].record()
+
+    events["start"].record()
+    steps.append(detjax_torch.train_step(train, batch, record=record)[1])
+    torch.cuda.synchronize()
+    n = len(steps)
+    launches = {"bottleneck_fwd": kb.bottleneck_launches,
+                "bottleneck_bwd": kb.bottleneck_bwd_launches,
+                "match": km.match_launches}
+    copies = kb.bottleneck_bwd_grad_copies
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    order = ["start", "forward", "loss", "backward", "update"]
+    split = {f"{b_}_ms": events[a_].elapsed_time(events[b_])
+             for a_, b_ in zip(order, order[1:])}
+    split["step_ms"] = events["start"].elapsed_time(events["update"])
+    per_step = [{k: float(v) for k, v in m.items()} for m in steps]
+    finite = all(np.isfinite(list(m.values())).all() for m in per_step)
+    unfused = state["train"]
+    emit({"phase": "train_fused", "preset": cfg.model.name,
+          "fused_backbone": cfg.model.fused_backbone,
+          "dtype": cfg.model.dtype, "batch": b,
+          "canvas": list(cfg.model.image_size),
+          "output_scales": scales, "setup_s": setup_s,
+          "steps_in_window": n, "launches_in_window": launches,
+          "launches_per_step": {k: v / n for k, v in launches.items()},
+          "grad_out_copies_per_step": copies / n,
+          "losses": [m["loss"] for m in per_step],
+          "ms_per_step": step_ms, "img_per_s": b / step_ms * 1e3,
+          "split_one_step": split, "peak_memory_gib": peak_gb,
+          "unfused_ms_per_step": unfused["ms_per_step"],
+          "unfused_img_per_s": unfused["img_per_s"],
+          "unfused_split_one_step": unfused["split_one_step"],
+          "unfused_peak_memory_gib": unfused["peak_memory_gib"],
+          "card": state["card"]})
+    if not finite:
+        raise SystemExit("a fused training metric is not finite")
+    if launches != {"bottleneck_fwd": 5 * n, "bottleneck_bwd": 5 * n,
+                    "match": n}:
+        raise SystemExit(f"expected 5 forward, 5 backward fused-block "
+                         f"launches and 1 matching launch a step in {n} "
+                         f"steps, got {launches}")
+    report["bottleneck_identity_bwd_cuda"]["launches"] = launches[
+        "bottleneck_bwd"]
+    report["bottleneck_identity_bwd_cuda"]["launches_per_step"] = 5
 
 
 def main() -> int:
@@ -1044,11 +1350,13 @@ def main() -> int:
     phase_kernel(report)
     phase_match_kernel(report)
     phase_bottleneck_kernel(report)
+    phase_bottleneck_bwd_kernel(report)
     phase_reference()
     phase_main(report, state)
     phase_main_fused(report, state)
     phase_serve(state)
     phase_train(report, state)
+    phase_train_fused(report, state)
     emit({"kernels": list(report.values())})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

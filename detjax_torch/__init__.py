@@ -4,11 +4,13 @@ detjax (the JAX package beside this one) is the reference. This package
 carries its serving path (``build_model`` -> ``detect`` / ``detect_u8`` ->
 the micro-batching ``DetectionServer``) and its training path
 (``make_train_state`` -> ``train_step``), at the full width of every
-RetinaNet preset, and serving with ``model.fused_backbone="on"``. detjax's
-Pallas kernels on those paths are replaced by CUDA kernels written by hand
-for ``sm_90a``: NMS (``detjax_torch/csrc/nms.cu``), anchor matching
+RetinaNet preset, and serving and training with
+``model.fused_backbone="on"``. detjax's Pallas kernels on those paths are
+replaced by CUDA kernels written by hand for ``sm_90a``: NMS
+(``detjax_torch/csrc/nms.cu``), anchor matching
 (``detjax_torch/csrc/matching.cu``) and the fused identity bottleneck's
-forward (``detjax_torch/csrc/bottleneck.cu``).
+forward (``detjax_torch/csrc/bottleneck.cu``) and backward
+(``detjax_torch/csrc/bottleneck_bwd.cu``).
 
 Ground rules:
 

@@ -1,37 +1,47 @@
-"""Fused identity bottleneck, forward: the CUDA kernel's wrapper and its twin.
+"""Fused identity bottleneck: the CUDA kernels' wrappers and their twins.
 
-``bottleneck_identity`` replaces the TPU kernel ``detjax/kernels/
-bottleneck.py::_bottleneck_fwd`` (body ``_fwd_kernel``) with the
-hand-written kernel in ``detjax_torch/csrc/bottleneck.cu``. It computes a
-whole stride-1 ResNet identity block with its frozen BatchNorms folded
-into the convs: ``relu(conv3(relu(conv2(relu(conv1(x))))) + x)``, in bf16
-with fp32 accumulation, and keeps y1 and y2 out of device memory. One
-block takes two output rows of one image; y1 for those rows and their
-halo rows sits in shared memory with zeroed borders, so the 3x3's zero
-padding costs nothing.
+``bottleneck_identity`` replaces the TPU kernels ``detjax/kernels/
+bottleneck.py::_bottleneck_fwd`` (body ``_fwd_kernel``) and, for its
+gradient, ``_bottleneck_bwd`` (body ``_bwd_kernel``) with the hand-written
+kernels in ``detjax_torch/csrc/bottleneck.cu`` and
+``detjax_torch/csrc/bottleneck_bwd.cu``. The forward computes a whole
+stride-1 ResNet identity block with its frozen BatchNorms folded into the
+convs: ``relu(conv3(relu(conv2(relu(conv1(x))))) + x)``, in bf16 with fp32
+accumulation, and keeps y1 and y2 out of device memory. One block takes two
+output rows of one image; y1 for those rows and their halo rows sits in
+shared memory with zeroed borders, so the 3x3's zero padding costs nothing.
+The backward recomputes y1 and y2 on chip from x and returns dx and the six
+weight and bias gradients, rounding where ``_bwd_kernel`` rounds; its note
+says how the cross-block sums are made (a workspace slice per block, summed
+in a fixed order: the bits do not change between runs).
 
-What bounds it on an H100: bytes at the main path's shapes, reading x and
-writing the output once (210 MB for layer1 at B=8, 0.063 ms at 3.35 TB/s),
-with the tensor-core operations just below (28.5 GFLOP, 0.029 ms at 989
-TFLOP/s). The kernel uses ``nvcuda::wmma`` bf16 fragments with fp32
-accumulators, reads the weights from global memory through L1/L2, and
-recomputes conv1 on the two halo rows of each block; it is far from that
-bound, and its times are in ``PERF.md``.
+What bounds them on an H100: the forward is bound by bytes at the main
+path's shapes, reading x and writing the output once (210 MB for layer1 at
+B=8, 0.063 ms at 3.35 TB/s), with the tensor-core operations just below
+(28.5 GFLOP, 0.029 ms at 989 TFLOP/s). The backward at the training shapes
+(B=16) is bound by bytes at layer1 (x and dy read, dx written: 0.188 ms) and
+by operations at layer2 (three times the forward's: 0.173 ms). Both use
+``nvcuda::wmma`` bf16 fragments with fp32 accumulators and are far from
+those bounds; their times are in ``PERF.md``.
 
-Layout: NHWC, as detjax's kernel takes it. The port's modules hold NCHW
+Layout: NHWC, as detjax's kernels take it. The port's modules hold NCHW
 tensors in ``channels_last`` memory, so ``x.permute(0, 2, 3, 1)`` is
 already a contiguous NHWC view and the output's ``permute(0, 3, 1, 2)``
 is a ``channels_last`` NCHW view: no transpose runs on the main path. The
-folded weights are small contiguous copies made per call.
+folded weights are small contiguous copies.
 
 Routing: :func:`bottleneck_identity` runs the autograd function
-``_FusedBottleneck`` whose forward sends a CPU tensor to the plain twin
-:func:`bottleneck_identity_reference` and a CUDA tensor to the kernel (or
-raises), and whose backward raises ``NotImplementedError``: the backward
-kernel is the next slice of the port. Tests and ``chip_smoke.py`` call
-the twin directly on any device to compare whole paths
-(``Detector.bottleneck_backend="torch"``). ``bottleneck_launches`` counts
-kernel launches, and nothing else.
+``_FusedBottleneck``. Its forward sends a CPU tensor to the plain twin
+:func:`bottleneck_identity_reference` and a CUDA tensor to the forward
+kernel (or raises); its backward sends CPU tensors to the plain twin
+:func:`bottleneck_identity_backward_reference` and CUDA tensors to the
+backward kernel (or raises). Tests and ``chip_smoke.py`` call the twins
+directly on any device to compare whole paths
+(``Detector.bottleneck_backend="torch"`` differentiates through the forward
+twin by plain autograd). ``bottleneck_launches`` and
+``bottleneck_bwd_launches`` count kernel launches, and nothing else;
+``bottleneck_bwd_grad_copies`` counts gradients that arrived in another
+layout or dtype than the kernel takes and were copied.
 """
 
 from __future__ import annotations
@@ -43,17 +53,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# Widths the kernel is instantiated for (M = C / 4): R50/101/152's layer1
+# Widths the kernels are instantiated for (M = C / 4): R50/101/152's layer1
 # and layer2 (64, 128) and narrow test widths.
 WIDTHS = (16, 32, 64, 128)
 
-BACKWARD_SLICE = ("the backward of the fused bottleneck (_bottleneck_bwd) "
-                  "is not ported yet; it is the next slice of the port "
-                  "(ROADMAP.md Queue 2 #5)")
-
 bottleneck_launches = 0
+bottleneck_bwd_launches = 0
+bottleneck_bwd_grad_copies = 0
 
 _LIB = None
+_BWD_LIB = None
 
 
 def _lib():
@@ -72,10 +81,40 @@ def _lib():
     return _LIB
 
 
+def _bwd_lib():
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        from detjax_torch.kernels._build import load_library
+
+        lib = load_library("detjax_bottleneck_bwd", ["bottleneck_bwd.cu"])
+        fn = lib.detjax_bottleneck_bwd_launch
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.detjax_bottleneck_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.detjax_bottleneck_bwd_smem_bytes.restype = ctypes.c_int
+        lib.detjax_bottleneck_bwd_slice_floats.argtypes = [ctypes.c_int]
+        lib.detjax_bottleneck_bwd_slice_floats.restype = ctypes.c_int
+        _BWD_LIB = lib
+    return _BWD_LIB
+
+
 def smem_bytes(w: int, m: int) -> int:
-    """Dynamic shared memory of one kernel block at width ``w`` and
+    """Dynamic shared memory of one forward-kernel block at width ``w`` and
     ``M = m``, as the launcher computes it (builds the library)."""
     return int(_lib().detjax_bottleneck_smem_bytes(w, m))
+
+
+def bwd_smem_bytes(w: int, m: int) -> int:
+    """Dynamic shared memory of one backward-kernel block at width ``w`` and
+    ``M = m``, as the launcher computes it (builds the library)."""
+    return int(_bwd_lib().detjax_bottleneck_bwd_smem_bytes(w, m))
+
+
+def bwd_workspace_bytes(parts: int, m: int) -> int:
+    """Bytes of the backward's fp32 workspace: one slice per block of the
+    persistent grid (``parts`` blocks) at ``M = m`` (builds the library)."""
+    return 4 * parts * int(_bwd_lib().detjax_bottleneck_bwd_slice_floats(m))
 
 
 def bottleneck_identity_reference(x: torch.Tensor, w1: torch.Tensor,
@@ -106,6 +145,58 @@ def bottleneck_identity_reference(x: torch.Tensor, w1: torch.Tensor,
     return out.permute(0, 2, 3, 1)
 
 
+def bottleneck_identity_backward_reference(
+        x: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+        w2: torch.Tensor, b2: torch.Tensor, w3: torch.Tensor,
+        b3: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of ``_bwd_kernel``'s math on whole images:
+    fp32 convolutions with autocast off, y1 and y2 recomputed and rounded
+    as the forward rounds them, and the kernel's roundings of the
+    gradients: bf16 at dy3, dc2 and dc1 before each product, fp32 bias
+    sums, the ReLU masks on ``y3 + x`` in fp32 and on the bf16 y2 and y1,
+    and ``dx = bf16(dy3 + bf16(dc1) @ w1^T)`` with the unrounded dy3.
+
+    x and dy [B, H, W, C] bf16 NHWC, weights as :func:`bottleneck_identity`.
+    Returns ``(dx, dw1, db1, dw2, db2, dw3, db3)``: dx [B, H, W, C] bf16,
+    the rest fp32 in the shapes of w1, b1, w2, b2, w3, b3."""
+    with torch.autocast(device_type=x.device.type, enabled=False):
+        def nchw(t):
+            return t.to(torch.bfloat16).permute(0, 3, 1, 2).float()
+
+        def bf(t):
+            return t.to(torch.bfloat16).float()
+
+        def conv1x1(v, w_io):  # w_io [I, O]
+            return F.conv2d(v, w_io.float().t()[:, :, None, None])
+
+        def bias(b):
+            return b.float().reshape(1, -1, 1, 1)
+
+        k2 = w2.float().permute(3, 2, 0, 1)  # OIHW
+        xf, g = nchw(x), nchw(dy)
+        y1 = bf(torch.relu(conv1x1(xf, w1) + bias(b1)))
+        y2 = bf(torch.relu(F.conv2d(y1, k2, padding=1) + bias(b2)))
+        y3 = conv1x1(y2, w3) + bias(b3)
+        dy3 = torch.where(y3 + xf > 0, g, 0.0)
+        dy3b = bf(dy3)
+        dc2 = torch.where(y2 > 0, conv1x1(dy3b, w3.t()), 0.0)
+        dc2b = bf(dc2)
+        dy1 = F.conv_transpose2d(dc2b, k2, padding=1)
+        dc1 = torch.where(y1 > 0, dy1, 0.0)
+        dc1b = bf(dc1)
+        dx = (dy3 + conv1x1(dc1b, w1.t())).to(torch.bfloat16)
+        dw1 = torch.einsum("nchw,nmhw->cm", xf, dc1b)
+        dw2 = torch.nn.grad.conv2d_weight(y1, tuple(k2.shape), dc2b,
+                                          padding=1).permute(2, 3, 1, 0)
+        dw3 = torch.einsum("nmhw,nchw->mc", y2, dy3b)
+
+        def bias_sum(v):
+            return v.sum(dim=(0, 2, 3))[None]
+
+    return (dx.permute(0, 2, 3, 1).contiguous(), dw1, bias_sum(dc1),
+            dw2.contiguous(), bias_sum(dc2), dw3, bias_sum(dy3))
+
+
 def _check(x, w1, b1, w2, b2, w3, b3) -> Tuple[int, int, int, int, int]:
     if x.dim() != 4:
         raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
@@ -129,22 +220,30 @@ def _check(x, w1, b1, w2, b2, w3, b3) -> Tuple[int, int, int, int, int]:
     return bsz, h, w, c, m
 
 
-def _launch(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
-    """Checks what the kernel takes, then launches it on the current
-    stream; raises on anything else."""
-    global bottleneck_launches
+def _check_kernel_args(x, w1, b1, w2, b2, w3, b3, dy=None
+                       ) -> Tuple[int, int, int, int, int]:
+    """What both kernels take, beyond :func:`_check`; raises on anything
+    else."""
     bsz, h, w, c, m = _check(x, w1, b1, w2, b2, w3, b3)
-    for name, t in (("x", x), ("w1", w1), ("w2", w2), ("w3", w3)):
+    bf16 = [("x", x), ("w1", w1), ("w2", w2), ("w3", w3)]
+    if dy is not None:
+        if tuple(dy.shape) != tuple(x.shape):
+            raise ValueError(f"dy must be {tuple(x.shape)}, got "
+                             f"{tuple(dy.shape)}")
+        if dy.device != x.device:
+            raise ValueError("x, dy and the weights must be on one device")
+        bf16.append(("dy", dy))
+    for name, t in bf16:
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
-    for name, t in (("b1", b1), ("b2", b2), ("b3", b3)):
+    fp32 = [("b1", b1), ("b2", b2), ("b3", b3)]
+    for name, t in fp32:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-    for name, t in (("x", x), ("w1", w1), ("b1", b1), ("w2", w2),
-                    ("b2", b2), ("w3", w3), ("b3", b3)):
+    for name, t in bf16 + fp32:
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous (x as NHWC)")
-    for name, t in (("x", x), ("w1", w1), ("w2", w2), ("w3", w3)):
+            raise ValueError(f"{name} must be contiguous (x and dy as NHWC)")
+    for name, t in bf16:
         if t.data_ptr() % 32:
             raise ValueError(f"{name} must be 32-byte aligned (wmma tiles)")
     if m not in WIDTHS:
@@ -152,13 +251,24 @@ def _launch(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     if w % 16:
         raise ValueError(f"W={w} must be a multiple of 16 (16-pixel tiles "
                          f"within one row)")
+    return bsz, h, w, c, m
+
+
+def _stream(dev: torch.device) -> Tuple[int, int]:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(index).cuda_stream
+
+
+def _launch(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+    """Checks what the forward kernel takes, then launches it on the
+    current stream; raises on anything else."""
+    global bottleneck_launches
+    bsz, h, w, c, m = _check_kernel_args(x, w1, b1, w2, b2, w3, b3)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     lib = _lib()
-    dev = x.device
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(index).cuda_stream
+    index, stream = _stream(x.device)
     err = lib.detjax_bottleneck_fwd_launch(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
@@ -171,12 +281,55 @@ def _launch(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     return out
 
 
+def _launch_backward(x, dy, w1, b1, w2, b2, w3, b3
+                     ) -> Tuple[torch.Tensor, ...]:
+    """Checks what the backward kernel takes, then launches it (and its
+    slice sum) on the current stream; raises on anything else. Returns the
+    twin's outputs: ``(dx, dw1, db1, dw2, db2, dw3, db3)``, all but dx fp32
+    views of one summed buffer."""
+    global bottleneck_bwd_launches
+    bsz, h, w, c, m = _check_kernel_args(x, w1, b1, w2, b2, w3, b3, dy=dy)
+    dx = torch.empty_like(x)
+    sizes = (c * m, 9 * m * m, m * c, m, m, c)
+    if x.numel() == 0:
+        flat = torch.zeros(sum(sizes), dtype=torch.float32, device=x.device)
+    else:
+        lib = _bwd_lib()
+        index, stream = _stream(x.device)
+        parts = min(torch.cuda.get_device_properties(index)
+                    .multi_processor_count, bsz * h)
+        slice_floats = int(lib.detjax_bottleneck_bwd_slice_floats(m))
+        if slice_floats != sum(sizes):
+            raise RuntimeError(f"the backward library sums {slice_floats} "
+                               f"floats at M={m}, expected {sum(sizes)}")
+        ws = torch.empty(parts, slice_floats, dtype=torch.float32,
+                         device=x.device)
+        flat = torch.empty(slice_floats, dtype=torch.float32, device=x.device)
+        err = lib.detjax_bottleneck_bwd_launch(
+            x.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), w3.data_ptr(), b3.data_ptr(),
+            dx.data_ptr(), ws.data_ptr(), flat.data_ptr(), bsz, h, w, m,
+            parts, index, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"bottleneck backward kernel launch failed: cudaError {err} "
+                f"(W={w}, M={m}: {bwd_smem_bytes(w, m)} bytes of shared "
+                f"memory a block)")
+        bottleneck_bwd_launches += 1
+    dw1, dw2, dw3, db1, db2, db3 = flat.split(sizes)
+    return (dx, dw1.view(c, m), db1.view(1, m), dw2.view(3, 3, m, m),
+            db2.view(1, m), dw3.view(m, c), db3.view(1, c))
+
+
 class _FusedBottleneck(torch.autograd.Function):
-    """The kernel (or, for CPU tensors, the twin) as an autograd function
-    whose backward is the next slice of the port."""
+    """The kernels (or, for CPU tensors, the twins) as one autograd
+    function, after detjax's custom VJP (``_op_fwd`` / ``_op_bwd``): the
+    forward saves x and the six folded tensors, the backward recomputes
+    from them."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, w3, b3):
+        ctx.save_for_backward(x, w1, b1, w2, b2, w3, b3)
         if x.device.type == "cpu":
             return bottleneck_identity_reference(x, w1, b1, w2, b2, w3, b3)
         if x.device.type != "cuda":
@@ -185,16 +338,28 @@ class _FusedBottleneck(torch.autograd.Function):
         return _launch(x, w1, b1, w2, b2, w3, b3)
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
-        raise NotImplementedError(BACKWARD_SLICE)
+        global bottleneck_bwd_grad_copies
+        x, w1, b1, w2, b2, w3, b3 = ctx.saved_tensors
+        dy = grad_out
+        if dy.dtype != torch.bfloat16 or not dy.is_contiguous():
+            bottleneck_bwd_grad_copies += 1
+            dy = dy.to(torch.bfloat16).contiguous()
+        dx, dw1, db1, dw2, db2, dw3, db3 = bottleneck_identity_backward(
+            x, dy, w1, b1, w2, b2, w3, b3)
+        # as detjax's _op_bwd: weight gradients in the folded weights'
+        # dtype (bf16), bias gradients fp32
+        return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+                db2.to(b2.dtype), dw3.to(w3.dtype), db3.to(b3.dtype))
 
 
 def bottleneck_identity(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                         w2: torch.Tensor, b2: torch.Tensor, w3: torch.Tensor,
                         b3: torch.Tensor) -> torch.Tensor:
     """Fused stride-1 identity bottleneck, BN folded into w and b: the CUDA
-    kernel for CUDA tensors, the plain twin for CPU tensors; not
-    differentiable.
+    kernels for CUDA tensors, the plain twins for CPU tensors; its gradient
+    is the backward kernel's (or twin's).
 
     x [B, H, W, C] bf16 NHWC; w1 [C, M], w2 [3, 3, M, M] (HWIO), w3 [M, C]
     bf16; b1 [1, M], b2 [1, M], b3 [1, C] fp32 (:meth:`detjax_torch.
@@ -203,6 +368,26 @@ def bottleneck_identity(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """
     _check(x, w1, b1, w2, b2, w3, b3)
     return _FusedBottleneck.apply(x, w1, b1, w2, b2, w3, b3)
+
+
+def bottleneck_identity_backward(x: torch.Tensor, dy: torch.Tensor,
+                                 w1: torch.Tensor, b1: torch.Tensor,
+                                 w2: torch.Tensor, b2: torch.Tensor,
+                                 w3: torch.Tensor, b3: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, ...]:
+    """The fused block's backward: the CUDA kernel for CUDA tensors (or
+    raises), the plain twin :func:`bottleneck_identity_backward_reference`
+    for CPU tensors. x and dy [B, H, W, C] bf16 NHWC, the folded weights as
+    :func:`bottleneck_identity`. Returns ``(dx, dw1, db1, dw2, db2, dw3,
+    db3)``: dx bf16, the sums fp32 in the shapes of the weights."""
+    if x.device.type == "cpu":
+        _check(x, w1, b1, w2, b2, w3, b3)
+        return bottleneck_identity_backward_reference(
+            x, dy, w1, b1, w2, b2, w3, b3)
+    if x.device.type != "cuda":
+        raise ValueError(f"bottleneck_identity_backward takes CPU or CUDA "
+                         f"tensors, got {x.device}")
+    return _launch_backward(x, dy, w1, b1, w2, b2, w3, b3)
 
 
 def seeded_block(seed: int, b: int, h: int, w: int, m: int, device):

@@ -21,8 +21,9 @@ box deltas to fp32 itself.
 layer1 and layer2 into one CUDA kernel each (5 blocks at R50 and R101, 9
 at R152) when ``model.dtype="bfloat16"``, as detjax does; with
 ``"float32"`` it takes no fused route, as in detjax. "auto" resolves to
-"off" here: in detjax it means "on a TPU backend only". The fused blocks'
-backward is not ported yet (``train/step.py`` refuses "on"). The
+"off" here: in detjax it means "on a TPU backend only". Training with "on"
+runs the fused blocks' backward through a second CUDA kernel, and trains
+every parameter, the folded BatchNorms' affines included. The
 ``bottleneck_backend`` attribute ("auto", or "torch" for the plain twin)
 exists for tests and ``chip_smoke.py`` to compare whole paths.
 """

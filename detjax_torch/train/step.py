@@ -115,17 +115,12 @@ def make_train_state(preset, seed: int = 0, device=None,
     """A fresh :class:`TrainState` for ``preset``: the model of
     :func:`detjax_torch.modeling.build_model` with weights drawn from
     ``seed``, on ``device`` (default ``cuda``; raises without a GPU unless
-    ``device="cpu"``), every parameter trainable. Refuses
-    ``model.fused_backbone="on"``: the fused block's backward kernel is
-    not ported yet, and training the unfused blocks instead would not be
-    what was asked for."""
+    ``device="cpu"``), every parameter trainable. With
+    ``model.fused_backbone="on"`` (bf16) the fused identity blocks train
+    through the fused kernels' forward and backward, their frozen-BN
+    affines included: autograd carries the kernel's gradients of the
+    folded weights back through the fold, as in detjax."""
     cfg = _config(preset, overrides)
-    if cfg.model.fused_backbone == "on":
-        from detjax_torch.kernels.bottleneck import BACKWARD_SLICE
-
-        raise NotImplementedError(
-            f"make_train_state with model.fused_backbone='on': "
-            f"{BACKWARD_SLICE}")
     model = build_model(cfg, seed, device)
     model.train().requires_grad_(True)
     params = [p for _, p in trainable_parameters(model)]

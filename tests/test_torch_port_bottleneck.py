@@ -15,11 +15,14 @@ import torch
 
 from detjax.config import get_config as j_get_config
 from detjax.kernels.bottleneck import (
+    _bottleneck_bwd as j_bottleneck_bwd,
+    _pick_th as j_pick_th,
     bottleneck_identity as j_bottleneck_identity,
     bottleneck_identity_reference as j_bottleneck_reference,
 )
 from detjax.modeling import build_model as j_build_model
 from detjax.models.detector import build_detector as j_build_detector
+from detjax.models.resnet import BottleneckBlock as JBottleneckBlock
 from detjax.models.resnet import _fold_bn as j_fold_bn
 
 import detjax_torch
@@ -333,3 +336,135 @@ def test_fused_blocks_per_depth(depth, want):
            if isinstance(m, Bottleneck) and m.fused]
     assert got == want
     assert len(model.fused_blocks()) == len(want)
+
+
+# -- the backward ----------------------------------------------------------
+
+# detjax's bar for its backward kernel against autodiff of its oracle
+# (tests/test_kernels.py:196-197): max |a - b| < 0.02 * max(|b|, 1e-3)
+BWD_BAR = 0.02
+BWD_NAMES = ("dx", "dw1", "db1", "dw2", "db2", "dw3", "db3")
+
+
+def _bwd_within_bar(got, want, names) -> None:
+    for name, g, w in zip(names, got, want):
+        g, w = np.asarray(g, np.float32), np.asarray(w, np.float32)
+        assert g.shape == w.shape, name
+        assert np.abs(g - w).max() <= BWD_BAR * max(np.abs(w).max(), 1e-3), \
+            name
+
+
+def _torch_args(args):
+    t = [torch.from_numpy(np.array(a)) for a in args]
+    for i in (0, 1, 3, 5):
+        t[i] = t[i].to(torch.bfloat16)
+    return t
+
+
+@pytest.mark.parametrize("b,h,w,c", [
+    (1, 16, 16, 64),  # detjax's own test shape: one row tile
+    (2, 64, 32, 64),  # _pick_th gives 32 rows: two row tiles, halo paths
+])
+def test_backward_twin_matches_detjax_bwd_kernel(b, h, w, c):
+    """(i) The backward twin against detjax's _bottleneck_bwd in interpret
+    mode, all seven outputs, within detjax's bar. Both round at the same
+    places, so they agree far inside it: measured, dx equal to the bit and
+    the fp32 sums within 1e-5 of their max (summation order only)."""
+    if (b, h) == (2, 64):
+        assert h // j_pick_th(h, w, c, backward=True) == 2
+    args = _block_args(7, b=b, h=h, w=w, c=c)
+    dy = _np(jnp.asarray(np.random.default_rng(8).normal(0, 1, args[0].shape),
+                         jnp.bfloat16))
+    ja = _jax(args)
+    want = j_bottleneck_bwd(ja[0], jnp.asarray(dy, jnp.bfloat16), *ja[1:],
+                            interpret=True)
+    ta = _torch_args(args)
+    got = kb.bottleneck_identity_backward_reference(
+        ta[0], torch.from_numpy(np.array(dy)).to(torch.bfloat16), *ta[1:])
+    assert got[0].dtype == torch.bfloat16
+    assert all(g.dtype == torch.float32 for g in got[1:])
+    _bwd_within_bar([g.float().numpy() for g in got],
+                    [_np(w).reshape(g.shape) for w, g in zip(want, got)],
+                    BWD_NAMES)
+
+
+def test_autograd_through_wrapper_matches_detjax_grad():
+    """(ii) torch.autograd through the port's bottleneck_identity on CPU
+    tensors (its backward runs the backward twin) against jax.grad of
+    detjax's bottleneck_identity in interpret mode, for sum(out^2), with
+    detjax's bar; the gradients come back in the inputs' dtypes."""
+    args = _block_args(9, b=1, h=16, w=16, c=64)
+
+    def loss(a):
+        return jnp.sum(j_bottleneck_identity(*a, interpret=True).astype(
+            jnp.float32) ** 2)
+
+    want = jax.grad(loss)(tuple(_jax(args)))
+    leaves = [t.requires_grad_(True) for t in _torch_args(args)]
+    before = kb.bottleneck_bwd_launches
+    out = kb.bottleneck_identity(*leaves)
+    (out.float() ** 2).sum().backward()
+    assert kb.bottleneck_bwd_launches == before
+    for leaf in leaves:
+        assert leaf.grad.dtype == leaf.dtype
+    _bwd_within_bar([t.grad.float().numpy() for t in leaves],
+                    [_np(w) for w in want], ("x",) + BWD_NAMES[1:])
+
+
+def test_fused_block_gradients_match_flax_block():
+    """(iii) A port Bottleneck(fused=True) with perturbed frozen-BN
+    statistics against flax's BottleneckBlock(fused=True), gradients of
+    sum(out^2) with respect to x, the three conv kernels and the three BN
+    scales and biases, through the fold, within 0.02 x max|ref| (detjax's
+    kernel bar): the two frameworks sum fp32 in other orders."""
+    rng = np.random.default_rng(11)
+    c, m = 64, 16
+    x = _np(jnp.asarray(rng.normal(0, 1, (2, 16, 16, c)), jnp.bfloat16))
+    convs = {"conv1": (1, 1, c, m), "conv2": (3, 3, m, m),
+             "conv3": (1, 1, m, c)}
+    params, stats = {}, {}
+    for name, shape in convs.items():
+        params[name] = {"kernel": rng.normal(
+            0, (2.0 / np.prod(shape[:3])) ** 0.5, shape).astype(np.float32)}
+        scale, bias, mean, var = _bn_stats(rng, shape[-1])
+        bn = "bn" + name[-1]
+        params[bn] = {"scale": scale, "bias": bias}
+        stats[bn] = {"mean": mean, "var": var}
+    jblock = JBottleneckBlock(filters=m, fused=True, dtype=jnp.bfloat16)
+
+    def loss(p, xj):
+        out = jblock.apply({"params": p, "batch_stats": stats}, xj)
+        return jnp.sum(out.astype(jnp.float32) ** 2)
+
+    gp, gx = jax.grad(loss, argnums=(0, 1))(
+        jax.tree_util.tree_map(jnp.asarray, params),
+        jnp.asarray(x, jnp.bfloat16))
+
+    block = Bottleneck(c, m, fused=True).to(memory_format=torch.channels_last)
+    with torch.no_grad():
+        for name in convs:
+            getattr(block, name).weight.copy_(torch.from_numpy(
+                params[name]["kernel"].transpose(3, 2, 0, 1)))
+            bn = getattr(block, "bn" + name[-1])
+            for attr, src in (("weight", params["bn" + name[-1]]["scale"]),
+                              ("bias", params["bn" + name[-1]]["bias"]),
+                              ("running_mean", stats["bn" + name[-1]]["mean"]),
+                              ("running_var", stats["bn" + name[-1]]["var"])):
+                getattr(bn, attr).copy_(torch.from_numpy(src))
+    xt = torch.from_numpy(np.array(x)).to(torch.bfloat16).permute(0, 3, 1, 2)
+    xt.requires_grad_(True)
+    (block(xt).float() ** 2).sum().backward()
+
+    got = {"x": xt.grad.permute(0, 2, 3, 1).float().numpy()}
+    want = {"x": _np(gx)}
+    for name in convs:
+        got[name] = getattr(block, name).weight.grad.permute(
+            2, 3, 1, 0).numpy()
+        want[name] = _np(gp[name]["kernel"])
+        bn = "bn" + name[-1]
+        got[bn + ".scale"] = getattr(block, bn).weight.grad.numpy()
+        want[bn + ".scale"] = _np(gp[bn]["scale"])
+        got[bn + ".bias"] = getattr(block, bn).bias.grad.numpy()
+        want[bn + ".bias"] = _np(gp[bn]["bias"])
+    assert len(got) == 10
+    _bwd_within_bar([got[k] for k in want], list(want.values()), list(want))

@@ -280,7 +280,7 @@ def test_bottleneck_wrapper_raises_instead_of_falling_back(cuda):
 def test_fused_detect_path_runs_the_kernel(cuda):
     """fused_backbone="on" at R50, 128 px: five kernel launches a forward,
     none through the twin route; a backward through the fused blocks
-    raises."""
+    launches the backward kernel five times."""
     import detjax_torch
     from detjax_torch.kernels import bottleneck as kb
 
@@ -303,5 +303,150 @@ def test_fused_detect_path_runs_the_kernel(cuda):
     model.requires_grad_(True)
     x = torch.zeros(1, 3, 128, 128, device=cuda)
     cls, _ = model(x)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        cls.float().sum().backward()
+    bwd_before = kb.bottleneck_bwd_launches
+    cls.float().sum().backward()
+    torch.cuda.synchronize()
+    assert kb.bottleneck_bwd_launches == bwd_before + 5
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for blk in model.fused_blocks() for p in blk.parameters())
+
+
+# -- fused identity bottleneck, backward ---------------------------------------
+
+def _bwd_case(seed, b, h, w, m, device):
+    from detjax_torch.kernels import bottleneck as kb
+
+    x, weights = _bottleneck_case(seed, b, h, w, m, device)
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.from_numpy(rng.normal(0, 1, x.shape).astype(np.float32)).to(
+        device, torch.bfloat16)
+    return x, dy, weights
+
+
+@pytest.mark.parametrize("b,h,w,m", [
+    (2, 8, 16, 16),  # small
+    (1, 7, 32, 32),  # B=1, odd H
+    (3, 5, 48, 64),  # layer1's width, more tiles than one per block
+    (1, 6, 160, 64),  # layer1's row width at 640 px: the most shared memory
+    (2, 9, 80, 128),  # layer2's width at 640 px
+    (1, 1, 16, 16),  # one row: every halo row outside the image
+    (3, 100, 16, 16),  # more rows than blocks: each block walks several
+])
+def test_bottleneck_bwd_kernel_matches_twin(cuda, b, h, w, m):
+    """Against the twin with TF32 off, detjax's 2 % bar (tests/
+    test_kernels.py:196-197) in the 2-norm for each of the seven outputs,
+    and dx within 0.02 x max|twin| on all but 1 % of its elements. The
+    kernel sums fp32 in other orders than cuDNN, which moves bf16
+    roundings of y1 and y2 by a step; where y3 + x, y2 or y1 lies that
+    close to 0 the two decide its ReLU mask differently, which moves dx by
+    up to |dy| at that element (a flip of y1's mask, at all C channels of
+    one pixel) and a small sum by a few percent of its max: 0.19 % of dx's
+    elements at (2, 9, 80, 128) on an H100. Two runs give equal bits (no
+    atomics)."""
+    from detjax_torch.kernels import bottleneck as kb
+
+    x, dy, weights = _bwd_case(b * 131 + h + m, b, h, w, m, cuda)
+    before = kb.bottleneck_bwd_launches
+    got = kb.bottleneck_identity_backward(x, dy, *weights)
+    again = kb.bottleneck_identity_backward(x, dy, *weights)
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = kb.bottleneck_identity_backward_reference(x, dy, *weights)
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    torch.cuda.synchronize()
+    assert kb.bottleneck_bwd_launches == before + 2
+    for name, g, a, r in zip(("dx", "dw1", "db1", "dw2", "db2", "dw3", "db3"),
+                             got, again, want):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        assert torch.equal(g, a), name
+        g, r = g.float(), r.float()
+        assert torch.isfinite(g).all(), name
+        rel = (torch.linalg.vector_norm(g - r)
+               / torch.linalg.vector_norm(r).clamp(min=1e-3)).item()
+        assert rel <= 0.02, (name, rel)
+        if name == "dx":
+            tol = 0.02 * max(r.abs().max().item(), 1e-3)
+            share = ((g - r).abs() > tol).float().mean().item()
+            assert share <= 1e-2, share
+
+
+def test_bottleneck_bwd_through_autograd(cuda):
+    """Autograd through bottleneck_identity on CUDA tensors runs the
+    backward kernel once and returns its gradients in detjax's dtypes:
+    dx and the weights' in bf16, the biases' in fp32 [1, n]."""
+    from detjax_torch.kernels import bottleneck as kb
+
+    x, dy, weights = _bwd_case(5, 2, 6, 32, 32, cuda)
+    direct = kb.bottleneck_identity_backward(x, dy, *weights)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, *weights)]
+    before = kb.bottleneck_bwd_launches
+    out = kb.bottleneck_identity(*leaves)
+    out.backward(dy)
+    torch.cuda.synchronize()
+    assert kb.bottleneck_bwd_launches == before + 1
+    for leaf, d in zip(leaves, direct):
+        assert leaf.grad.dtype == leaf.dtype and leaf.grad.shape == leaf.shape
+        assert torch.equal(leaf.grad, d.to(leaf.dtype))
+
+
+def test_bottleneck_bwd_wrapper_raises_instead_of_falling_back(cuda):
+    from detjax_torch.kernels import bottleneck as kb
+
+    x, dy, w = _bwd_case(0, 1, 4, 16, 16, cuda)
+    before = kb.bottleneck_bwd_launches
+    with pytest.raises(TypeError, match="dy must be bfloat16"):
+        kb.bottleneck_identity_backward(x, dy.float(), *w)
+    with pytest.raises(ValueError, match="dy must be contiguous"):
+        kb.bottleneck_identity_backward(
+            x, dy.transpose(1, 2).contiguous().transpose(1, 2), *w)
+    with pytest.raises(ValueError, match="one device"):
+        kb.bottleneck_identity_backward(x, dy.cpu(), *w)
+    with pytest.raises(ValueError, match="dy must be"):
+        kb.bottleneck_identity_backward(x, dy[:, :2].contiguous(), *w)
+    with pytest.raises(TypeError, match="float32"):
+        kb.bottleneck_identity_backward(x, dy, w[0], w[1].double(), *w[2:])
+    # a row too wide for one block's shared memory: the launcher refuses
+    wide = torch.zeros(1, 2, 1024, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        kb.bottleneck_identity_backward(wide, wide, *w)
+    assert kb.bottleneck_bwd_launches == before
+
+
+def test_fused_train_step_runs_both_kernels(cuda):
+    """make_train_state with fused_backbone="on" at R50, 128 px: one
+    train_step launches the fused forward and backward kernels 5 times
+    each and the matching kernel once; the twin route launches none of
+    the fused kernels."""
+    import detjax_torch
+    from detjax_torch.kernels import bottleneck as kb
+    from detjax_torch.kernels import matching as km
+
+    cfg = detjax_torch.get_config("retinanet_r50_640", **{
+        "model.image_size": (128, 128), "model.num_classes": 8,
+        "model.fpn_channels": 64, "model.head_channels": 64,
+        "model.fused_backbone": "on", "train.max_gt": 6})
+    state = detjax_torch.make_train_state(cfg, seed=0)
+    assert len(state.model.fused_blocks()) == 5
+    rng = np.random.default_rng(0)
+    batch = {"images": rng.integers(0, 256, (2, 128, 128, 3), np.uint8),
+             "gt_boxes": np.tile(np.array([[10, 10, 70, 60]], np.float32),
+                                 (2, 6, 1)),
+             "gt_labels": np.array([[1, 4, -1, -1, -1, -1]] * 2, np.int32)}
+    before = {n: p.detach().clone()
+              for n, p in state.model.named_parameters()}
+    counts = (kb.bottleneck_launches, kb.bottleneck_bwd_launches,
+              km.match_launches)
+    state, m = detjax_torch.train_step(state, batch)
+    torch.cuda.synchronize()
+    assert (kb.bottleneck_launches - counts[0],
+            kb.bottleneck_bwd_launches - counts[1],
+            km.match_launches - counts[2]) == (5, 5, 1)
+    assert all(bool(torch.isfinite(v)) for v in m.values())
+    assert not [n for n, p in state.model.named_parameters()
+                if torch.equal(p, before[n])]
+    state.model.bottleneck_backend = "torch"
+    counts = (kb.bottleneck_launches, kb.bottleneck_bwd_launches)
+    detjax_torch.train_step(state, batch)
+    assert (kb.bottleneck_launches, kb.bottleneck_bwd_launches) == counts

@@ -133,17 +133,37 @@ def test_fused_backbone_auto_builds_unfused():
 
 
 def test_train_state_refuses_fused_backbone():
-    """Training with "on" waits for the fused block's backward kernel; it
-    never trains the unfused blocks instead."""
-    with pytest.raises(NotImplementedError, match="Queue 2 #5"):
-        detjax_torch.make_train_state(
-            "retinanet_r50_640", device="cpu",
-            **{**_SMALL, "model.backbone_depth": 50,
-               "model.dtype": "bfloat16", "model.fused_backbone": "on"})
+    """Training with "on" is no longer refused: make_train_state builds the
+    five fused blocks of R50 and one CPU train_step (the fused blocks'
+    forward and backward twins) moves every trainable tensor, with no
+    kernel launch counted."""
+    from detjax_torch.kernels import bottleneck as kb
+
+    state = detjax_torch.make_train_state(
+        "retinanet_r50_640", device="cpu",
+        **{**_SMALL, "model.backbone_depth": 50, "model.dtype": "bfloat16",
+           "model.fused_backbone": "on", "train.max_gt": 4})
+    assert len(state.model.fused_blocks()) == 5
+    rng = np.random.default_rng(0)
+    batch = {"images": rng.integers(0, 256, (2, 128, 128, 3), np.uint8),
+             "gt_boxes": np.tile(np.array([[10, 10, 70, 60]], np.float32),
+                                 (2, 4, 1)),
+             "gt_labels": np.array([[1, 4, -1, -1]] * 2, np.int32)}
+    before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    launches = (kb.bottleneck_launches, kb.bottleneck_bwd_launches)
+    state, metrics = detjax_torch.train_step(state, batch)
+    assert (kb.bottleneck_launches, kb.bottleneck_bwd_launches) == launches
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert not [n for n, p in state.model.named_parameters()
+                if torch.equal(p, before[n])]
 
 
 def test_backward_through_fused_block_raises():
-    """The fused block's autograd function has no backward yet."""
+    """A backward through the fused block no longer raises: on CPU tensors
+    it runs the backward twin, and the gradients autograd hands back equal
+    the twin's bit for bit (dx and the folded weights' in bf16, the
+    biases' in fp32), with no kernel launch counted."""
+    from detjax_torch.kernels import bottleneck as kb
     from detjax_torch.kernels.bottleneck import bottleneck_identity
     from detjax_torch.models.resnet import Bottleneck
 
@@ -153,15 +173,24 @@ def test_backward_through_fused_block_raises():
     x.requires_grad_(True)
     y = block(x)
     assert y.dtype == torch.bfloat16 and y.shape == x.shape
-    with pytest.raises(NotImplementedError, match="next slice"):
-        y.float().sum().backward()
-    w1, b1 = torch.zeros(64, 16, dtype=torch.bfloat16), torch.zeros(1, 16)
-    w2 = torch.zeros(3, 3, 16, 16, dtype=torch.bfloat16)
-    w3, b3 = torch.zeros(16, 64, dtype=torch.bfloat16), torch.zeros(1, 64)
-    xh = torch.zeros(1, 4, 16, 64, dtype=torch.bfloat16, requires_grad=True)
-    out = bottleneck_identity(xh, w1, b1, w2, b1, w3, b3)
-    with pytest.raises(NotImplementedError, match="_bottleneck_bwd"):
-        out.float().sum().backward()
+    y.float().sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+    assert all(p.grad is not None for p in block.parameters())
+
+    _, seeded = kb.seeded_block(1, 1, 4, 16, 16, "cpu")
+    with torch.no_grad():
+        weights = seeded.folded_weights()
+    gen = torch.Generator().manual_seed(1)
+    xh = torch.randn(1, 4, 16, 64, generator=gen).to(torch.bfloat16)
+    dy = torch.randn(1, 4, 16, 64, generator=gen).to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in (xh, *weights)]
+    launches = kb.bottleneck_bwd_launches
+    bottleneck_identity(*leaves).backward(dy)
+    assert kb.bottleneck_bwd_launches == launches
+    want = kb.bottleneck_identity_backward_reference(xh, dy, *weights)
+    for leaf, ref in zip(leaves, want):
+        assert leaf.grad.dtype == leaf.dtype
+        assert torch.equal(leaf.grad, ref.to(leaf.dtype))
 
 
 def test_ssd_family_waits_for_a_later_slice():
