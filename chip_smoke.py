@@ -1,10 +1,12 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
 Drives ``detjax_torch``'s serving path (RetinaNet-R50-FPN at 640, eval
-batch 8, bf16, seeded random weights), the same serving path with
+batch 8, bf16, seeded random weights), its full-anchor-set eval branch
+(decode + clip of every anchor, per-class NMS), the same serving path with
 ``model.fused_backbone="on"`` (layer1/layer2 identity bottlenecks as one
-fused kernel each), and its training path (the same model, train batch
-16, bf16 autocast over fp32 parameters, Adam, clip 0.1, synthetic scenes)
+fused kernel each; also on a 608x832 canvas), and its training path (the
+same model, train batch 16, bf16 autocast over fp32 parameters, Adam, clip
+0.1, synthetic scenes; then with "on", and retinanet_r50_1024 with "on")
 through the entry points a user calls. Builds
 every CUDA kernel of those paths from ``detjax_torch/csrc/`` (one nvcc per
 source, all started together), holds each kernel against its plain
@@ -100,7 +102,8 @@ def phase_build() -> None:
     libs = {"detjax_nms": ("nms.cu", pp._lib),
             "detjax_match": ("matching.cu", km._lib),
             "detjax_bottleneck": ("bottleneck.cu", kb._lib),
-            "detjax_bottleneck_bwd": ("bottleneck_bwd.cu", kb._bwd_lib)}
+            "detjax_bottleneck_bwd": ("bottleneck_bwd.cu", kb._bwd_lib),
+            "detjax_decode": ("decode.cu", pp._decode_lib)}
     errors: dict = {}
 
     def build(name, fn):
@@ -164,6 +167,98 @@ def phase_kernel(report: dict) -> None:
         "max_abs_err": float((ks - rs).abs().max()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}
+
+
+def decode_bound_ms(b: int, n: int, delta_bytes: int) -> tuple:
+    """Least time for the full-set decode: deltas and anchors read once and
+    the boxes written once over the memory rate; about 30 fp32 operations a
+    box (the exps counted as one each) over the fp32 rate."""
+    nbytes = b * n * 4 * delta_bytes + n * 16 + b * n * 16
+    t_bytes = nbytes / H100["bytes_per_s"] * 1e3
+    t_ops = 30.0 * b * n / H100["fp32_flops"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def same_or_both_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def phase_decode_kernel(report: dict) -> None:
+    """decode_boxes_cuda against its twin on the card at R50-640, B = 8,
+    over the full 76,725-anchor set: fp32 and bf16 deltas, clip on and
+    off, with hard rows (dw = +-80 and +-500, so that exp overflows to inf
+    and corners become inf - inf; NaN deltas; the edge anchors of the set
+    reach past the canvas). Bar: bit-equal, NaN equal to NaN."""
+    from detjax_torch.kernels import postprocess as pp
+    from detjax_torch.modeling import anchor_config
+    from detjax_torch.ops.anchors import anchors_for_shape
+
+    cfg = smoke_config()
+    anchors_np = anchors_for_shape(cfg.model.image_size, anchor_config(cfg))
+    b, n = cfg.eval.batch_size, anchors_np.shape[0]
+    rng = np.random.default_rng(6)
+    d = rng.normal(0, 1.0, (b, n, 4)).astype(np.float32)
+    d[:, ::5] *= 8.0
+    rows = rng.choice(n, (b, 64), replace=False)
+    for i in range(b):
+        r = rows[i]
+        d[i, r[:8], 2] = [80, -80, 500, -500] * 2
+        d[i, r[8:16], 3] = [80, -80, 500, -500] * 2
+        d[i, r[16:20], 0] = 1e38  # px = inf; with pw = inf, inf - inf
+        d[i, r[16:20], 2] = 500
+        d[i, r[20:24], rng.integers(0, 4, 4)] = np.nan
+    anchors = torch.from_numpy(anchors_np).cuda()
+    edge = anchors_np.min(axis=0)[:2].min() < 0 and anchors_np.max() > 640
+    std, size = cfg.model.box_std, cfg.model.image_size
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        deltas = torch.from_numpy(d).to("cuda", dtype)
+        for clip in (True, False):
+            img = size if clip else None
+            got = pp.decode_boxes_cuda(deltas, anchors, std, img)
+            want = pp.decode_boxes_reference(deltas, anchors, std, img)
+            torch.cuda.synchronize()
+            equal = same_or_both_nan(got, want)
+            fin = torch.isfinite(want)
+            err = float((got - want)[fin].abs().max())
+            counts = {"nan": int(got.isnan().sum()),
+                      "inf": int(got.isinf().sum())}
+            pp.decode_launches = 0
+            ms = cuda_ms(lambda: pp.decode_boxes_cuda(deltas, anchors, std,
+                                                      img), iters=200,
+                         warmup=10)
+            timed = pp.decode_launches
+            plain_ms = cuda_ms(lambda: pp.decode_boxes_reference(
+                deltas, anchors, std, img), iters=50)
+            bound_ms, bound_by = decode_bound_ms(b, n, deltas.element_size())
+            row = {"deltas": str(dtype).split(".")[-1], "clip": clip,
+                   "bit_equal_nan_equal": equal, "max_abs_err_finite": err,
+                   **counts, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "launches_timed": timed}
+            emit({"phase": "decode_kernel", "kernel": "decode_boxes_cuda",
+                  "B": b, "N": n, **row})
+            if not equal:
+                raise SystemExit(f"decode_boxes_cuda differs from its twin: "
+                                 f"{row}")
+            if not (counts["nan"] and (clip or counts["inf"])):
+                raise SystemExit(f"the hard rows lost their NaN / inf: {row}")
+            cases.append(row)
+    if not edge:
+        raise SystemExit("the anchor set has no anchor past the canvas edge")
+    main = cases[0]  # fp32 deltas, clipped: what the eval branch runs
+    report["decode_boxes_cuda"] = {
+        "name": "decode_boxes_cuda", "route": "cuda",
+        "source": "detjax_torch/csrc/decode.cu",
+        "replaces": "detjax/kernels/postprocess.py:214",
+        "launches": None, "match": True,
+        "max_abs_err": max(c["max_abs_err_finite"] for c in cases),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call decodes boxes",
+        "per": "one eval batch at 640 px, bs 8, fp32 deltas, clipped",
+        "cases": cases}
 
 
 def hard_gt(seed: int, anchors: np.ndarray, b: int = 16, g: int = 100):
@@ -276,6 +371,9 @@ def phase_match_kernel(report: dict) -> None:
 # The identity bottlenecks that fuse in R50 at 640 px, eval batch 8:
 # (name, B, H, W, M, launches per forward); C = 4 M.
 FUSED_SHAPES = (("layer1", 8, 160, 160, 64, 2), ("layer2", 8, 80, 80, 128, 3))
+# Held to the twin too, outside the per-forward totals: layer2 of a 608x832
+# canvas (W = 104, a masked tail tile).
+EXTRA_FUSED_SHAPES = (("tail_608x832_layer2", 2, 76, 104, 128, None),)
 
 
 def bottleneck_bound_ms(b: int, h: int, w: int, m: int) -> tuple:
@@ -322,8 +420,9 @@ def phase_bottleneck_kernel(report: dict) -> None:
     the twin and the port's own unfused block (cuDNN, bf16 autocast)."""
     from detjax_torch.kernels import bottleneck as kb
 
-    per_shape = []
-    for i, (name, b, h, w, m, n_fwd) in enumerate(FUSED_SHAPES):
+    per_shape, extra = [], []
+    for i, (name, b, h, w, m, n_fwd) in enumerate(FUSED_SHAPES
+                                                  + EXTRA_FUSED_SHAPES):
         x, block = kb.seeded_block(10 + i, b, h, w, m, "cuda")
         with torch.no_grad():
             wts = block.folded_weights()
@@ -367,7 +466,7 @@ def phase_bottleneck_kernel(report: dict) -> None:
         if not (finite and err <= tol and frac < 0.01):
             raise SystemExit(f"the bottleneck kernel disagrees with its twin "
                              f"at {name}: {row}")
-        per_shape.append(row)
+        (per_shape if i < len(FUSED_SHAPES) else extra).append(row)
         del x, block, wts, got, want, gf, wf
     total = {k: sum(r[k] * r["launches_per_forward"] for r in per_shape)
              for k in ("ms", "plain_ms", "unfused_cudnn_ms", "bound_ms")}
@@ -386,13 +485,20 @@ def phase_bottleneck_kernel(report: dict) -> None:
         "unfused_cudnn_ms": total["unfused_cudnn_ms"],
         "per": "one R50 forward at 640 px, bs 8: 2 layer1 + 3 layer2 "
                "launches",
-        "shapes": per_shape}
+        "shapes": per_shape, "extra_shapes": extra}
 
 
 # The identity bottlenecks that fuse in R50 at 640 px, train batch 16:
 # (name, B, H, W, M, launches per step); C = 4 M.
 FUSED_TRAIN_SHAPES = (("layer1", 16, 160, 160, 64, 2),
                       ("layer2", 16, 80, 80, 128, 3))
+# Held to the twin too, outside the per-step totals: retinanet_r50_1024's
+# training shapes (train batch 8; rows too wide for one block's shared
+# memory, so the kernel splits them into column blocks), and layer2 of a
+# 608x832 canvas (W = 104: column blocks and a masked tail tile).
+EXTRA_FUSED_TRAIN_SHAPES = (("r50_1024_layer1", 8, 256, 256, 64, 2),
+                            ("r50_1024_layer2", 8, 128, 128, 128, 3),
+                            ("tail_608x832_layer2", 2, 76, 104, 128, None))
 
 
 def bottleneck_bwd_bound_ms(b: int, h: int, w: int, m: int) -> tuple:
@@ -425,9 +531,10 @@ def phase_bottleneck_bwd_kernel(report: dict) -> None:
     backward (cuDNN, bf16 autocast)."""
     from detjax_torch.kernels import bottleneck as kb
 
-    per_shape = []
+    per_shape, extra = [], []
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for i, (name, b, h, w, m, n_step) in enumerate(FUSED_TRAIN_SHAPES):
+    for i, (name, b, h, w, m, n_step) in enumerate(FUSED_TRAIN_SHAPES
+                                                   + EXTRA_FUSED_TRAIN_SHAPES):
         x, block = kb.seeded_block(20 + i, b, h, w, m, "cuda")
         rng = np.random.default_rng(30 + i)
         dy = torch.from_numpy(rng.normal(0, 1, x.shape).astype(np.float32)
@@ -477,13 +584,16 @@ def phase_bottleneck_bwd_kernel(report: dict) -> None:
         unfused_ms = cuda_ms(unfused, iters=10)
         bound_ms, bound_by = bottleneck_bwd_bound_ms(b, h, w, m)
         parts = min(sms, b * h)
+        col_block, smem = kb.bwd_plan(w, m)
         row = {"shape": name, "B": b, "H": h, "W": w, "C": 4 * m, "M": m,
                "launches_per_step": n_step, "outputs": errs,
                "dx": dx_info, "bit_equal_across_two_runs": bit_equal,
                "ms": ms, "plain_ms": plain_ms, "forward_kernel_ms": fwd_ms,
                "unfused_cudnn_ms": unfused_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "smem_bytes": kb.bwd_smem_bytes(w, m), "blocks": parts,
+               "column_block": col_block,
+               "column_blocks_a_row": -(-w // col_block),
+               "smem_bytes": smem, "blocks": parts,
                "workspace_bytes": kb.bwd_workspace_bytes(parts, m)}
         emit({"phase": "bottleneck_bwd_kernel",
               "kernel": "bottleneck_identity_backward", **row,
@@ -505,7 +615,7 @@ def phase_bottleneck_bwd_kernel(report: dict) -> None:
         if not (ok and bit_equal):
             raise SystemExit(f"the bottleneck backward kernel disagrees with "
                              f"its twin at {name}: {row}")
-        per_shape.append(row)
+        (per_shape if i < len(FUSED_TRAIN_SHAPES) else extra).append(row)
         del x, dy, block, wts, args, x_nchw, dy_nchw
     total = {k: sum(r[k] * r["launches_per_step"] for r in per_shape)
              for k in ("ms", "plain_ms", "unfused_cudnn_ms", "bound_ms",
@@ -530,7 +640,7 @@ def phase_bottleneck_bwd_kernel(report: dict) -> None:
         "forward_kernel_ms": total["forward_kernel_ms"],
         "per": "one R50 train step at 640 px, bs 16: 2 layer1 + 3 layer2 "
                "launches",
-        "shapes": per_shape}
+        "shapes": per_shape, "extra_shapes": extra}
 
 
 PRIOR_PROB = 0.05  # prior bias = logit(0.05), the score floor
@@ -709,6 +819,117 @@ def phase_main(report: dict, state: dict) -> None:
     state.update(model=model, cfg=cfg, main={
         "ms_per_batch": batch_ms, "img_per_s": b / batch_ms * 1e3,
         "forward_ms": fwd_ms})
+
+
+def phase_eval_branch(report: dict, state: dict) -> None:
+    """The full-anchor-set eval branch (the lineage's BBoxTransform ->
+    ClipBoxes -> per-class NMS) at R50-640, bs 8, "off", on phase_main's
+    desaturated model: the forward as modeling._run calls it -> fp32 deltas
+    and logits -> decode_clip_boxes -> sigmoid -> batched_detect_postprocess
+    (pre-NMS top-k 1000, max_det 100). The kernel route (decode and NMS
+    kernels) against the twin route (backend="torch" on both ops):
+    detections bit-equal; 1 decode and 1 NMS launch a batch; ms per batch
+    beside fused_detect_postprocess on the same deltas and logits."""
+    from detjax_torch.data.pipeline import normalize_u8
+    from detjax_torch.kernels import postprocess as pp
+    from detjax_torch.modeling import _anchors, anchor_config
+    from detjax_torch.ops import (batched_detect_postprocess,
+                                  decode_clip_boxes, fused_detect_postprocess)
+    from detjax_torch.ops.nms import _per_class_candidates
+
+    model, cfg = state["model"], state["cfg"]
+    b, e, m = cfg.eval.batch_size, cfg.eval, cfg.model
+    canvases = torch.as_tensor(seeded_canvases(1, b)).cuda()
+    anchors = _anchors(m.image_size, anchor_config(cfg), canvases.device)
+
+    def branch(backend: str):
+        with torch.inference_mode():
+            x = normalize_u8(canvases, cfg.data.mean, cfg.data.std,
+                             model.compute_dtype)
+            cls, box = model(x.permute(0, 3, 1, 2))
+            boxes = decode_clip_boxes(box.to(torch.float32), anchors,
+                                      m.image_size, m.box_std,
+                                      backend=backend)
+            return batched_detect_postprocess(
+                boxes, torch.sigmoid(cls.to(torch.float32)),
+                e.score_threshold, e.nms_iou_threshold, e.pre_nms_top_k,
+                e.max_detections, backend=backend)
+
+    branch("auto")  # warm-up
+    torch.cuda.synchronize()
+    pp.decode_launches = pp.nms_launches = 0
+    det = branch("auto")
+    torch.cuda.synchronize()
+    launches = {"decode": pp.decode_launches, "nms": pp.nms_launches}
+    twin = branch("torch")
+    torch.cuda.synchronize()
+    identical = same_detections(det, twin)
+    with torch.inference_mode():
+        x = normalize_u8(canvases, cfg.data.mean, cfg.data.std,
+                         model.compute_dtype)
+        cls, box = model(x.permute(0, 3, 1, 2))
+        box32, cls32 = box.to(torch.float32), cls.to(torch.float32)
+        scores = torch.sigmoid(cls32)
+        boxes = decode_clip_boxes(box32, anchors, m.image_size, m.box_std)
+        fwd_ms = cuda_ms(lambda: model(x.permute(0, 3, 1, 2)), iters=10)
+        branch_ms = cuda_ms(lambda: branch("auto"), iters=10)
+        twin_ms = cuda_ms(lambda: branch("torch"), iters=3, warmup=1)
+        decode_ms = cuda_ms(lambda: decode_clip_boxes(
+            box32, anchors, m.image_size, m.box_std), iters=100)
+        post_ms = cuda_ms(lambda: batched_detect_postprocess(
+            boxes, scores, e.score_threshold, e.nms_iou_threshold,
+            e.pre_nms_top_k, e.max_detections), iters=10)
+        # the NMS kernel alone on its 640 rows (image, class) of 1000
+        top_boxes, top_scores = _per_class_candidates(
+            boxes, scores, e.score_threshold, e.pre_nms_top_k)
+        rows = top_scores.reshape(-1, top_scores.shape[-1])
+        nms_args = (top_boxes.reshape(*rows.shape, 4), rows,
+                    torch.zeros_like(rows, dtype=torch.int32),
+                    e.nms_iou_threshold, 100, 0.0)
+        nms_ms = cuda_ms(lambda: pp.nms_cuda(*nms_args), iters=50)
+        fused_ms = cuda_ms(lambda: fused_detect_postprocess(
+            box32, anchors, cls32, m.box_std, m.image_size,
+            e.score_threshold, e.nms_iou_threshold, e.pre_nms_top_k,
+            e.max_detections, e.exact_candidates, "auto", True,
+            e.topk_mode), iters=20)
+        fused = fused_detect_postprocess(
+            box32, anchors, cls32, m.box_std, m.image_size,
+            e.score_threshold, e.nms_iou_threshold, e.pre_nms_top_k,
+            e.max_detections, e.exact_candidates, "auto", True, e.topk_mode)
+    live = (scores > e.score_threshold).sum(dim=1)  # [B, K]
+    found, total = kept_pairs_found(det, fused)
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in det)
+    shapes_ok = tuple(det.boxes.shape) == (b, e.max_detections, 4)
+    emit({"phase": "eval_branch", "preset": m.name, "dtype": m.dtype,
+          "batch": b, "anchors": int(anchors.shape[0]),
+          "classes": m.num_classes, "pre_nms_top_k": e.pre_nms_top_k,
+          "max_detections": e.max_detections,
+          "nms_rows": b * m.num_classes,
+          "live_pairs_per_image": live.sum(dim=1).tolist(),
+          "classes_with_pre_k_live": int((live >= e.pre_nms_top_k).sum()),
+          "num_valid": det.num_valid.tolist(),
+          "launches": launches, "identical_to_twin_route": identical,
+          "tolerance": "boxes, scores, labels and num_valid bit-equal",
+          "forward_ms": fwd_ms, "branch_ms_per_batch": branch_ms,
+          "twin_branch_ms_per_batch": twin_ms,
+          "decode_clip_ms": decode_ms,
+          "batched_detect_postprocess_ms": post_ms,
+          "nms_kernel_ms_640_rows": nms_ms,
+          "fused_detect_postprocess_ms": fused_ms,
+          "fused_pairs_found_in_branch": [found, total],
+          "card": state["card"]})
+    if not (finite and shapes_ok):
+        raise SystemExit("the eval branch returned non-finite or misshapen "
+                         "detections")
+    if launches != {"decode": 1, "nms": 1}:
+        raise SystemExit(f"expected 1 decode and 1 NMS launch a batch, got "
+                         f"{launches}")
+    if not identical:
+        raise SystemExit("the eval branch through the kernels differs from "
+                         "its twin route")
+    if int(det.num_valid.min()) == 0:
+        raise SystemExit("the eval branch kept no detection")
+    report["decode_boxes_cuda"]["launches"] = launches["decode"]
 
 
 # A kept pair of the twin route is "clear" when its margin (see
@@ -906,7 +1127,54 @@ def phase_main_fused(report: dict, state: dict) -> None:
                          f"of the twin route's {clear['twin_pairs']} clear "
                          f"kept pairs ({total} kept in all)")
     report["bottleneck_identity_cuda"]["launches"] = launches
+    fused_detect_608x832(model, state)
     del model
+
+
+def fused_detect_608x832(model, state: dict) -> None:
+    """detect_u8 with "on" at bs 2 on a 608x832 canvas (a 480x640 image's
+    protocol canvas) with ``model``'s weights: layer1 rows of 208 px and
+    layer2 rows of 104 px (a masked tail tile); 5 fused launches a
+    forward; logits and deltas within 0.05 x max|twin| of the twin
+    route."""
+    import detjax_torch
+    from detjax_torch.kernels import bottleneck as kb
+
+    hw = (608, 832)
+    cfg = smoke_config(**{"model.fused_backbone": "on",
+                          "model.image_size": hw})
+    wide = detjax_torch.build_model(cfg, seed=0)
+    wide.load_state_dict(model.state_dict())
+    canvases = seeded_canvases(4, 2, hw)
+    kb.bottleneck_launches = 0
+    det = detjax_torch.detect_u8(wide, canvases, cfg)
+    torch.cuda.synchronize()
+    launches = kb.bottleneck_launches
+    with torch.inference_mode():
+        x = normalized_nchw(wide, canvases, cfg)
+        got = wide(x)
+        wide.bottleneck_backend = "torch"
+        with tf32_off():
+            want = wide(x)
+    errs = {}
+    for key, g, w in zip(("cls", "box"), got, want):
+        g, w = g.float(), w.float()
+        errs[key] = {"max_abs_err": float((g - w).abs().max()),
+                     "tolerance": 0.05 * float(w.abs().max()),
+                     "finite": bool(torch.isfinite(g).all())}
+    emit({"phase": "main_fused_608x832", "batch": 2, "canvas": list(hw),
+          "bottleneck_launches": launches,
+          "num_valid": det.num_valid.tolist(),
+          "outputs_vs_twin_route": errs,
+          "tolerance": "logits and deltas within 0.05 x max|twin|",
+          "card": state["card"]})
+    if launches != 5:
+        raise SystemExit(f"expected 5 fused launches on the 608x832 canvas, "
+                         f"got {launches}")
+    if not all(e["finite"] and e["max_abs_err"] <= e["tolerance"]
+               for e in errs.values()):
+        raise SystemExit(f"the fused route differs from the twin route on "
+                         f"the 608x832 canvas: {errs}")
 
 
 def phase_serve(state: dict) -> None:
@@ -1329,6 +1597,54 @@ def phase_train_fused(report: dict, state: dict) -> None:
     report["bottleneck_identity_bwd_cuda"]["launches"] = launches[
         "bottleneck_bwd"]
     report["bottleneck_identity_bwd_cuda"]["launches_per_step"] = 5
+    del train, batch
+    train_fused_1024(state)
+
+
+def train_fused_1024(state: dict) -> None:
+    """Two train_steps of retinanet_r50_1024 (train batch 8, 1024 px) with
+    "on": rows of 256 px at layer1 and 128 px at layer2, which the backward
+    kernel splits into column blocks; 5 forward and 5 backward fused
+    launches a step; each step's loss within 1e-2 relative of the twin
+    route's (model.bottleneck_backend = "torch") from the same state and
+    batch."""
+    import detjax_torch
+    from detjax_torch.kernels import bottleneck as kb
+
+    train = detjax_torch.make_train_state(
+        "retinanet_r50_1024", seed=0, **{"model.fused_backbone": "on"})
+    cfg = train.cfg
+    batch = train_batch(cfg, seed=2)
+    desaturate_(train.model, batch["images"][:2], cfg)
+    twin = copy.deepcopy(train)
+    twin.model.bottleneck_backend = "torch"
+    kb.bottleneck_launches = kb.bottleneck_bwd_launches = 0
+    losses_k = []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        losses_k.append(float(detjax_torch.train_step(train, batch)[1]
+                              ["loss"]))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 2 * 1e3
+    launches = {"bottleneck_fwd": kb.bottleneck_launches,
+                "bottleneck_bwd": kb.bottleneck_bwd_launches}
+    with tf32_off():
+        losses_t = [float(detjax_torch.train_step(twin, batch)[1]["loss"])
+                    for _ in range(2)]
+    del twin
+    rel = [abs(k - t) / abs(t) for k, t in zip(losses_k, losses_t)]
+    emit({"phase": "train_fused_1024", "preset": cfg.model.name,
+          "batch": cfg.train.batch_size, "canvas": list(cfg.model.image_size),
+          "launches_in_2_steps": launches, "losses_kernel_route": losses_k,
+          "losses_twin_route": losses_t, "loss_rel_err": rel,
+          "loss_tolerance": "1e-2 relative",
+          "ms_per_step_incl_first": step_ms, "card": state["card"]})
+    if launches != {"bottleneck_fwd": 10, "bottleneck_bwd": 10}:
+        raise SystemExit(f"expected 5 + 5 fused launches a step at 1024 px, "
+                         f"got {launches} in 2 steps")
+    if not (all(np.isfinite(losses_k)) and max(rel) <= 1e-2):
+        raise SystemExit(f"retinanet_r50_1024 with 'on': kernel-route "
+                         f"losses {losses_k} vs twin route {losses_t}")
 
 
 def main() -> int:
@@ -1348,11 +1664,13 @@ def main() -> int:
     state: dict = {"card": card}
     phase_build()
     phase_kernel(report)
+    phase_decode_kernel(report)
     phase_match_kernel(report)
     phase_bottleneck_kernel(report)
     phase_bottleneck_bwd_kernel(report)
     phase_reference()
     phase_main(report, state)
+    phase_eval_branch(report, state)
     phase_main_fused(report, state)
     phase_serve(state)
     phase_train(report, state)

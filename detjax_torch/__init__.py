@@ -8,9 +8,11 @@ RetinaNet preset, and serving and training with
 ``model.fused_backbone="on"``. detjax's Pallas kernels on those paths are
 replaced by CUDA kernels written by hand for ``sm_90a``: NMS
 (``detjax_torch/csrc/nms.cu``), anchor matching
-(``detjax_torch/csrc/matching.cu``) and the fused identity bottleneck's
+(``detjax_torch/csrc/matching.cu``), the fused identity bottleneck's
 forward (``detjax_torch/csrc/bottleneck.cu``) and backward
-(``detjax_torch/csrc/bottleneck_bwd.cu``).
+(``detjax_torch/csrc/bottleneck_bwd.cu``), and the full-anchor-set box
+decode of the eval branch (``detjax_torch/csrc/decode.cu``, under
+``ops.decode_clip_boxes``).
 
 Ground rules:
 

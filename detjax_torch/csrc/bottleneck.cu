@@ -13,8 +13,12 @@
 // Design: one block per (kRows output rows, image); grid (ceil(H / kRows),
 // B), kWarps warps. Phase 1 computes y1 for the block's rows plus one halo
 // row above and below into shared memory, laid out as (kRows + 2) rows of
-// W + 2 pixels with zeroed border columns; a halo row outside the image is
-// left all zero, which is exactly the 3x3's zero padding. Phase 2 gives each
+// 16 ceil(W / 16) + 2 pixels with zeroed border columns; a halo row outside
+// the image is left all zero, which is exactly the 3x3's zero padding. When
+// W is not a multiple of 16 the last tile of a row is a masked tail: its
+// pixels at or beyond W load x as zeros (staged through the warp's y2
+// tile), get y1 = 0 (so column W still acts as the padding) and are never
+// stored. Phase 2 gives each
 // warp 16-pixel tiles of the output rows: the 3x3 as nine shifted products
 // read straight from the shared y1 (a shift by kx is a pointer offset of one
 // pixel), y2 for the tile into the warp's own shared tile, then the second
@@ -38,7 +42,8 @@
 // to a later PR.
 //
 // Requirements (the wrapper checks them): M in {16, 32, 64, 128}, C = 4 M,
-// W a multiple of 16, contiguous 32-byte-aligned bf16 tensors.
+// contiguous 32-byte-aligned bf16 tensors. Any W >= 1 up to the widest row
+// whose shared memory fits a block (detjax_bottleneck_max_width).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,11 +64,13 @@ constexpr int kPad = 16;  // extra bf16 per pixel in shared memory: keeps
                           // 32-byte alignment, spreads banks
 
 // Bias, ReLU and bf16 rounding of one 16x16 fp32 tile staged in `stage`
-// (row-major), written to `dst` (row stride ld elements). Each lane takes 8
-// consecutive columns of one row: row lane / 2, columns (lane % 2) * 8.
+// (row-major), written to `dst` (row stride ld elements); rows (pixels) at
+// or beyond `valid` are written as zeros. Each lane takes 8 consecutive
+// columns of one row: row lane / 2, columns (lane % 2) * 8.
 __device__ __forceinline__ void store_relu_bf16(const float* stage,
                                                 const float* bias, bf16* dst,
-                                                int ld, int lane) {
+                                                int ld, int lane,
+                                                int valid = 16) {
   const int r = lane >> 1, c = (lane & 1) * 8;
   const float* s = stage + r * 16 + c;
   union {
@@ -76,7 +83,21 @@ __device__ __forceinline__ void store_relu_bf16(const float* stage,
     const float b = fmaxf(s[2 * i + 1] + bias[c + 2 * i + 1], 0.0f);
     pack.h[i] = __floats2bfloat162_rn(a, b);
   }
+  if (r >= valid) pack.v = make_uint4(0u, 0u, 0u, 0u);
   *reinterpret_cast<uint4*>(dst + r * ld + c) = pack.v;
+}
+
+// Copies a 16-pixel x 16-channel bf16 tile (pixel stride ld) into `dst`
+// (pixel stride 16), pixels at or beyond `valid` as zeros: the A operand of
+// a masked tail tile.
+__device__ __forceinline__ void stage_tile(const bf16* src, int ld, int valid,
+                                           bf16* dst, int lane) {
+  const int p = lane >> 1, c = (lane & 1) * 8;
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (p < valid)
+    v = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(p) * ld + c);
+  *reinterpret_cast<uint4*>(dst + p * 16 + c) = v;
+  __syncwarp();
 }
 
 template <int M>
@@ -96,7 +117,8 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kVecPix = LD * 2 / 16;  // uint4 per shared pixel
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const int wp = w + 2;  // y1 pixels per row, border columns included
+  const int tiles_per_row = (w + 15) / 16;  // the last one may be a tail
+  const int wp = 16 * tiles_per_row + 2;  // y1 pixels a row, with borders
   bf16* y1p = reinterpret_cast<bf16*>(smem);
   const size_t y1_elems = static_cast<size_t>(kRows + 2) * wp * LD;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -111,7 +133,6 @@ __global__ void __launch_bounds__(kThreads)
   const size_t img_off = static_cast<size_t>(img) * h * w * C;
   const bf16* ximg = x + img_off;
   bf16* oimg = out + img_off;
-  const int tiles_per_row = w / 16;
 
   // -- zero the border columns, and whole halo rows outside the image.
   uint4* y1v = reinterpret_cast<uint4*>(y1p);
@@ -123,7 +144,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = threadIdx.x; i < wp * kVecPix; i += kThreads) row[i] = zero;
     } else {
       for (int i = threadIdx.x; i < 2 * kVecPix; i += kThreads) {
-        const int col = i < kVecPix ? 0 : w + 1;
+        const int col = i < kVecPix ? 0 : wp - 1;
         row[col * kVecPix + i % kVecPix] = zero;
       }
     }
@@ -134,13 +155,20 @@ __global__ void __launch_bounds__(kThreads)
     const int j = t / tiles_per_row, c0 = (t % tiles_per_row) * 16;
     const int r = r0 - 1 + j;
     if (r < 0 || r >= h) continue;  // stays zero: the 3x3's padding
+    const int valid = w - c0 < 16 ? w - c0 : 16;  // pixels in the image
     FragC acc[NT];
 #pragma unroll
     for (int n = 0; n < NT; ++n) wmma::fill_fragment(acc[n], 0.0f);
     const bf16* xa = ximg + (static_cast<size_t>(r) * w + c0) * C;
     for (int k = 0; k < C; k += 16) {
       FragA a;
-      wmma::load_matrix_sync(a, xa + k, C);
+      if (valid == 16) {
+        wmma::load_matrix_sync(a, xa + k, C);
+      } else {  // the tail: staged through the warp's (idle) y2 tile
+        stage_tile(xa + k, C, valid, y2t, lane);
+        wmma::load_matrix_sync(a, y2t, 16);
+        __syncwarp();
+      }
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         FragB b;
@@ -154,7 +182,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int n = 0; n < NT; ++n) {
       wmma::store_matrix_sync(stage, acc[n], 16, wmma::mem_row_major);
       __syncwarp();
-      store_relu_bf16(stage, b1 + n * 16, dst + n * 16, LD, lane);
+      store_relu_bf16(stage, b1 + n * 16, dst + n * 16, LD, lane, valid);
       __syncwarp();
     }
   }
@@ -201,7 +229,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int k = 0; k < NT; ++k) wmma::load_matrix_sync(a2[k], y2t + k * 16, LD);
     const int pr = lane >> 1, pc = (lane & 1) * 8;
-    const size_t pix = (static_cast<size_t>(r) * w + c0 + pr) * C;
+    const bool live = c0 + pr < w;  // the lane's pixel is in the image
+    // a pixel past W reads the row's last one (unconditional loads) and is
+    // not stored
+    const size_t pix =
+        (static_cast<size_t>(r) * w + (live ? c0 + pr : w - 1)) * C;
     for (int n3 = 0; n3 < C / 16; ++n3) {
       FragC acc3;
       wmma::fill_fragment(acc3, 0.0f);
@@ -228,19 +260,20 @@ __global__ void __launch_bounds__(kThreads)
         const float b = fmaxf((s[2 * i + 1] + b3[ch + 2 * i + 1]) + xr.y, 0.0f);
         pack.h[i] = __floats2bfloat162_rn(a, b);
       }
-      *reinterpret_cast<uint4*>(oimg + pix + ch) = pack.v;
+      if (live) *reinterpret_cast<uint4*>(oimg + pix + ch) = pack.v;
       __syncwarp();
     }
   }
 }
 
 // Dynamic shared memory of one block: y1 for the block's rows plus two halo
-// rows (W + 2 columns, LD bf16 a pixel), and per warp a 16-pixel y2 tile and
-// a 16x16 fp32 staging tile.
+// rows (whole 16-pixel tiles and two border columns, LD bf16 a pixel), and
+// per warp a 16-pixel y2 tile and a 16x16 fp32 staging tile.
 template <int M>
 size_t smem_bytes(int w) {
   constexpr int LD = M + kPad;
-  return static_cast<size_t>(kRows + 2) * (w + 2) * LD * sizeof(bf16) +
+  return static_cast<size_t>(kRows + 2) * (16 * ((w + 15) / 16) + 2) * LD *
+             sizeof(bf16) +
          static_cast<size_t>(kWarps) * (16 * LD * sizeof(bf16) + 256 * 4);
 }
 
@@ -293,6 +326,21 @@ extern "C" int detjax_bottleneck_fwd_launch(const void* x, const void* w1,
 
 // Dynamic shared memory a block takes at width w and M = m; 0 for an M the
 // kernel is not instantiated for.
+extern "C" int detjax_bottleneck_smem_bytes(int w, int m);
+
+// The widest W whose block fits the shared memory a block of `device` may
+// take at M = m (a multiple of 16); 0 for an unknown M, < 0 a cudaError_t.
+extern "C" int detjax_bottleneck_max_width(int m, int device) {
+  int limit = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(
+      &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (detjax_bottleneck_smem_bytes(16, m) <= 0) return 0;
+  int w = 0;
+  while (detjax_bottleneck_smem_bytes(w + 16, m) <= limit) w += 16;
+  return w;
+}
+
 extern "C" int detjax_bottleneck_smem_bytes(int w, int m) {
   switch (m) {
     case 16:

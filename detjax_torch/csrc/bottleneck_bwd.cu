@@ -15,28 +15,46 @@
 // y1, y2, dy3, dc2 and dc1 never reach device memory.
 //
 // Design. A persistent grid of P blocks (P = the SM count, or fewer tiles);
-// block p walks the (image, row) tiles p, p + P, ... one output row at a
-// time, with 8 warps. Per tile, in shared memory:
-//   Y1  5 rows (r-2 .. r+2) of y1, W + 2 pixels with zeroed border columns;
-//       a row outside the image stays all zero (the 3x3's padding);
-//   DC2 3 rows (r-1 .. r+1) of bf16(dc2), laid out the same way.
-// Phase 1 computes y1 on the 5 rows (conv1 recomputed on 4 halo rows).
-// Phase 2 gives each warp 16-pixel tiles of rows r-1, r+1 (then r): y2 of
-// the tile, y3 one 16-channel chunk at a time, the dy3 mask and its bf16
-// rounding, and dc2 accumulated over the chunks in fragments. The halo rows'
-// y2 goes where their dc2 will go; row r's y2 is kept (for dw3) in y1 row
-// r-2, dead by then. Phase 3: dy1 and dc1 per 16-pixel tile, bf16(dc1) kept
-// in y1 row r+2, also dead. Phase 4 switches from pixels to outputs: each
-// warp owns whole 16x16 tiles of dw1 / dw2 / dw3 (dw3's owner also
-// recomputes dy3 for its 16 channels of the row, and writes dx for them)
-// and sums the row into the block's own fp32 slice of a workspace with
-// plain loads and stores. Bias sums: per 16-pixel tile into shared memory,
-// then one thread per channel.
+// block p walks the (image, row, column block) tiles p, p + P, ... one
+// output row at a time, with 8 warps. A column block owns the image columns
+// [cb, ce) of its row, Wc = ce - cb wide (Wc a multiple of 16; the last
+// block of a row may be narrower); a row that fits shared memory whole is
+// one column block. Per tile, in shared memory:
+//   Y1  5 rows (r-2 .. r+2) of y1;
+//   DC2 3 rows (r-1 .. r+1) of bf16(dc2);
+// each row a window of image columns o .. o + 16 nw - 1 computed in nw
+// 16-pixel tiles, plus a zeroed border column on each side; a row outside
+// the image stays all zero (the 3x3's padding). dy1 at the owned pixels
+// needs dc2 one column beyond them, so y2 there, so y1 two columns beyond:
+// o = cb - 2 (or 0 at the image's left edge) and the window reaches ce + 2
+// (or W), rounded up to whole tiles. Pixels at or beyond W (a row's masked
+// tail, or window tiles past it) load x and dy as zeros and get y1 = 0, so
+// dy3, dc2 and dc1 are exactly 0 there: they add nothing to any sum, and
+// they are never stored. Halo pixels (window pixels outside [cb, ce)) are
+// recomputed by every block that needs them and counted by none: phases 3
+// and 4 run over the owned tiles only, and db2's column sums are masked to
+// the owned pixels.
+// Phase 1 computes y1 on the 5 rows (conv1 recomputed on 4 halo rows and
+// the halo columns). Phase 2 gives each warp 16-pixel tiles of rows r-1,
+// r+1 (then r): y2 of the tile, y3 one 16-channel chunk at a time, the dy3
+// mask and its bf16 rounding, and dc2 accumulated over the chunks in
+// fragments. The halo rows' y2 goes where their dc2 will go; row r's y2 is
+// kept (for dw3) in y1 row r-2, dead by then. Phase 3: dy1 and dc1 per
+// owned 16-pixel tile, bf16(dc1) kept in y1 row r+2, also dead. Phase 4
+// switches from pixels to outputs: each warp owns whole 16x16 tiles of dw1
+// / dw2 / dw3 (dw3's owner also recomputes dy3 for its 16 channels of the
+// owned pixels, and writes dx for them) and sums the tile's pixels into the
+// block's own fp32 slice of a workspace with plain loads and stores. Bias
+// sums: per 16-pixel tile into shared memory, then one thread per channel.
 //
-// Why one row a tile: with the forward's pad of 16 bf16 a pixel, 8 rows
-// (5 of y1, 3 of dc2) at W = 160, M = 64 take 207 KB, and at W = 80,
-// M = 128 take 189 KB, of the 227 KB a block may have. Two rows a tile
-// would need 10 rows (259 and 236 KB).
+// Why one row a tile, and column blocks: with the forward's pad of 16 bf16
+// a pixel, 8 whole rows (5 of y1, 3 of dc2) at W = 160, M = 64 take 207 KB,
+// and at W = 80, M = 128 take 189 KB, of the 227 KB a block may have. Two
+// rows a tile would need 10 rows (259 and 236 KB). Wider rows (W = 256 at
+// M = 64, W = 104 or 128 at M = 128) do not fit whole: the launcher splits
+// them into the fewest column blocks of equal whole tiles that fit (Wc =
+// 128 at W = 256, M = 64; Wc = 64 at W = 128, M = 128), which costs one or
+// two halo tiles of y1 and dc2 work a block.
 //
 // The reduction across blocks, and determinism. The TPU kernel kept the six
 // gradients resident across its sequential grid. Here every block owns a
@@ -57,7 +75,7 @@
 // 147 MB) once per row: it is far from that bound; times are in PERF.md.
 //
 // Requirements (the wrapper checks them): M in {16, 32, 64, 128}, C = 4 M,
-// W a multiple of 16, contiguous 32-byte-aligned bf16 tensors, fp32 biases.
+// any W >= 1, contiguous 32-byte-aligned bf16 tensors, fp32 biases.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,18 +102,64 @@ union Pack8 {
   __nv_bfloat162 h[4];
 };
 
-// Shared memory of one block at width w: 8 rows of W + 2 pixels (5 of y1, 3
-// of dc2), per warp a staging tile and a dy3 tile, and the per-tile bias
-// sums of dc1 and dc2.
+// The columns of column block j of a row, at block width wc: it owns image
+// columns [cb, ce), np 16-pixel tiles from cb; its shared rows hold the
+// window of nw tiles from image column o, shared index i being image column
+// o - 1 + i (index 0 and 16 nw + 1 are the zeroed borders). nw also covers
+// the owned tiles and one column past them, which phase 3 reads.
+struct Cols {
+  int cb, ce, np, o, nw;
+};
+
+__host__ __device__ inline Cols col_block(int j, int wc, int w) {
+  Cols g;
+  g.cb = j * wc;
+  g.ce = g.cb + wc < w ? g.cb + wc : w;
+  g.np = (g.ce - g.cb + 15) / 16;
+  g.o = g.cb > 0 ? g.cb - 2 : 0;
+  const int hi = g.ce < w ? g.ce + 2 : g.ce;
+  const int need = (hi - g.o + 15) / 16, own = g.np + (g.cb > 0 ? 1 : 0);
+  g.nw = need > own ? need : own;
+  return g;
+}
+
+// Shared memory of one block: 8 rows of 16 nwmax + 2 pixels (5 of y1, 3 of
+// dc2), per warp a staging tile and a dy3 tile, and the per-tile bias sums
+// of dc1 (npmax owned tiles) and dc2 (nwmax window tiles).
 template <int M>
-__host__ __device__ size_t rows_bytes(int w) {
-  return static_cast<size_t>(8) * (w + 2) * (M + kPad) * sizeof(bf16);
+__host__ __device__ size_t rows_bytes(int nwmax) {
+  return static_cast<size_t>(8) * (16 * nwmax + 2) * (M + kPad) * sizeof(bf16);
 }
 
 template <int M>
-size_t smem_bytes(int w) {
-  return rows_bytes<M>(w) + static_cast<size_t>(kWarps) * kWarpBytes +
-         2 * static_cast<size_t>(w / 16) * M * sizeof(float);
+size_t smem_bytes(int nwmax, int npmax) {
+  return rows_bytes<M>(nwmax) + static_cast<size_t>(kWarps) * kWarpBytes +
+         static_cast<size_t>(npmax + nwmax) * M * sizeof(float);
+}
+
+// How a row of width w is tiled under `limit` bytes of shared memory: the
+// fewest column blocks of equal whole tiles that fit. wc = 0 when none do.
+struct Plan {
+  int wc, nwmax;
+  size_t smem;
+};
+
+template <int M>
+Plan plan(int w, size_t limit) {
+  const int tiles = (w + 15) / 16;
+  Plan p = {0, 0, 0};
+  for (int nb = 1; nb <= tiles; ++nb) {
+    const int wc = 16 * ((tiles + nb - 1) / nb);
+    int nwmax = 0;
+    for (int j = 0; j * wc < w; ++j) {
+      const int nw = col_block(j, wc, w).nw;
+      nwmax = nw > nwmax ? nw : nwmax;
+    }
+    p = {wc, nwmax, smem_bytes<M>(nwmax, wc / 16)};
+    if (p.smem <= limit) return p;
+  }
+  p.wc = 0;
+  return p;
 }
 
 template <int M>
@@ -104,11 +168,13 @@ __host__ __device__ constexpr size_t slice_floats() {
 }
 
 // Bias, ReLU and bf16 rounding of one 16x16 fp32 tile staged in `stage`
-// (row-major), written to `dst` (row stride ld). Lane: row lane / 2,
-// columns (lane % 2) * 8 .. + 7.
+// (row-major), written to `dst` (row stride ld); rows (pixels) at or beyond
+// `valid` are written as zeros. Lane: row lane / 2, columns (lane % 2) * 8
+// .. + 7.
 __device__ __forceinline__ void store_relu_bf16(const float* stage,
                                                 const float* bias, bf16* dst,
-                                                int ld, int lane) {
+                                                int ld, int lane,
+                                                int valid = 16) {
   const int r = lane >> 1, c = (lane & 1) * 8;
   const float* s = stage + r * 16 + c;
   Pack8 pack;
@@ -118,21 +184,43 @@ __device__ __forceinline__ void store_relu_bf16(const float* stage,
     const float b = fmaxf(s[2 * i + 1] + bias[c + 2 * i + 1], 0.0f);
     pack.h[i] = __floats2bfloat162_rn(a, b);
   }
+  if (r >= valid) pack.v = make_uint4(0u, 0u, 0u, 0u);
   *reinterpret_cast<uint4*>(dst + r * ld + c) = pack.v;
+}
+
+// Copies a 16-pixel x 16-channel bf16 tile (pixel stride ld) into `dst`
+// (pixel stride 16), pixels at or beyond `valid` as zeros: an operand of a
+// masked tile, read from x.
+__device__ __forceinline__ void stage_tile(const bf16* src, int ld, int valid,
+                                           bf16* dst, int lane) {
+  const int p = lane >> 1, c = (lane & 1) * 8;
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (p < valid)
+    v = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(p) * ld + c);
+  *reinterpret_cast<uint4*>(dst + p * 16 + c) = v;
+  __syncwarp();
+}
+
+// Pixels of the 16-pixel tile from image column c0 that lie in the image.
+__device__ __forceinline__ int valid_pixels(int c0, int w) {
+  return w - c0 >= 16 ? 16 : (w - c0 > 0 ? w - c0 : 0);
 }
 
 // dy3 = dy * ((y3 + b3) + x > 0) for the lane's 8 elements of a staged
 // 16x16 y3 tile: written as fp32 to `d3` and to the stage, as bf16 to the
-// warp's dy3 tile. `pix` indexes the lane's first element in x and dy.
+// warp's dy3 tile. `pix` indexes the lane's first element in x and dy; a
+// lane whose pixel is not `live` (at or beyond W) gets 0, from a `pix` the
+// caller clamps into the row (the loads stay unconditional).
 __device__ __forceinline__ void dy3_chunk(float* stage, bf16* dy3t,
                                           const bf16* x, const bf16* dy,
                                           const float* b3, size_t pix, int ch,
-                                          int lane, float* d3) {
+                                          int lane, bool live, float* d3) {
   const int pr = lane >> 1, pc = (lane & 1) * 8;
   float* s = stage + pr * 16 + pc;
   Pack8 xv, dv, pack;
   xv.v = *reinterpret_cast<const uint4*>(x + pix);
   dv.v = *reinterpret_cast<const uint4*>(dy + pix);
+  if (!live) xv.v = dv.v = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 xr = __bfloat1622float2(xv.h[i]);
@@ -168,31 +256,33 @@ __device__ __forceinline__ void mask_store(float* stage, const bf16* ref,
   *reinterpret_cast<uint4*>(dst + r * ld + c) = pack.v;
 }
 
-// Sum of column `lane` (< 16) of a staged 16x16 tile, rows in order.
-__device__ __forceinline__ float column_sum(const float* stage, int lane) {
+// Sum of column `lane` (< 16) of a staged 16x16 tile over rows lo .. hi - 1,
+// in order.
+__device__ __forceinline__ float column_sum(const float* stage, int lane,
+                                            int lo = 0, int hi = 16) {
   float s = 0.0f;
-#pragma unroll
-  for (int q = 0; q < 16; ++q) s += stage[q * 16 + lane];
+  for (int q = lo; q < hi; ++q) s += stage[q * 16 + lane];
   return s;
 }
 
-// Phase 2 for one 16-pixel tile of image row rr, the j-th row of DC2: y2
-// from y1 rows j .. j + 2 into y2dst, then dc2 over all C channels into
-// dc2dst (which may be y2dst); with `colsum`, the tile's column sums of the
-// fp32 dc2.
+// Phase 2 for one 16-pixel window tile of image row rr, the j-th row of
+// DC2: the tile starts at shared index s0 + 1 and image column c0. y2 from
+// y1 rows j .. j + 2 into y2dst, then dc2 over all C channels into dc2dst
+// (which may be y2dst); with `colsum`, the tile's column sums of the fp32
+// dc2 over its rows (pixels) lo .. hi - 1.
 template <int M>
-__device__ void dc2_tile(const bf16* Y1, int j, int c0, int wp, int w, int rr,
-                         bf16* y2dst, bf16* dc2dst, float* colsum,
-                         const bf16* ximg, const bf16* dyimg, const bf16* w2,
-                         const float* b2, const bf16* w3, const float* b3,
-                         float* stage, bf16* dy3t, int lane) {
+__device__ void dc2_tile(const bf16* Y1, int j, int s0, int c0, int wp, int w,
+                         int rr, bf16* y2dst, bf16* dc2dst, float* colsum,
+                         int lo, int hi, const bf16* ximg, const bf16* dyimg,
+                         const bf16* w2, const float* b2, const bf16* w3,
+                         const float* b3, float* stage, bf16* dy3t, int lane) {
   constexpr int C = 4 * M, LD = M + kPad, NT = M / 16;
   FragC acc[NT];
 #pragma unroll
   for (int n = 0; n < NT; ++n) wmma::fill_fragment(acc[n], 0.0f);
   for (int ky = 0; ky < 3; ++ky) {
     for (int kx = 0; kx < 3; ++kx) {
-      const bf16* ya = Y1 + (static_cast<size_t>(j + ky) * wp + c0 + kx) * LD;
+      const bf16* ya = Y1 + (static_cast<size_t>(j + ky) * wp + s0 + kx) * LD;
       const bf16* wt = w2 + static_cast<size_t>(ky * 3 + kx) * M * M;
       for (int k = 0; k < M; k += 16) {
         FragA a;
@@ -220,7 +310,9 @@ __device__ void dc2_tile(const bf16* Y1, int j, int c0, int wp, int w, int rr,
 #pragma unroll
   for (int n = 0; n < NT; ++n) wmma::fill_fragment(d2[n], 0.0f);
   const int pr = lane >> 1, pc = (lane & 1) * 8;
-  const size_t pix = (static_cast<size_t>(rr) * w + c0 + pr) * C + pc;
+  const bool live = c0 + pr < w;
+  const size_t pix =
+      (static_cast<size_t>(rr) * w + (live ? c0 + pr : w - 1)) * C + pc;
   for (int n3 = 0; n3 < C / 16; ++n3) {
     FragC acc3;
     wmma::fill_fragment(acc3, 0.0f);
@@ -237,7 +329,7 @@ __device__ void dc2_tile(const bf16* Y1, int j, int c0, int wp, int w, int rr,
     __syncwarp();
     float d3[8];
     dy3_chunk(stage, dy3t, ximg, dyimg, b3, pix + n3 * 16, n3 * 16 + pc, lane,
-              d3);
+              live, d3);
     __syncwarp();
     FragA ad;
     wmma::load_matrix_sync(ad, dy3t, 16);
@@ -258,7 +350,7 @@ __device__ void dc2_tile(const bf16* Y1, int j, int c0, int wp, int w, int rr,
     mask_store(stage, y2dst + n * 16, dc2dst + n * 16, LD, lane);
     __syncwarp();
     if (colsum != nullptr && lane < 16)
-      colsum[n * 16 + lane] = column_sum(stage, lane);
+      colsum[n * 16 + lane] = column_sum(stage, lane, lo, hi);
     __syncwarp();
   }
 }
@@ -275,25 +367,26 @@ __global__ void __launch_bounds__(kThreads)
                           const float* __restrict__ b3,  // [C]
                           bf16* __restrict__ dx,         // [B, H, W, C]
                           float* __restrict__ ws,        // [gridDim.x, S]
-                          int batch, int h, int w) {
+                          int batch, int h, int w, int wc, int nwmax) {
   constexpr int C = 4 * M, LD = M + kPad, NT = M / 16, CT = C / 16;
   constexpr size_t S = slice_floats<M>();
   constexpr int kVecPix = LD * 2 / 16;  // uint4 per shared pixel
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const int wp = w + 2, ptiles = w / 16;
+  const int wp = 16 * nwmax + 2;  // pixels a shared row, borders included
+  const int nb = (w + wc - 1) / wc;  // column blocks a row
   const size_t rowe = static_cast<size_t>(wp) * LD;
   bf16* Y1 = reinterpret_cast<bf16*>(smem);  // rows r-2 .. r+2
   bf16* DC2 = Y1 + 5 * rowe;                 // rows r-1 .. r+1
   bf16* Y2I = Y1;             // y2 of row r, in y1 row r-2 after phase 2a
   bf16* DC1 = Y1 + 4 * rowe;  // bf16(dc1) of row r, in y1 row r+2
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  unsigned char* wbase = smem + rows_bytes<M>(w) + warp * kWarpBytes;
+  unsigned char* wbase = smem + rows_bytes<M>(nwmax) + warp * kWarpBytes;
   float* stage = reinterpret_cast<float*>(wbase);
   bf16* dy3t = reinterpret_cast<bf16*>(wbase + 1024);
-  float* colsum1 = reinterpret_cast<float*>(smem + rows_bytes<M>(w) +
+  float* colsum1 = reinterpret_cast<float*>(smem + rows_bytes<M>(nwmax) +
                                             kWarps * kWarpBytes);
-  float* colsum2 = colsum1 + ptiles * M;
+  float* colsum2 = colsum1 + (wc / 16) * M;
 
   float* g_dw1 = ws + blockIdx.x * S;
   float* g_dw2 = g_dw1 + C * M;
@@ -306,11 +399,13 @@ __global__ void __launch_bounds__(kThreads)
 
   const int pr = lane >> 1, pc = (lane & 1) * 8;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int t = blockIdx.x; t < batch * h; t += gridDim.x) {
-    const int r = t % h;
-    const size_t img_off = static_cast<size_t>(t / h) * h * w * C;
+  for (int t = blockIdx.x; t < batch * h * nb; t += gridDim.x) {
+    const Cols g = col_block(t % nb, wc, w);
+    const int r = (t / nb) % h;
+    const size_t img_off = static_cast<size_t>(t / nb / h) * h * w * C;
     const bf16* ximg = x + img_off;
     const bf16* dyimg = dy + img_off;
+    const int a0 = g.cb - g.o + 1;  // shared index of the first owned pixel
 
     // -- zero the border columns of the 8 shared rows, and whole rows
     // outside the image (y1 rows q < 5 are image rows r-2+q, dc2 rows
@@ -322,93 +417,106 @@ __global__ void __launch_bounds__(kThreads)
         for (int i = threadIdx.x; i < wp * kVecPix; i += kThreads) row[i] = zero;
       } else {
         for (int i = threadIdx.x; i < 2 * kVecPix; i += kThreads) {
-          const int col = i < kVecPix ? 0 : w + 1;
+          const int col = i < kVecPix ? 0 : 16 * g.nw + 1;
           row[col * kVecPix + i % kVecPix] = zero;
         }
       }
     }
 
-    // -- phase 1: y1 = bf16(relu(x @ w1 + b1)) on rows r-2 .. r+2.
-    for (int u = warp; u < 5 * ptiles; u += kWarps) {
-      const int q = u / ptiles, c0 = (u % ptiles) * 16;
-      const int rr = r - 2 + q;
+    // -- phase 1: y1 = bf16(relu(x @ w1 + b1)) on rows r-2 .. r+2, over the
+    // window; 0 at pixels at or beyond W.
+    for (int u = warp; u < 5 * g.nw; u += kWarps) {
+      const int q = u / g.nw, k = u % g.nw;
+      const int rr = r - 2 + q, c0 = g.o + 16 * k;
       if (rr < 0 || rr >= h) continue;
+      const int valid = valid_pixels(c0, w);
       FragC acc[NT];
 #pragma unroll
       for (int n = 0; n < NT; ++n) wmma::fill_fragment(acc[n], 0.0f);
       const bf16* xa = ximg + (static_cast<size_t>(rr) * w + c0) * C;
-      for (int k = 0; k < C; k += 16) {
+      for (int kc = 0; kc < C; kc += 16) {
         FragA a;
-        wmma::load_matrix_sync(a, xa + k, C);
+        if (valid == 16) {
+          wmma::load_matrix_sync(a, xa + kc, C);
+        } else {  // staged through the warp's (idle) dy3 tile
+          stage_tile(xa + kc, C, valid, dy3t, lane);
+          wmma::load_matrix_sync(a, dy3t, 16);
+          __syncwarp();
+        }
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           FragB b;
-          wmma::load_matrix_sync(b, w1 + static_cast<size_t>(k) * M + n * 16,
+          wmma::load_matrix_sync(b, w1 + static_cast<size_t>(kc) * M + n * 16,
                                  M);
           wmma::mma_sync(acc[n], a, b, acc[n]);
         }
       }
-      bf16* dst = Y1 + (q * wp + c0 + 1) * static_cast<size_t>(LD);
+      bf16* dst = Y1 + (q * wp + 16 * k + 1) * static_cast<size_t>(LD);
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         wmma::store_matrix_sync(stage, acc[n], 16, wmma::mem_row_major);
         __syncwarp();
-        store_relu_bf16(stage, b1 + n * 16, dst + n * 16, LD, lane);
+        store_relu_bf16(stage, b1 + n * 16, dst + n * 16, LD, lane, valid);
         __syncwarp();
       }
     }
     __syncthreads();
 
     // -- phase 2a: dc2 on the halo rows r-1 and r+1 (y2 where dc2 goes).
-    for (int u = warp; u < 2 * ptiles; u += kWarps) {
-      const int j = (u / ptiles) * 2, c0 = (u % ptiles) * 16;
+    for (int u = warp; u < 2 * g.nw; u += kWarps) {
+      const int j = (u / g.nw) * 2, k = u % g.nw;
       const int rr = r - 1 + j;
       if (rr < 0 || rr >= h) continue;  // stays zero
-      bf16* dst = DC2 + (j * wp + c0 + 1) * static_cast<size_t>(LD);
-      dc2_tile<M>(Y1, j, c0, wp, w, rr, dst, dst, nullptr, ximg, dyimg, w2,
-                  b2, w3, b3, stage, dy3t, lane);
+      bf16* dst = DC2 + (j * wp + 16 * k + 1) * static_cast<size_t>(LD);
+      dc2_tile<M>(Y1, j, 16 * k, g.o + 16 * k, wp, w, rr, dst, dst, nullptr,
+                  0, 0, ximg, dyimg, w2, b2, w3, b3, stage, dy3t, lane);
     }
     __syncthreads();
 
-    // -- phase 2b: dc2 on row r, its y2 kept in Y2I, db2's column sums.
-    for (int p = warp; p < ptiles; p += kWarps) {
-      const int c0 = p * 16;
-      dc2_tile<M>(Y1, 1, c0, wp, w, r, Y2I + (c0 + 1) * static_cast<size_t>(LD),
-                  DC2 + (wp + c0 + 1) * static_cast<size_t>(LD),
-                  colsum2 + p * M, ximg, dyimg, w2, b2, w3, b3, stage, dy3t,
-                  lane);
+    // -- phase 2b: dc2 on row r, its y2 kept in Y2I, db2's column sums over
+    // the owned pixels of each window tile.
+    for (int k = warp; k < g.nw; k += kWarps) {
+      const int c0 = g.o + 16 * k;
+      const int lo = g.cb - c0 > 0 ? g.cb - c0 : 0;
+      const int hi = g.ce - c0 < 16 ? g.ce - c0 : 16;
+      dc2_tile<M>(Y1, 1, 16 * k, c0, wp, w, r,
+                  Y2I + (16 * k + 1) * static_cast<size_t>(LD),
+                  DC2 + (wp + 16 * k + 1) * static_cast<size_t>(LD),
+                  colsum2 + k * M, lo, hi, ximg, dyimg, w2, b2, w3, b3, stage,
+                  dy3t, lane);
     }
     __syncthreads();
 
-    // -- phase 3: dy1 = sum_k shift_k(dc2) @ w2[k]^T on row r; dc1 = dy1 *
-    // (y1 > 0) into DC1 (bf16) and db1's column sums. dy1[r, c] takes
-    // dc2[r + 1 - ky, c + 1 - kx]: DC2 row 2 - ky, column c + 2 - kx.
-    for (int p = warp; p < ptiles; p += kWarps) {
-      const int c0 = p * 16;
+    // -- phase 3: dy1 = sum_k shift_k(dc2) @ w2[k]^T on the owned tiles of
+    // row r; dc1 = dy1 * (y1 > 0) into DC1 (bf16) and db1's column sums.
+    // dy1[r, c] takes dc2[r + 1 - ky, c + 1 - kx]: DC2 row 2 - ky, one
+    // shared index right of c's, less kx.
+    for (int p = warp; p < g.np; p += kWarps) {
+      const int sa = a0 + 16 * p;  // shared index of the tile's first pixel
       FragC acc[NT];
 #pragma unroll
       for (int n = 0; n < NT; ++n) wmma::fill_fragment(acc[n], 0.0f);
       for (int ky = 0; ky < 3; ++ky) {
         for (int kx = 0; kx < 3; ++kx) {
           const bf16* da =
-              DC2 + (static_cast<size_t>(2 - ky) * wp + c0 + 2 - kx) * LD;
+              DC2 + (static_cast<size_t>(2 - ky) * wp + sa + 1 - kx) * LD;
           const bf16* wt = w2 + static_cast<size_t>(ky * 3 + kx) * M * M;
-          for (int k = 0; k < M; k += 16) {
+          for (int kc = 0; kc < M; kc += 16) {
             FragA a;
-            wmma::load_matrix_sync(a, da + k, LD);
+            wmma::load_matrix_sync(a, da + kc, LD);
 #pragma unroll
             for (int n = 0; n < NT; ++n) {
               // w2[k]^T: element (o, i) is w2[k][i, o]
               FragBt bt;
-              wmma::load_matrix_sync(bt, wt + static_cast<size_t>(n) * 16 * M + k,
-                                     M);
+              wmma::load_matrix_sync(
+                  bt, wt + static_cast<size_t>(n) * 16 * M + kc, M);
               wmma::mma_sync(acc[n], a, bt, acc[n]);
             }
           }
         }
       }
-      const bf16* y1r = Y1 + (2 * wp + c0 + 1) * static_cast<size_t>(LD);
-      bf16* dst = DC1 + (c0 + 1) * static_cast<size_t>(LD);
+      const bf16* y1r = Y1 + (2 * wp + sa) * static_cast<size_t>(LD);
+      bf16* dst = DC1 + sa * static_cast<size_t>(LD);
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         wmma::store_matrix_sync(stage, acc[n], 16, wmma::mem_row_major);
@@ -421,14 +529,15 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    // -- phase 4: sums owned by output. db1 and db2: one thread a channel.
+    // -- phase 4: sums owned by output, over the owned tiles. db1 and db2:
+    // one thread a channel.
     for (int i = threadIdx.x; i < 2 * M; i += kThreads) {
-      const float* cs = i < M ? colsum1 + i : colsum2 + (i - M);
       float s = 0.0f;
-      for (int p = 0; p < ptiles; ++p) s += cs[p * M];
       if (i < M) {
+        for (int p = 0; p < g.np; ++p) s += colsum1[p * M + i];
         g_db1[i] += s;
       } else {
+        for (int k = 0; k < g.nw; ++k) s += colsum2[k * M + i - M];
         g_db2[i - M] += s;
       }
     }
@@ -445,8 +554,9 @@ __global__ void __launch_bounds__(kThreads)
           wmma::load_matrix_sync(dw3[n], g_dw3 + n * 16 * C + jc * 16, C,
                                  wmma::mem_row_major);
         float db3s = 0.0f;
-        for (int p = 0; p < ptiles; ++p) {
-          const bf16* y2p = Y2I + (p * 16 + 1) * static_cast<size_t>(LD);
+        for (int p = 0; p < g.np; ++p) {
+          const int sa = a0 + 16 * p, c0 = g.cb + 16 * p;
+          const bf16* y2p = Y2I + sa * static_cast<size_t>(LD);
           FragC acc3;
           wmma::fill_fragment(acc3, 0.0f);
 #pragma unroll
@@ -460,10 +570,12 @@ __global__ void __launch_bounds__(kThreads)
           }
           wmma::store_matrix_sync(stage, acc3, 16, wmma::mem_row_major);
           __syncwarp();
+          const bool live = c0 + pr < w;
           const size_t pix =
-              static_cast<size_t>(p * 16 + pr) * C + jc * 16 + pc;
+              static_cast<size_t>(live ? c0 + pr : w - 1) * C + jc * 16 + pc;
           float d3[8];
-          dy3_chunk(stage, dy3t, xrow, dyrow, b3, pix, jc * 16 + pc, lane, d3);
+          dy3_chunk(stage, dy3t, xrow, dyrow, b3, pix, jc * 16 + pc, lane,
+                    live, d3);
           __syncwarp();
           if (lane < 16) db3s += column_sum(stage, lane);
           FragB bd;
@@ -476,7 +588,7 @@ __global__ void __launch_bounds__(kThreads)
           }
           FragC ax;
           wmma::fill_fragment(ax, 0.0f);
-          const bf16* d1p = DC1 + (p * 16 + 1) * static_cast<size_t>(LD);
+          const bf16* d1p = DC1 + sa * static_cast<size_t>(LD);
 #pragma unroll
           for (int k = 0; k < NT; ++k) {
             FragA a;
@@ -495,7 +607,7 @@ __global__ void __launch_bounds__(kThreads)
           for (int i = 0; i < 4; ++i)
             pack.h[i] = __floats2bfloat162_rn(d3[2 * i] + s[2 * i],
                                               d3[2 * i + 1] + s[2 * i + 1]);
-          *reinterpret_cast<uint4*>(dxrow + pix) = pack.v;
+          if (live) *reinterpret_cast<uint4*>(dxrow + pix) = pack.v;
           __syncwarp();
         }
 #pragma unroll
@@ -508,38 +620,46 @@ __global__ void __launch_bounds__(kThreads)
         const int v = u - CT, k = v / (NT * NT);
         const int i0 = (v % (NT * NT)) / NT * 16, o0 = (v % NT) * 16;
         const int ky = k / 3, kx = k % 3;
-        float* g = g_dw2 + static_cast<size_t>(k) * M * M + i0 * M + o0;
+        float* gp = g_dw2 + static_cast<size_t>(k) * M * M + i0 * M + o0;
         FragC acc;
-        wmma::load_matrix_sync(acc, g, M, wmma::mem_row_major);
-        for (int p = 0; p < ptiles; ++p) {
+        wmma::load_matrix_sync(acc, gp, M, wmma::mem_row_major);
+        for (int p = 0; p < g.np; ++p) {
+          const int sa = a0 + 16 * p;
           FragAt at;  // element (i, pixel c) is y1[r + ky - 1, c + kx - 1, i]
           wmma::load_matrix_sync(
-              at, Y1 + ((ky + 1) * wp + p * 16 + kx) * static_cast<size_t>(LD) +
+              at, Y1 + ((ky + 1) * wp + sa + kx - 1) * static_cast<size_t>(LD) +
                       i0,
               LD);
           FragB b;
           wmma::load_matrix_sync(
-              b, DC2 + (wp + p * 16 + 1) * static_cast<size_t>(LD) + o0, LD);
+              b, DC2 + (wp + sa) * static_cast<size_t>(LD) + o0, LD);
           wmma::mma_sync(acc, at, b, acc);
         }
-        wmma::store_matrix_sync(g, acc, M, wmma::mem_row_major);
+        wmma::store_matrix_sync(gp, acc, M, wmma::mem_row_major);
       } else {
         // a 16x16 tile (ci, o0) of dw1 += x^T dc1, row r
         const int v = u - CT - 9 * NT * NT;
         const int ci = v / NT, o0 = (v % NT) * 16;
-        float* g = g_dw1 + static_cast<size_t>(ci) * 16 * M + o0;
+        float* gp = g_dw1 + static_cast<size_t>(ci) * 16 * M + o0;
         FragC acc;
-        wmma::load_matrix_sync(acc, g, M, wmma::mem_row_major);
-        for (int p = 0; p < ptiles; ++p) {
+        wmma::load_matrix_sync(acc, gp, M, wmma::mem_row_major);
+        for (int p = 0; p < g.np; ++p) {
+          const int c0 = g.cb + 16 * p, valid = valid_pixels(c0, w);
+          const bf16* xa = xrow + static_cast<size_t>(c0) * C + ci * 16;
           FragAt at;  // element (c, pixel) is x[r, pixel, c]
-          wmma::load_matrix_sync(
-              at, xrow + static_cast<size_t>(p) * 16 * C + ci * 16, C);
+          if (valid == 16) {
+            wmma::load_matrix_sync(at, xa, C);
+          } else {  // staged through the warp's (idle) dy3 tile
+            stage_tile(xa, C, valid, dy3t, lane);
+            wmma::load_matrix_sync(at, dy3t, 16);
+            __syncwarp();
+          }
           FragB b;
           wmma::load_matrix_sync(
-              b, DC1 + (p * 16 + 1) * static_cast<size_t>(LD) + o0, LD);
+              b, DC1 + (a0 + 16 * p) * static_cast<size_t>(LD) + o0, LD);
           wmma::mma_sync(acc, at, b, acc);
         }
-        wmma::store_matrix_sync(g, acc, M, wmma::mem_row_major);
+        wmma::store_matrix_sync(gp, acc, M, wmma::mem_row_major);
       }
     }
     __syncthreads();  // the next tile rewrites the shared rows
@@ -560,21 +680,22 @@ template <int M>
 int launch(const void* x, const void* dy, const void* w1, const float* b1,
            const void* w2, const float* b2, const void* w3, const float* b3,
            void* dx, float* ws, float* grads, int batch, int h, int w,
-           int parts, cudaStream_t stream) {
-  const size_t smem = smem_bytes<M>(w);
+           int parts, size_t limit, cudaStream_t stream) {
+  const Plan p = plan<M>(w, limit);
+  if (p.wc == 0) return static_cast<int>(cudaErrorInvalidValue);
   // fails (cudaErrorInvalidValue) past the card's per-block limit
   cudaError_t err = cudaFuncSetAttribute(
       bottleneck_bwd_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(p.smem));
   if (err != cudaSuccess) {
     cudaGetLastError();  // not left for the next launch's check to find
     return static_cast<int>(err);
   }
-  bottleneck_bwd_kernel<M><<<parts, kThreads, smem, stream>>>(
+  bottleneck_bwd_kernel<M><<<parts, kThreads, p.smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(dy),
       static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2,
       static_cast<const bf16*>(w3), b3, static_cast<bf16*>(dx), ws, batch, h,
-      w);
+      w, p.wc, p.nwmax);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t s = slice_floats<M>();
@@ -583,11 +704,19 @@ int launch(const void* x, const void* dy, const void* w1, const float* b1,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The shared memory a block of `device` may take, or < 0 (a cudaError_t).
+long long smem_limit(int device) {
+  int limit = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(
+      &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return err == cudaSuccess ? limit : -static_cast<long long>(err);
+}
+
 }  // namespace
 
 // Launches the backward and the slice sum on `stream` of `device`; returns
 // a cudaError_t (0 = ok). ws holds parts x S floats (uninitialised), grads
-// S floats in the layout above. The caller guarantees batch, h >= 1,
+// S floats in the layout above. The caller guarantees batch, h, w >= 1,
 // 1 <= parts and the requirements above.
 extern "C" int detjax_bottleneck_bwd_launch(
     const void* x, const void* dy, const void* w1, const float* b1,
@@ -596,11 +725,13 @@ extern "C" int detjax_bottleneck_bwd_launch(
     int device, void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const long long limit = smem_limit(device);
+  if (limit < 0) return static_cast<int>(-limit);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DETJAX_BWD(MM)                                                      \
   case MM:                                                                  \
     return launch<MM>(x, dy, w1, b1, w2, b2, w3, b3, dx, ws, grads, batch, \
-                      h, w, parts, s);
+                      h, w, parts, static_cast<size_t>(limit), s);
   switch (m) {
     DETJAX_BWD(16)
     DETJAX_BWD(32)
@@ -612,16 +743,25 @@ extern "C" int detjax_bottleneck_bwd_launch(
 #undef DETJAX_BWD
 }
 
-// Dynamic shared memory a block takes at width w and M = m; 0 for an M the
-// kernel is not instantiated for.
-extern "C" int detjax_bottleneck_bwd_smem_bytes(int w, int m) {
+// How the launcher tiles a row of width w at M = m on `device`: writes the
+// column-block width (w rounded up to whole tiles when the row fits whole;
+// 0 when nothing fits) and the dynamic shared memory of a block; returns a
+// cudaError_t.
+extern "C" int detjax_bottleneck_bwd_plan(int w, int m, int device, int* wc,
+                                          int* smem) {
+  const long long limit = smem_limit(device);
+  if (limit < 0) return static_cast<int>(-limit);
+  Plan p = {0, 0, 0};
   switch (m) {
-    case 16: return static_cast<int>(smem_bytes<16>(w));
-    case 32: return static_cast<int>(smem_bytes<32>(w));
-    case 64: return static_cast<int>(smem_bytes<64>(w));
-    case 128: return static_cast<int>(smem_bytes<128>(w));
-    default: return 0;
+    case 16: p = plan<16>(w, static_cast<size_t>(limit)); break;
+    case 32: p = plan<32>(w, static_cast<size_t>(limit)); break;
+    case 64: p = plan<64>(w, static_cast<size_t>(limit)); break;
+    case 128: p = plan<128>(w, static_cast<size_t>(limit)); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  *wc = p.wc;
+  *smem = static_cast<int>(p.smem);
+  return 0;
 }
 
 // Floats in one workspace slice (and in the summed gradients) at M = m.

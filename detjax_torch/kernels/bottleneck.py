@@ -10,10 +10,14 @@ convs: ``relu(conv3(relu(conv2(relu(conv1(x))))) + x)``, in bf16 with fp32
 accumulation, and keeps y1 and y2 out of device memory. One block takes two
 output rows of one image; y1 for those rows and their halo rows sits in
 shared memory with zeroed borders, so the 3x3's zero padding costs nothing.
-The backward recomputes y1 and y2 on chip from x and returns dx and the six
-weight and bias gradients, rounding where ``_bwd_kernel`` rounds; its note
-says how the cross-block sums are made (a workspace slice per block, summed
-in a fixed order: the bits do not change between runs).
+Both kernels take any width W: a row is cut into 16-pixel tiles, and a last,
+partial tile is masked (its pixels past W load as zeros, add nothing to a
+sum and are never stored). The backward recomputes y1 and y2 on chip from x
+and returns dx and the six weight and bias gradients, rounding where
+``_bwd_kernel`` rounds; a row too wide for one block's shared memory is
+split into column blocks with a two-column halo; its note says how the
+cross-block sums are made (a workspace slice per block, summed in a fixed
+order: the bits do not change between runs).
 
 What bounds them on an H100: the forward is bound by bytes at the main
 path's shapes, reading x and writing the output once (210 MB for layer1 at
@@ -77,6 +81,8 @@ def _lib():
         fn.restype = ctypes.c_int
         lib.detjax_bottleneck_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.detjax_bottleneck_smem_bytes.restype = ctypes.c_int
+        lib.detjax_bottleneck_max_width.argtypes = [ctypes.c_int] * 2
+        lib.detjax_bottleneck_max_width.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -91,8 +97,9 @@ def _bwd_lib():
         fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.detjax_bottleneck_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
-        lib.detjax_bottleneck_bwd_smem_bytes.restype = ctypes.c_int
+        lib.detjax_bottleneck_bwd_plan.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)] * 2
+        lib.detjax_bottleneck_bwd_plan.restype = ctypes.c_int
         lib.detjax_bottleneck_bwd_slice_floats.argtypes = [ctypes.c_int]
         lib.detjax_bottleneck_bwd_slice_floats.restype = ctypes.c_int
         _BWD_LIB = lib
@@ -105,10 +112,29 @@ def smem_bytes(w: int, m: int) -> int:
     return int(_lib().detjax_bottleneck_smem_bytes(w, m))
 
 
-def bwd_smem_bytes(w: int, m: int) -> int:
-    """Dynamic shared memory of one backward-kernel block at width ``w`` and
-    ``M = m``, as the launcher computes it (builds the library)."""
-    return int(_bwd_lib().detjax_bottleneck_bwd_smem_bytes(w, m))
+def max_width(m: int, device: int = 0) -> int:
+    """The widest row the forward kernel takes at ``M = m`` on CUDA device
+    ``device``: the shared memory of a block must fit the card's limit
+    (builds the library)."""
+    w = int(_lib().detjax_bottleneck_max_width(m, device))
+    if w < 0:
+        raise RuntimeError(f"cudaDeviceGetAttribute failed: cudaError {-w}")
+    return w
+
+
+def bwd_plan(w: int, m: int, device: int = 0) -> Tuple[int, int]:
+    """How the backward kernel tiles a row of width ``w`` at ``M = m`` on
+    CUDA device ``device``: ``(column-block width, dynamic shared memory of
+    one block)``. The width is ``w`` rounded up to whole 16-pixel tiles
+    when the row fits one block's shared memory whole (builds the
+    library)."""
+    wc, smem = ctypes.c_int(), ctypes.c_int()
+    err = _bwd_lib().detjax_bottleneck_bwd_plan(w, m, device,
+                                                ctypes.byref(wc),
+                                                ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"bottleneck backward plan failed: cudaError {err}")
+    return wc.value, smem.value
 
 
 def bwd_workspace_bytes(parts: int, m: int) -> int:
@@ -248,9 +274,6 @@ def _check_kernel_args(x, w1, b1, w2, b2, w3, b3, dy=None
             raise ValueError(f"{name} must be 32-byte aligned (wmma tiles)")
     if m not in WIDTHS:
         raise ValueError(f"M={m} is not one of the kernel's widths {WIDTHS}")
-    if w % 16:
-        raise ValueError(f"W={w} must be a multiple of 16 (16-pixel tiles "
-                         f"within one row)")
     return bsz, h, w, c, m
 
 
@@ -274,9 +297,12 @@ def _launch(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
         b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
         bsz, h, w, m, index, stream)
     if err != 0:
+        widest = ", ".join(f"W <= {max_width(mm, index)} at M={mm}"
+                           for mm in WIDTHS)
         raise RuntimeError(f"bottleneck kernel launch failed: cudaError {err} "
                            f"(W={w}, M={m}: {smem_bytes(w, m)} bytes of "
-                           f"shared memory a block)")
+                           f"shared memory a block; the kernel takes "
+                           f"{widest})")
     bottleneck_launches += 1
     return out
 
@@ -313,8 +339,8 @@ def _launch_backward(x, dy, w1, b1, w2, b2, w3, b3
         if err != 0:
             raise RuntimeError(
                 f"bottleneck backward kernel launch failed: cudaError {err} "
-                f"(W={w}, M={m}: {bwd_smem_bytes(w, m)} bytes of shared "
-                f"memory a block)")
+                f"(W={w}, M={m}: (column-block width, shared memory bytes "
+                f"a block) = {bwd_plan(w, m, index)})")
         bottleneck_bwd_launches += 1
     dw1, dw2, dw3, db1, db2, db3 = flat.split(sizes)
     return (dx, dw1.view(c, m), db1.view(1, m), dw2.view(3, 3, m, m),

@@ -1,9 +1,16 @@
-"""Class-aware greedy NMS: the CUDA kernel's wrapper and its plain twin.
+"""Class-aware greedy NMS and full-set box decode: the CUDA kernels'
+wrappers and their plain twins.
 
 ``nms_cuda`` replaces the TPU kernel ``detjax/kernels/postprocess.py::
 nms_pallas`` (body ``_nms_kernel``) with the hand-written kernel in
 ``detjax_torch/csrc/nms.cu``: one block per image, candidates in shared
 memory, one block-wide (score, index) argmax per kept box.
+
+``decode_boxes_cuda`` replaces ``decode_boxes_pallas`` (body
+``_decode_kernel``) with ``detjax_torch/csrc/decode.cu``: one thread per
+(image, anchor), fp32 arithmetic in ``_decode_kernel``'s order, NaN kept
+by the clip. It is bound by bytes (deltas and anchors read once, boxes
+written once: 6.2 us at R50-640, B=8), less than a launch costs.
 
 What bounds it on an H100: ``max_det`` sequential block-wide reductions,
 each with two barriers, on only B blocks (8 of the card's 132 SMs on the
@@ -11,18 +18,20 @@ main path). It is latency-bound, not byte-bound: the candidate set is
 about 200 KB at B=8, N=1000. A later design would build the IoU > thr
 bitmask matrix in parallel and keep only one serial sweep over it.
 
-Routing: a CPU tensor goes to the plain twin :func:`nms_reference`; a CUDA
-tensor goes to the kernel or raises. ``nms_launches`` counts kernel
-launches, and nothing else.
+Routing: a CPU tensor goes to the plain twin (:func:`nms_reference`,
+:func:`decode_boxes_reference`); a CUDA tensor goes to the kernel or raises.
+``nms_launches`` and ``decode_launches`` count kernel launches, and nothing
+else.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
+from detjax_torch.ops.boxes import DEFAULT_BOX_STD, clip_boxes, decode_boxes
 from detjax_torch.ops.nms import _greedy_suppress
 
 # Dynamic shared memory: 6 fp32 values a candidate, within the 227 KB a
@@ -30,8 +39,10 @@ from detjax_torch.ops.nms import _greedy_suppress
 MAX_CANDIDATES = (227 * 1024 - 1024) // 24
 
 nms_launches = 0
+decode_launches = 0
 
 _LIB = None
+_DECODE_LIB = None
 
 
 def _lib():
@@ -121,3 +132,89 @@ def nms_cuda(boxes: torch.Tensor, scores: torch.Tensor, labels: torch.Tensor,
         raise RuntimeError(f"NMS kernel launch failed: cudaError {err}")
     nms_launches += 1
     return keep_idx, keep_scores
+
+
+def _decode_lib():
+    global _DECODE_LIB
+    if _DECODE_LIB is None:
+        from detjax_torch.kernels._build import load_library
+
+        lib = load_library("detjax_decode", ["decode.cu"])
+        fn = lib.detjax_decode_launch
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_float,
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _DECODE_LIB = lib
+    return _DECODE_LIB
+
+
+def decode_boxes_reference(deltas: torch.Tensor, anchors: torch.Tensor,
+                           std: Sequence[float] = DEFAULT_BOX_STD,
+                           image_size: Optional[Tuple[int, int]] = None
+                           ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`decode_boxes_cuda`: deltas cast to
+    fp32 (as ``decode_boxes_pallas`` casts them), then ``decode_boxes``
+    and, given ``image_size``, ``clip_boxes``."""
+    boxes = decode_boxes(deltas.to(torch.float32), anchors.to(torch.float32),
+                         std)
+    return boxes if image_size is None else clip_boxes(boxes, image_size)
+
+
+def decode_boxes_cuda(deltas: torch.Tensor, anchors: torch.Tensor,
+                      std: Sequence[float] = DEFAULT_BOX_STD,
+                      image_size: Optional[Tuple[int, int]] = None
+                      ) -> torch.Tensor:
+    """Decode (and clip to ``image_size`` = (H, W), when given) every
+    anchor's box.
+
+    deltas [B, N, 4] fp32 or bf16, anchors [N, 4] fp32 xyxy, ``std`` four
+    floats. Returns [B, N, 4] fp32 xyxy, computed in fp32 whatever the
+    deltas' dtype (bf16 converts exactly).
+    """
+    global decode_launches
+    if deltas.dim() != 3 or deltas.shape[-1] != 4:
+        raise ValueError(f"deltas must be [B, N, 4], got "
+                         f"{tuple(deltas.shape)}")
+    if tuple(anchors.shape) != (deltas.shape[1], 4):
+        raise ValueError(f"anchors must be [N, 4] = ({deltas.shape[1]}, 4), "
+                         f"got {tuple(anchors.shape)}")
+    if len(tuple(std)) != 4:
+        raise ValueError(f"std must hold 4 floats, got {std}")
+    if deltas.device != anchors.device:
+        raise ValueError("deltas and anchors must be on one device")
+    if deltas.device.type == "cpu":
+        return decode_boxes_reference(deltas, anchors, std, image_size)
+    if deltas.device.type != "cuda":
+        raise ValueError(f"decode_boxes_cuda takes CPU or CUDA tensors, got "
+                         f"{deltas.device}")
+    if deltas.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"deltas must be float32 or bfloat16, got "
+                        f"{deltas.dtype}")
+    if anchors.dtype != torch.float32:
+        raise TypeError(f"anchors must be float32, got {anchors.dtype}")
+    for name, t in (("deltas", deltas), ("anchors", anchors)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if deltas.data_ptr() % (4 * deltas.element_size()) or \
+            anchors.data_ptr() % 16:
+        raise ValueError("deltas and anchors must be aligned to one box "
+                         "(read as one vector a box)")
+    b, n, _ = deltas.shape
+    out = torch.empty((b, n, 4), dtype=torch.float32, device=deltas.device)
+    if b == 0 or n == 0:
+        return out
+    h, w = (0.0, 0.0) if image_size is None else map(float, image_size)
+    lib = _decode_lib()
+    dev = deltas.device.index if deltas.device.index is not None \
+        else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    std_c = (ctypes.c_float * 4)(*(float(v) for v in std))
+    err = lib.detjax_decode_launch(
+        deltas.data_ptr(), anchors.data_ptr(), out.data_ptr(), b, n,
+        int(deltas.dtype == torch.bfloat16), std_c,
+        int(image_size is not None), w, h, dev, stream)
+    if err != 0:
+        raise RuntimeError(f"decode kernel launch failed: cudaError {err}")
+    decode_launches += 1
+    return out

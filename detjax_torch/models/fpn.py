@@ -16,6 +16,25 @@ from torch import nn
 import torch.nn.functional as F
 
 
+def stride2_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)`` for P6 and P7. On the CPU under bf16 autocast, with a 1x1
+    input, the same product computed as an fp32 convolution of the
+    bf16-rounded input, weight and bias, rounded to bf16: what autocast
+    computes (bf16 operands, fp32 sums, bf16 out)."""
+    if (x.device.type == "cpu" and tuple(x.shape[-2:]) == (1, 1)
+            and torch.is_autocast_enabled("cpu")
+            and torch.get_autocast_dtype("cpu") == torch.bfloat16):
+        # PyTorch's CPU bf16 conv kernel computes this conv's weight
+        # gradient from uninitialised memory when its input is 1x1
+        with torch.autocast("cpu", enabled=False):
+            def bf(t):
+                return t.to(torch.bfloat16).float()
+            y = F.conv2d(bf(x), bf(conv.weight), bf(conv.bias), conv.stride,
+                         conv.padding)
+        return y.to(torch.bfloat16)
+    return conv(x)
+
+
 def upsample_nearest_2x(x: torch.Tensor, out_hw) -> torch.Tensor:
     """[B,C,H,W] -> [B,C,2H,2W], cropped to ``out_hw`` for odd targets."""
     y = F.interpolate(x, scale_factor=2.0, mode="nearest")
@@ -50,7 +69,7 @@ class FPN(nn.Module):
             merged[lvl] = laterals[lvl] + upsample_nearest_2x(
                 merged[lvl + 1], laterals[lvl].shape[-2:])
         out = {lvl: getattr(self, f"P{lvl}_2")(merged[lvl]) for lvl in merged}
-        out[6] = self.P6(feats[5])
-        out[7] = self.P7_2(F.relu(out[6]))
+        out[6] = stride2_conv(self.P6, feats[5])
+        out[7] = stride2_conv(self.P7_2, F.relu(out[6]))
         return {lvl: out[lvl] for lvl in range(self.min_level,
                                                self.max_level + 1)}

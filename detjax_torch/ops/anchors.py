@@ -132,3 +132,7 @@ def num_anchors(image_size: Tuple[int, int], cfg: AnchorConfig = AnchorConfig())
 
 # Backwards-friendly alias matching the lineage's public name.
 generate_anchors = generate_cell_anchors
+
+
+# The lineage's public name, as detjax keeps it.
+generate_anchors = generate_cell_anchors

@@ -1,4 +1,5 @@
-"""Box ops on tensors: area, pairwise IoU, delta encode/decode, clipping.
+"""Box ops on tensors: area, pairwise IoU, delta encode/decode, clipping,
+and the full-anchor-set decode + clip of the eval branch.
 
 The counterpart of ``detjax/ops/boxes.py``. All boxes are xyxy floats;
 every function broadcasts over leading dims. Each op is written in the
@@ -91,3 +92,30 @@ def clip_boxes(boxes: torch.Tensor,
     h, w = image_size
     hi = torch.tensor([w, h, w, h], dtype=boxes.dtype, device=boxes.device)
     return torch.minimum(torch.clamp(boxes, min=0.0), hi)
+
+
+def decode_clip_boxes(deltas: torch.Tensor, anchors: torch.Tensor,
+                      image_size: Tuple[int, int],
+                      std: Sequence[float] = DEFAULT_BOX_STD,
+                      backend: str = "auto") -> torch.Tensor:
+    """Decode and clip every anchor's box: the lineage's ``BBoxTransform``
+    -> ``ClipBoxes`` pair over the full anchor set. deltas [B, A, 4],
+    anchors [A, 4] -> [B, A, 4].
+
+    ``backend``: "cuda" runs the hand-written kernel
+    (``detjax_torch.kernels.postprocess.decode_boxes_cuda``; its plain twin
+    for CPU tensors) and always computes in fp32, as detjax's "pallas";
+    "torch" is detjax's "jnp" branch, ``clip_boxes(decode_boxes(...))`` in
+    the deltas' dtype; "auto" is "cuda" for a CUDA tensor and "torch"
+    otherwise. The detect path does not decode the full set: it decodes
+    only the selected candidates (``ops/nms._select_candidates``).
+    """
+    if backend == "auto":
+        backend = "cuda" if deltas.is_cuda else "torch"
+    if backend == "cuda":
+        from detjax_torch.kernels.postprocess import decode_boxes_cuda
+
+        return decode_boxes_cuda(deltas, anchors, std, image_size)
+    if backend != "torch":
+        raise ValueError(f"backend must be auto/cuda/torch, got {backend!r}")
+    return clip_boxes(decode_boxes(deltas, anchors, std), image_size)

@@ -1,10 +1,24 @@
-"""Candidate selection, greedy NMS twin and the fused detect postprocess.
+"""Greedy NMS, the per-class NMS of the eval branch, candidate selection
+and the fused detect postprocess.
 
-The counterpart of ``detjax/ops/nms.py``, batched over a leading image
-dim written out (detjax vmaps a one-image function). Per image: the top
-``num_candidates`` (anchor, class) pairs by score, decode and clip of only
-those, then ONE greedy NMS pass over class-offset boxes, which equals
-per-class NMS merged in score order.
+The counterpart of ``detjax/ops/nms.py``, batched over leading dims written
+out (detjax vmaps one-image functions). Two paths, as in detjax:
+
+- :func:`batched_detect_postprocess` / :func:`class_aware_nms`, the exact
+  per-class path over fully decoded boxes: per class a threshold, a top
+  ``pre_nms_top_k``, greedy NMS keeping ``per_class_max``
+  (:func:`nms_single_class`), then the global top ``max_detections`` of
+  the pooled survivors.
+- :func:`fused_detect_postprocess`, the production path: per image the top
+  ``num_candidates`` (anchor, class) pairs by score, decode and clip of
+  only those, then ONE greedy NMS pass over class-offset boxes, which
+  equals per-class NMS merged in score order.
+
+Both greedy passes run on the card through the CUDA NMS kernel
+(``detjax_torch.kernels.postprocess.nms_cuda``); the per-class pass gives
+it one row per (image, class), labels 0 and a class offset of 0, which
+leaves every box unchanged, so it equals :func:`_greedy_suppress` bit for
+bit.
 
 Semantics kept from detjax, each one a place where a port can drift:
 
@@ -39,6 +53,15 @@ NEG_INF = -1e10
 _EXACT_PAIRS_MAX = 1 << 16
 
 _TOPK_MODES = ("auto", "exact", "partial")
+
+
+_BACKENDS = ("auto", "cuda", "torch")
+
+
+class NMSResult(NamedTuple):
+    indices: torch.Tensor  # [..., max_output] int32 into the input, -1 pad
+    scores: torch.Tensor  # [..., max_output] f32, 0 padding
+    num_valid: torch.Tensor  # [...] int32
 
 
 class Detections(NamedTuple):
@@ -81,6 +104,127 @@ def _greedy_suppress(boxes: torch.Tensor, scores: torch.Tensor,
         keep_scores[:, i] = torch.where(valid, best_score, 0.0)
     return (keep_idx.reshape(*lead, max_output),
             keep_scores.reshape(*lead, max_output))
+
+
+def _resolve_backend(backend: str, t: torch.Tensor) -> str:
+    if backend not in _BACKENDS:
+        raise ValueError(f"backend must be one of {_BACKENDS}, got "
+                         f"{backend!r}")
+    if backend == "auto":
+        return "cuda" if t.is_cuda else "torch"
+    return backend
+
+
+def nms_single_class(boxes: torch.Tensor, scores: torch.Tensor,
+                     iou_threshold: float = 0.5, max_output: int = 100, *,
+                     backend: str = "auto") -> NMSResult:
+    """Greedy NMS with a static output size over boxes [..., N, 4] and
+    scores [..., N] (entries <= NEG_INF/2 are pre-suppressed); each
+    leading index is one independent set.
+
+    ``backend``: "cuda" runs the NMS kernel (one row per set, labels 0,
+    class offset 0; its plain twin for CPU tensors), "torch" the plain
+    twin :func:`_greedy_suppress`; "auto" is "cuda" for a CUDA tensor.
+    """
+    lead, n = scores.shape[:-1], scores.shape[-1]
+    if _resolve_backend(backend, scores) == "cuda":
+        from detjax_torch.kernels.postprocess import nms_cuda
+
+        flat_scores = scores.to(torch.float32).reshape(-1, n).contiguous()
+        keep_idx, keep_scores = nms_cuda(
+            boxes.to(torch.float32).reshape(-1, n, 4).contiguous(),
+            flat_scores, torch.zeros_like(flat_scores, dtype=torch.int32),
+            iou_threshold=iou_threshold, max_det=max_output,
+            class_offset=0.0)
+        keep_idx = keep_idx.reshape(*lead, max_output)
+        keep_scores = keep_scores.reshape(*lead, max_output)
+    else:
+        keep_idx, keep_scores = _greedy_suppress(boxes, scores,
+                                                 iou_threshold, max_output)
+    return NMSResult(keep_idx, keep_scores,
+                     (keep_idx >= 0).sum(dim=-1).to(torch.int32))
+
+
+def _per_class_candidates(boxes: torch.Tensor, scores: torch.Tensor,
+                         score_threshold: float, pre_nms_top_k: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-class NMS inputs of :func:`class_aware_nms`: per image and
+    class, scores above the threshold (compared in fp32, the rest set to
+    NEG_INF) and their top ``pre_nms_top_k`` by score, ties to the lowest
+    anchor index, with their boxes. boxes [..., A, 4], scores [..., A, K]
+    -> ``(boxes [B, K, pre_k, 4] f32, scores [B, K, pre_k] f32)`` with the
+    leading dims flattened to B."""
+    a, k = scores.shape[-2:]
+    bsz = math.prod(scores.shape[:-2])
+    boxes = boxes.to(torch.float32).reshape(bsz, a, 4)
+    pre_k = min(pre_nms_top_k, a)
+    scores_t = scores.reshape(bsz, a, k).transpose(1, 2).to(torch.float32)
+    thr = _threshold(score_threshold, False, torch.float32)
+    scores_t = torch.where(scores_t > thr, scores_t, NEG_INF)  # [bsz, K, A]
+    top_scores, top_idx = _top_n(scores_t, pre_k)  # [bsz, K, pre_k]
+    top_boxes = boxes.gather(
+        1, top_idx.reshape(bsz, k * pre_k, 1).expand(bsz, k * pre_k, 4)
+    ).reshape(bsz, k, pre_k, 4)
+    return top_boxes, top_scores
+
+
+def class_aware_nms(boxes: torch.Tensor, scores: torch.Tensor,
+                    score_threshold: float = 0.05,
+                    iou_threshold: float = 0.5, pre_nms_top_k: int = 1000,
+                    max_detections: int = 100, per_class_max: int = 100, *,
+                    backend: str = "auto") -> Detections:
+    """Class-aware NMS over class-agnostic decoded boxes [..., A, 4] and
+    per-class probabilities [..., A, K]; each leading index is one image.
+
+    Per class: scores above ``score_threshold`` (compared in fp32), the top
+    ``pre_nms_top_k`` (ties to the lowest anchor index), greedy NMS keeping
+    ``per_class_max`` (:func:`nms_single_class`, all classes of all images
+    in one pass) -> pool the classes -> the global top ``max_detections``
+    by score. Returns :class:`Detections` with the leading dims.
+    """
+    lead, k = scores.shape[:-2], scores.shape[-1]
+    bsz = math.prod(lead)
+    top_boxes, top_scores = _per_class_candidates(boxes, scores,
+                                                  score_threshold,
+                                                  pre_nms_top_k)
+    res = nms_single_class(top_boxes, top_scores, iou_threshold,
+                           per_class_max, backend=backend)
+    # pool the per-class survivors, then the global top-k by score
+    valid = res.indices >= 0  # [bsz, K, per_class_max]
+    safe = res.indices.clamp(min=0).to(torch.int64)
+    pooled_scores = torch.where(valid, res.scores, NEG_INF).reshape(bsz, -1)
+    pooled_boxes = top_boxes.gather(
+        2, safe[..., None].expand(*safe.shape, 4)).reshape(bsz, -1, 4)
+    pooled_labels = torch.arange(k, dtype=torch.int32, device=scores.device
+                                 )[:, None].expand(k, safe.shape[-1])
+    pooled_labels = pooled_labels.reshape(-1)
+
+    d = min(max_detections, pooled_scores.shape[1])
+    final_scores, sel = _top_n(pooled_scores, d)
+    keep = final_scores > NEG_INF / 2
+    out_boxes = pooled_boxes.gather(1, sel[..., None].expand(bsz, d, 4))
+    return Detections(
+        boxes=torch.where(keep[..., None], out_boxes, 0.0).reshape(
+            *lead, d, 4),
+        scores=torch.where(keep, final_scores, 0.0).reshape(*lead, d),
+        labels=torch.where(keep, pooled_labels[sel], -1).to(
+            torch.int32).reshape(*lead, d),
+        num_valid=keep.sum(dim=-1).to(torch.int32).reshape(lead),
+    )
+
+
+def batched_detect_postprocess(boxes: torch.Tensor, scores: torch.Tensor,
+                               score_threshold: float = 0.05,
+                               iou_threshold: float = 0.5,
+                               pre_nms_top_k: int = 1000,
+                               max_detections: int = 100, *,
+                               backend: str = "auto") -> Detections:
+    """:func:`class_aware_nms` over a batch: decoded and clipped boxes
+    [B, A, 4], per-class probabilities [B, A, K]. The exact per-class
+    reference path; :func:`fused_detect_postprocess` is the production
+    path (the same detections on the shared candidate set)."""
+    return class_aware_nms(boxes, scores, score_threshold, iou_threshold,
+                           pre_nms_top_k, max_detections, backend=backend)
 
 
 def _top_n(values: torch.Tensor, n: int):
@@ -179,10 +323,7 @@ def fused_detect_postprocess(
     """
     if topk not in _TOPK_MODES:
         raise ValueError(f"topk must be one of {_TOPK_MODES}, got {topk!r}")
-    if backend == "auto":
-        backend = "cuda" if deltas.is_cuda else "torch"
-    if backend not in ("cuda", "torch"):
-        raise ValueError(f"backend must be auto/cuda/torch, got {backend!r}")
+    backend = _resolve_backend(backend, deltas)
     cand_boxes, cand_scores, cand_label = _select_candidates(
         deltas, anchors, scores, box_std, image_size, score_threshold,
         num_candidates, exact, scores_are_logits)

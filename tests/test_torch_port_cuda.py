@@ -227,6 +227,9 @@ def _twin_without_tf32(args):
     (1, 5, 48, 64),  # odd H at layer1's width
     (8, 160, 160, 64),  # layer1 of R50 at 640 px, eval batch 8
     (8, 80, 80, 128),  # layer2
+    (2, 5, 8, 16),  # W < 16: one masked tile a row
+    (1, 6, 24, 32),  # a masked tail tile
+    (2, 7, 104, 128),  # layer2's width on a 608x832 canvas
 ])
 def test_bottleneck_kernel_matches_twin(cuda, b, h, w, m):
     """detjax's bars for kernel vs oracle (tests/test_kernels.py:175-177):
@@ -266,12 +269,19 @@ def test_bottleneck_wrapper_raises_instead_of_falling_back(cuda):
         kb.bottleneck_identity(x[..., :32].contiguous(), w[0][:32], w[1],
                                w[2], w[3], w[4][:, :32].contiguous(),
                                w[5][:, :32].contiguous())
-    with pytest.raises(ValueError, match="multiple of 16"):
-        kb.bottleneck_identity(x[:, :, :8].contiguous(), *w)
+    # W = 8 (not a multiple of 16) is taken: a masked tile, held to the twin
+    narrow = x[:, :, :8].contiguous()
+    got = kb.bottleneck_identity(narrow, *w)
+    want = _twin_without_tf32([narrow, *w])
+    assert (got.float() - want.float()).abs().max().item() <= 0.05 * max(
+        want.float().abs().max().item(), 1.0)
+    assert kb.bottleneck_launches == before + 1
+    before += 1
     with pytest.raises(ValueError, match="one device"):
         kb.bottleneck_identity(x, w[0].cpu(), *w[1:])
-    # a row too wide for one block's shared memory: the launcher refuses
-    with pytest.raises(RuntimeError, match="shared memory"):
+    # a row too wide for one block's shared memory: the launcher refuses,
+    # naming the widest row it takes at each M
+    with pytest.raises(RuntimeError, match="shared memory.*W <= 816 at M=16"):
         kb.bottleneck_identity(torch.zeros(1, 2, 4096, 64, device=cuda,
                                            dtype=torch.bfloat16), *w)
     assert kb.bottleneck_launches == before
@@ -331,6 +341,11 @@ def _bwd_case(seed, b, h, w, m, device):
     (2, 9, 80, 128),  # layer2's width at 640 px
     (1, 1, 16, 16),  # one row: every halo row outside the image
     (3, 100, 16, 16),  # more rows than blocks: each block walks several
+    (2, 5, 8, 16),  # W < 16: one masked tile a row
+    (1, 6, 24, 32),  # a masked tail tile
+    (1, 5, 104, 128),  # 608x832's layer2: column blocks and a tail tile
+    (1, 4, 232, 64),  # column blocks at layer1's width, a tail tile
+    (1, 2, 1024, 16),  # a 1024-px row at M=16: column blocks
 ])
 def test_bottleneck_bwd_kernel_matches_twin(cuda, b, h, w, m):
     """Against the twin with TF32 off, detjax's 2 % bar (tests/
@@ -407,11 +422,25 @@ def test_bottleneck_bwd_wrapper_raises_instead_of_falling_back(cuda):
         kb.bottleneck_identity_backward(x, dy[:, :2].contiguous(), *w)
     with pytest.raises(TypeError, match="float32"):
         kb.bottleneck_identity_backward(x, dy, w[0], w[1].double(), *w[2:])
-    # a row too wide for one block's shared memory: the launcher refuses
-    wide = torch.zeros(1, 2, 1024, 64, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(RuntimeError, match="shared memory"):
-        kb.bottleneck_identity_backward(wide, wide, *w)
     assert kb.bottleneck_bwd_launches == before
+    # a row too wide for one block's shared memory whole is split into
+    # column blocks, not refused: held to the twin at that shape
+    wx, wdy, ww = _bwd_case(1, 1, 2, 1024, 16, cuda)
+    wc, smem = kb.bwd_plan(1024, 16)
+    assert 0 < wc < 1024 and wc % 16 == 0 and smem <= 232448
+    got = kb.bottleneck_identity_backward(wx, wdy, *ww)
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = kb.bottleneck_identity_backward_reference(wx, wdy, *ww)
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    for g, r in zip(got, want):
+        g, r = g.float(), r.float()
+        assert torch.isfinite(g).all()
+        assert (torch.linalg.vector_norm(g - r)
+                / torch.linalg.vector_norm(r).clamp(min=1e-3)).item() <= 0.02
+    assert kb.bottleneck_bwd_launches == before + 1
 
 
 def test_fused_train_step_runs_both_kernels(cuda):
@@ -450,3 +479,92 @@ def test_fused_train_step_runs_both_kernels(cuda):
     counts = (kb.bottleneck_launches, kb.bottleneck_bwd_launches)
     detjax_torch.train_step(state, batch)
     assert (kb.bottleneck_launches, kb.bottleneck_bwd_launches) == counts
+
+
+# -- full-set decode and the per-class NMS ---------------------------------------
+
+def _decode_case(seed, b, n):
+    """Seeded deltas over the 640 anchor set's first n anchors, with hard
+    rows: dw and dh of +-80 and +-500 (exp overflows to inf), inf - inf
+    corners, NaN deltas."""
+    import detjax_torch
+    from detjax_torch.modeling import anchor_config
+    from detjax_torch.ops.anchors import anchors_for_shape
+
+    cfg = detjax_torch.get_config("retinanet_r50_640")
+    anchors = anchors_for_shape(cfg.model.image_size, anchor_config(cfg))[:n]
+    rng = np.random.default_rng(seed)
+    d = rng.normal(0, 1.0, (b, n, 4)).astype(np.float32)
+    d[:, ::5] *= 8.0
+    d[:, :4, 2] = [80, -80, 500, -500]
+    d[:, 4:8, 3] = [80, -80, 500, -500]
+    d[:, 8, 0], d[:, 8, 2] = 1e38, 500
+    d[:, 9, 1] = np.nan
+    return d, anchors
+
+
+@pytest.mark.parametrize("b,n", [(8, 76725), (1, 10), (3, 1001)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("clip", [True, False])
+def test_decode_kernel_bit_equal_to_twin(cuda, b, n, dtype, clip):
+    """Bit-equal to the twin, NaN equal to NaN: the same fp32 operations in
+    the same order (no FMA contraction), expf as ATen's exp."""
+    d, anchors = _decode_case(b + n, b, n)
+    deltas = torch.from_numpy(d).to(cuda, getattr(torch, dtype))
+    a = torch.from_numpy(anchors).to(cuda)
+    size = (640, 640) if clip else None
+    before = pp.decode_launches
+    got = pp.decode_boxes_cuda(deltas, a, (0.1, 0.1, 0.2, 0.2), size)
+    want = pp.decode_boxes_reference(deltas, a, (0.1, 0.1, 0.2, 0.2), size)
+    torch.cuda.synchronize()
+    assert pp.decode_launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, n, 4)
+    assert bool(((got == want) | (got.isnan() & want.isnan())).all())
+    assert bool(got.isnan().any())
+
+
+def test_decode_wrapper_raises_instead_of_falling_back(cuda):
+    d, anchors = _decode_case(0, 2, 64)
+    deltas, a = torch.from_numpy(d).to(cuda), torch.from_numpy(anchors).to(cuda)
+    before = pp.decode_launches
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        pp.decode_boxes_cuda(deltas.double(), a)
+    with pytest.raises(TypeError, match="anchors must be float32"):
+        pp.decode_boxes_cuda(deltas, a.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        pp.decode_boxes_cuda(deltas.transpose(0, 1).contiguous()
+                             .transpose(0, 1), a)
+    with pytest.raises(ValueError, match="one device"):
+        pp.decode_boxes_cuda(deltas, a.cpu())
+    with pytest.raises(ValueError, match="anchors must be"):
+        pp.decode_boxes_cuda(deltas, a[:10])
+    assert pp.decode_launches == before
+
+
+def test_per_class_nms_route_bit_equal_to_twin_route(cuda):
+    """decode_clip_boxes and batched_detect_postprocess through the kernels
+    ("auto" on CUDA tensors) against backend="torch" on both: detections
+    bit-equal; one decode and one NMS launch for the batch."""
+    from detjax_torch.ops import batched_detect_postprocess, decode_clip_boxes
+
+    d, anchors = _decode_case(3, 2, 76725)
+    d = np.nan_to_num(d, nan=0.0, posinf=0.0, neginf=0.0).clip(-3, 3)
+    rng = np.random.default_rng(4)
+    scores = torch.from_numpy(rng.uniform(0, 1, (2, 76725, 6)).astype(
+        np.float32) ** 8).to(cuda)
+    scores[..., 5] = 0.01  # a class with nothing above the threshold
+    deltas, a = torch.from_numpy(d).to(cuda), torch.from_numpy(anchors).to(cuda)
+    counts = (pp.decode_launches, pp.nms_launches)
+    outs = []
+    for backend in ("auto", "torch"):
+        boxes = decode_clip_boxes(deltas, a, (640, 640), backend=backend)
+        outs.append(batched_detect_postprocess(boxes, scores, 0.05, 0.5, 1000,
+                                               100, backend=backend))
+        if backend == "auto":
+            torch.cuda.synchronize()
+            assert (pp.decode_launches - counts[0],
+                    pp.nms_launches - counts[1]) == (1, 1)
+    got, want = outs
+    assert int(got.num_valid.min()) > 0
+    for u, v in zip(got, want):
+        assert torch.equal(u, v)

@@ -7,9 +7,6 @@ fold matters. detjax's fused blocks run its Pallas forward and backward in
 interpret mode, as its own tests run them (about a minute here, the cost
 of this file); the port's run their CPU twins through ``_FusedBottleneck``.
 Both get the same weights (the port's ``from_jax``) and the same flip mask.
-128 px and not 64: at 64 px P6 is 1x1, where oneDNN's bf16 channels-last
-weight gradient of the stride-2 P7 conv reads uninitialised memory on the
-CPU (about one run in three, with "on" and "off" alike).
 """
 
 import numpy as np
