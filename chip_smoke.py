@@ -7,7 +7,10 @@ batch 8, bf16, seeded random weights), its full-anchor-set eval branch
 fused kernel each; also on a 608x832 canvas), and its training path (the
 same model, train batch 16, bf16 autocast over fp32 parameters, Adam, clip
 0.1, synthetic scenes; then with "on", and retinanet_r50_1024 with "on")
-through the entry points a user calls. Builds
+through the entry points a user calls, and the R50 stem (conv1 -> bn1 ->
+ReLU -> 3x3/s2 max-pool) forward and backward at the 640 and 1024 training
+shapes, with ATen's pool backward and with the max-pool backward kernel
+(``kernels/stem.py::max_pool_3x3s2``, which no model path calls). Builds
 every CUDA kernel of those paths from ``detjax_torch/csrc/`` (one nvcc per
 source, all started together), holds each kernel against its plain
 PyTorch twin on the card, and checks that each path really launched its
@@ -97,13 +100,15 @@ def phase_build() -> None:
     from detjax_torch.kernels import bottleneck as kb
     from detjax_torch.kernels import matching as km
     from detjax_torch.kernels import postprocess as pp
+    from detjax_torch.kernels import stem as ks
     from detjax_torch.kernels._build import build_info
 
     libs = {"detjax_nms": ("nms.cu", pp._lib),
             "detjax_match": ("matching.cu", km._lib),
             "detjax_bottleneck": ("bottleneck.cu", kb._lib),
             "detjax_bottleneck_bwd": ("bottleneck_bwd.cu", kb._bwd_lib),
-            "detjax_decode": ("decode.cu", pp._decode_lib)}
+            "detjax_decode": ("decode.cu", pp._decode_lib),
+            "detjax_maxpool_bwd": ("maxpool_bwd.cu", ks._lib)}
     errors: dict = {}
 
     def build(name, fn):
@@ -1647,6 +1652,237 @@ def train_fused_1024(state: dict) -> None:
                          f"losses {losses_k} vs twin route {losses_t}")
 
 
+# The stem max-pool's input z at the two training stems, (name, B, 2H, 2W,
+# C): retinanet_r50_640 at train batch 16 and retinanet_r50_1024 at 8.
+STEM_SHAPES = (("r50_640", 16, 320, 320, 64), ("r50_1024", 8, 512, 512, 64))
+
+
+def maxpool_bwd_bound_ms(b: int, hz: int, wz: int, c: int,
+                         elem_bytes: int) -> tuple:
+    """Least time for the max-pool backward: z and dp read once and dz
+    written once over the memory rate; per window 8 maxima and 9
+    comparisons, and up to 4 adds per dz block, over the fp32 rate."""
+    windows = b * (hz // 2) * (wz // 2) * c
+    nbytes = (2 * b * hz * wz * c + windows) * elem_bytes
+    t_bytes = nbytes / H100["bytes_per_s"] * 1e3
+    t_ops = 21.0 * windows / H100["fp32_flops"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (-0 and +0 differ, NaN equals the same NaN)."""
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and torch.equal(
+        a.contiguous(memory_format=torch.channels_last).view(view),
+        b.contiguous(memory_format=torch.channels_last).view(view))
+
+
+def pool_inputs(seed: int, b: int, hz: int, wz: int, c: int, dtype,
+                hard: bool = False) -> tuple:
+    """``seeded_pool_inputs`` on the card as channels-last NCHW tensors."""
+    from detjax_torch.kernels import stem as ks
+
+    z, dp = ks.seeded_pool_inputs(seed, b, hz, wz, c, hard=hard)
+    return tuple(torch.from_numpy(a).to("cuda", dtype).permute(0, 3, 1, 2)
+                 for a in (z, dp))
+
+
+def aten_pool_bwd(z: torch.Tensor, dp: torch.Tensor, idx: torch.Tensor):
+    """ATen's max-pool backward from the forward's saved indices, what
+    ``F.max_pool2d``'s autograd runs."""
+    return torch.ops.aten.max_pool2d_with_indices_backward(
+        dp, z, [3, 3], [2, 2], [1, 1], [1, 1], False, idx)
+
+
+def phase_maxpool_bwd_kernel(report: dict) -> None:
+    """The stem max-pool backward kernel against its twin at the two
+    training stems, bf16, channels-last: bit-equal on post-ReLU z and on a
+    hard z (ties, -inf corner, border and interior windows, NaN), and in
+    fp32 at the 640 stem; two runs bit-equal. Against ATen's backward on
+    the post-ReLU z: the same support, at least 99.9 % of dz bit-equal and
+    the rest within 1 bf16 step. Times beside the bound, the twin and
+    ATen's backward (the library yardstick)."""
+    from detjax_torch.kernels import stem as ks
+
+    rows = []
+    for i, (name, b, hz, wz, c) in enumerate(STEM_SHAPES):
+        z, dp = pool_inputs(40 + i, b, hz, wz, c, torch.bfloat16)
+        zh, dph = pool_inputs(50 + i, b, hz, wz, c, torch.bfloat16,
+                              hard=True)
+        got = ks.maxpool_bwd_cuda(z, dp)
+        again = ks.maxpool_bwd_cuda(z, dp)
+        want = ks.maxpool_bwd_reference(z, dp)
+        bit_equal = same_bits(got, want)
+        twin_err = float((got.float() - want.float()).abs().max())
+        twice = same_bits(got, again)
+        del again, want
+        hard_equal = same_bits(ks.maxpool_bwd_cuda(zh, dph),
+                               ks.maxpool_bwd_reference(zh, dph))
+        hard_nan = bool(zh.isnan().any())
+        del zh, dph
+        fp32_equal = None
+        if i == 0:
+            zf, dpf = z.float(), dp.float()
+            fp32_equal = same_bits(ks.maxpool_bwd_cuda(zf, dpf),
+                                   ks.maxpool_bwd_reference(zf, dpf))
+            del zf, dpf
+        _, idx = torch.ops.aten.max_pool2d_with_indices(z, [3, 3], [2, 2],
+                                                        [1, 1])
+        aten = aten_pool_bwd(z, dp, idx)
+        torch.cuda.synchronize()
+        support = torch.equal(got != 0, aten != 0)
+        frac_equal = float((got == aten).float().mean())
+        ulps = bf16_ulps(got, aten)
+        err = float((got.float() - aten.float()).abs().max())
+        del got, aten
+        ms = cuda_ms(lambda: ks.maxpool_bwd_cuda(z, dp), iters=50, warmup=5)
+        plain_ms = cuda_ms(lambda: ks.maxpool_bwd_reference(z, dp), iters=5,
+                           warmup=1)
+        aten_ms = cuda_ms(lambda: aten_pool_bwd(z, dp, idx), iters=50,
+                          warmup=5)
+        bound_ms, bound_by = maxpool_bwd_bound_ms(b, hz, wz, c, 2)
+        row = {"shape": name, "z": [b, c, hz, wz], "dtype": "bfloat16",
+               "bit_equal_post_relu": bit_equal, "bit_equal_hard": hard_equal,
+               "hard_has_nan": hard_nan, "bit_equal_fp32": fp32_equal,
+               "bit_equal_across_two_runs": twice,
+               "max_abs_err_twin": twin_err, "aten_same_support": support,
+               "aten_frac_bit_equal": frac_equal,
+               "aten_max_bf16_ulps": ulps, "aten_max_abs_err": err,
+               "ms": ms, "plain_ms": plain_ms, "aten_bwd_ms": aten_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        emit({"phase": "maxpool_bwd_kernel", "kernel": "maxpool_bwd_cuda",
+              **row, "bars": "bit-equal to the twin (post-ReLU, hard, fp32 "
+                             "at 640), two runs bit-equal; against ATen "
+                             "on post-ReLU z: same support, >= 99.9 % "
+                             "bit-equal, the rest within 1 bf16 step"})
+        ok = bit_equal and hard_equal and hard_nan and twice and \
+            fp32_equal is not False
+        ok = ok and support and frac_equal >= 0.999 and ulps <= 1
+        if not ok:
+            raise SystemExit(f"the max-pool backward kernel disagrees at "
+                             f"{name}: {row}")
+        rows.append(row)
+        del z, dp, idx
+    main = rows[0]
+    report["maxpool_bwd_cuda"] = {
+        "name": "maxpool_bwd_cuda", "route": "cuda",
+        "source": "detjax_torch/csrc/maxpool_bwd.cu",
+        "replaces": "detjax/kernels/stem.py:163",
+        "launches": None, "match": True,
+        "max_abs_err": max(r["max_abs_err_twin"] for r in rows),
+        "max_abs_err_note": "against its twin, post-ReLU z; against ATen's "
+                            "backward see aten_max_abs_err",
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["aten_bwd_ms"],
+        "library_note": "torch.ops.aten.max_pool2d_with_indices_backward "
+                        "with the forward's indices",
+        "per": "one backward of the R50-640 training stem, bs 16, bf16",
+        "shapes": rows}
+
+
+def stem_forward(conv1, bn1, x, pool):
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        return pool(torch.relu(bn1(conv1(x))))
+
+
+def stem_cell(preset: str, state: dict, full: bool) -> dict:
+    """The stem of ``preset`` (conv1 7x7/s2 -> frozen bn1 -> ReLU -> 3x3/s2
+    max-pool) at its train batch, bf16 autocast, channels-last, with
+    ``make_train_state``'s conv1 and bn1; times by CUDA events and the
+    kernel's launches in one forward + backward. ``full`` adds the pool
+    and conv timings, memory (what the forward holds for the backward, its
+    output included, and the peak of forward + backward, both above the
+    inputs) and the gradients between routes."""
+    import detjax_torch
+    from detjax_torch.kernels import stem as ks
+
+    train = detjax_torch.make_train_state(preset, seed=0)
+    cfg = train.cfg
+    conv1, bn1 = train.model.conv1, train.model.bn1
+    del train
+    b, (hh, ww) = cfg.train.batch_size, cfg.model.image_size
+    rng = np.random.default_rng(60)
+    x = torch.from_numpy(rng.standard_normal((b, hh, ww, 3),
+                                             dtype=np.float32)).to(
+        "cuda").permute(0, 3, 1, 2)
+    dp = torch.from_numpy(rng.standard_normal(
+        (b, hh // 4, ww // 4, 64), dtype=np.float32)).to(
+        "cuda", torch.bfloat16).permute(0, 3, 1, 2)
+    params = [conv1.weight, bn1.weight, bn1.bias]
+    pools = {"aten": ks.max_pool_3x3s2_reference,
+             "kernel": ks.max_pool_3x3s2}
+    routes = {k: (lambda pool=pool: torch.autograd.grad(
+        stem_forward(conv1, bn1, x, pool), params, dp))
+        for k, pool in pools.items()}
+    ks.maxpool_bwd_launches = ks.maxpool_bwd_copies = 0
+    grads_k = routes["kernel"]()
+    torch.cuda.synchronize()
+    launches, copies = ks.maxpool_bwd_launches, ks.maxpool_bwd_copies
+    row = {"preset": preset, "x": [b, 3, hh, ww],
+           "z": [b, 64, hh // 2, ww // 2], "launches_per_backward": launches,
+           "copies_per_backward": copies}
+    ms = {k: cuda_ms(fn, iters=10) for k, fn in routes.items()}
+    row["stem_fwd_bwd_ms"] = ms
+    if full:
+        grads_a = routes["aten"]()
+        rel = {n: float(torch.linalg.vector_norm(k - a)
+                        / torch.linalg.vector_norm(a))
+               for n, k, a in zip(("conv1.weight", "bn1.weight", "bn1.bias"),
+                                  grads_k, grads_a)}
+        finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
+        del grads_a
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            row["conv_fwd_ms"] = cuda_ms(lambda: conv1(x), iters=10)
+            row["stem_fwd_ms"] = cuda_ms(
+                lambda: ks.max_pool_3x3s2_reference(
+                    torch.relu(bn1(conv1(x)))), iters=10)
+            z = torch.relu(bn1(conv1(x)))
+        z.requires_grad_(True)
+
+        def pool_fb(pool):
+            return lambda: torch.autograd.grad(pool(z), z, dp)
+        row["pool_fwd_bwd_ms"] = {
+            "aten": cuda_ms(pool_fb(ks.max_pool_3x3s2_reference), iters=20),
+            "kernel": cuda_ms(pool_fb(ks.max_pool_3x3s2), iters=20)}
+        del z
+        peak, held = {}, {}
+        for k, pool in pools.items():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            p = stem_forward(conv1, bn1, x, pool)
+            torch.cuda.synchronize()
+            held[k] = (torch.cuda.memory_allocated() - base) / 2**20
+            torch.autograd.grad(p, params, dp)
+            del p
+            torch.cuda.synchronize()
+            peak[k] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        row.update(peak_mib_above_inputs=peak, forward_holds_mib=held,
+                   forward_holds_saving_mib=held["aten"] - held["kernel"],
+                   grad_rel_err=rel, grads_finite=finite)
+    emit({"phase": "stem", **row, "card": state["card"]})
+    if launches != 1 or copies != 0:
+        raise SystemExit(f"expected 1 max-pool backward launch and 0 copies "
+                         f"in one stem backward at {preset}, got {launches} "
+                         f"and {copies}")
+    if full and not (row["grads_finite"]
+                     and max(row["grad_rel_err"].values()) <= 1e-3):
+        raise SystemExit(f"stem gradients differ between routes: {row}")
+    return row
+
+
+def phase_stem(report: dict, state: dict) -> None:
+    """The port's counterpart of scripts/profile_stem.py: the R50 stem
+    forward and backward at retinanet_r50_640's training shape (bs 16),
+    ATen's pool against max_pool_3x3s2 (the kernel as its backward), then
+    retinanet_r50_1024's (bs 8). The kernel's launches are counted in one
+    stem forward + backward at 640."""
+    row = stem_cell("retinanet_r50_640", state, full=True)
+    report["maxpool_bwd_cuda"]["launches"] = row["launches_per_backward"]
+    stem_cell("retinanet_r50_1024", state, full=False)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1675,6 +1911,8 @@ def main() -> int:
     phase_serve(state)
     phase_train(report, state)
     phase_train_fused(report, state)
+    phase_maxpool_bwd_kernel(report)
+    phase_stem(report, state)
     emit({"kernels": list(report.values())})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

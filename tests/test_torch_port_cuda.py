@@ -568,3 +568,115 @@ def test_per_class_nms_route_bit_equal_to_twin_route(cuda):
     assert int(got.num_valid.min()) > 0
     for u, v in zip(got, want):
         assert torch.equal(u, v)
+
+
+def _pool_case(seed, b, hz, wz, c, device, dtype, hard=True):
+    from detjax_torch.kernels import stem as ks
+
+    z, dp = ks.seeded_pool_inputs(seed, b, hz, wz, c, hard=hard)
+    # NHWC arrays -> channels-last NCHW views
+    return (torch.from_numpy(z).to(device, dtype).permute(0, 3, 1, 2),
+            torch.from_numpy(dp).to(device, dtype).permute(0, 3, 1, 2))
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.int16 if a.dtype == torch.bfloat16
+                            else torch.int32),
+        b.contiguous().view(torch.int16 if b.dtype == torch.bfloat16
+                            else torch.int32))
+
+
+@pytest.mark.parametrize("b,hz,wz,c", [
+    (2, 16, 16, 4), (2, 16, 24, 8),
+    (1, 128, 128, 8),  # two of detjax's row tiles
+    (2, 32, 48, 64),  # the stem's C = 64: one warp a pixel
+    (1, 16, 16, 3),  # odd C: bf16 one channel a thread
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["channels_last", "contiguous"])
+def test_maxpool_bwd_kernel_bit_equal_to_twin(cuda, b, hz, wz, c, dtype,
+                                              layout):
+    """Bit-equal to the twin on ties, -inf windows and NaN (compared as
+    bits), twice; one launch a call, and the contiguous-NCHW inputs copied
+    once each."""
+    from detjax_torch.kernels import stem as ks
+
+    z, dp = _pool_case(b + hz + wz + c, b, hz, wz, c, cuda,
+                       getattr(torch, dtype))
+    if layout == "contiguous":
+        z, dp = z.contiguous(), dp.contiguous()
+    before = ks.maxpool_bwd_launches, ks.maxpool_bwd_copies
+    got = ks.maxpool_bwd_cuda(z, dp)
+    again = ks.maxpool_bwd_cuda(z, dp)
+    want = ks.maxpool_bwd_reference(z, dp)
+    torch.cuda.synchronize()
+    copies = 0 if layout == "channels_last" else 4
+    assert (ks.maxpool_bwd_launches - before[0],
+            ks.maxpool_bwd_copies - before[1]) == (2, copies)
+    assert got.shape == z.shape and got.is_contiguous(
+        memory_format=torch.channels_last)
+    assert _same_bits(got, want) and _same_bits(got, again)
+    # NaN in z routes nowhere: dz holds none, and the hard rows were there
+    assert bool(z.isnan().any()) and not bool(got.isnan().any())
+    assert bool((got != 0).any())
+
+
+def test_maxpool_bwd_kernel_unaligned_bf16(cuda):
+    """bf16 inputs that start 2 bytes off a 4-byte boundary take the
+    one-channel route and stay bit-equal."""
+    from detjax_torch.kernels import stem as ks
+
+    z, dp = _pool_case(3, 1, 16, 16, 8, cuda, torch.bfloat16)
+    zs = torch.empty(z.numel() + 1, dtype=z.dtype, device=cuda)[1:]
+    ds = torch.empty(dp.numel() + 1, dtype=dp.dtype, device=cuda)[1:]
+    zu = zs.view(1, 16, 16, 8).copy_(z.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+    du = ds.view(1, 8, 8, 8).copy_(dp.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+    assert zu.data_ptr() % 4 == 2
+    assert _same_bits(ks.maxpool_bwd_cuda(zu, du),
+                      ks.maxpool_bwd_reference(z, dp))
+
+
+def test_max_pool_3x3s2_backward_runs_the_kernel_once(cuda):
+    """Autograd through max_pool_3x3s2: ATen's forward, one kernel launch
+    in the backward, dz bit-equal to the twin's; post-ReLU inputs route as
+    ATen's pool does (same support, within 1 bf16 step)."""
+    from detjax_torch.kernels import stem as ks
+
+    z, dp = _pool_case(7, 2, 64, 64, 64, cuda, torch.bfloat16, hard=False)
+    leaf = z.detach().requires_grad_(True)
+    out = ks.max_pool_3x3s2(leaf)
+    assert torch.equal(out, ks.max_pool_3x3s2_reference(z))
+    before = ks.maxpool_bwd_launches
+    out.backward(dp)
+    torch.cuda.synchronize()
+    assert ks.maxpool_bwd_launches == before + 1
+    assert _same_bits(leaf.grad, ks.maxpool_bwd_reference(z, dp))
+    aten = z.detach().requires_grad_(True)
+    torch.nn.functional.max_pool2d(aten, 3, 2, 1).backward(dp)
+    assert torch.equal(leaf.grad != 0, aten.grad != 0)
+    step = 2.0 ** (torch.floor(torch.log2(aten.grad.float().abs()
+                                          .clamp(min=1e-30))) - 7)
+    assert bool(((leaf.grad.float() - aten.grad.float()).abs() <= step).all())
+
+
+def test_maxpool_bwd_wrapper_raises_instead_of_falling_back(cuda):
+    from detjax_torch.kernels import stem as ks
+
+    z, dp = _pool_case(0, 1, 16, 16, 8, cuda, torch.bfloat16)
+    before = ks.maxpool_bwd_launches
+    with pytest.raises(ValueError, match="even"):
+        ks.maxpool_bwd_cuda(z[:, :, :15], dp)
+    with pytest.raises(ValueError, match="even"):
+        ks.maxpool_bwd_cuda(z[:, :, :, :15], dp)
+    with pytest.raises(ValueError, match="dp must be"):
+        ks.maxpool_bwd_cuda(z, dp[:, :, :7])
+    with pytest.raises(TypeError, match="both bfloat16"):
+        ks.maxpool_bwd_cuda(z, dp.float())
+    with pytest.raises(TypeError, match="float32 or both bfloat16"):
+        ks.maxpool_bwd_cuda(z.double(), dp.double())
+    with pytest.raises(ValueError, match="one device"):
+        ks.maxpool_bwd_cuda(z, dp.cpu())
+    assert ks.maxpool_bwd_launches == before
+    empty = ks.maxpool_bwd_cuda(z[:0], dp[:0])
+    assert empty.shape == (0, 8, 16, 16) and ks.maxpool_bwd_launches == before
