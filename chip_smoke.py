@@ -12,7 +12,10 @@ ReLU -> 3x3/s2 max-pool) forward and backward at the 640 and 1024 training
 shapes, with ATen's pool backward and with the max-pool backward kernel
 (``kernels/stem.py::max_pool_3x3s2``, which no model path calls). Builds
 every CUDA kernel of those paths from ``detjax_torch/csrc/`` (one nvcc per
-source, all started together), holds each kernel against its plain
+source, all started together; also, from ``smoke_prior/``, the fused
+backward as it stood at two earlier commits and with every product on
+wmma, timed in turns against the current one),
+holds each kernel against its plain
 PyTorch twin on the card, and checks that each path really launched its
 kernel. Prints JSON lines; the last line is ``{"ok": true, "device":
 {...}}`` and appears only when every phase passed. Exits non-zero without
@@ -26,10 +29,12 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import re
 import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -95,6 +100,74 @@ def nms_bound_ms(b: int, n: int, max_det: int, steps: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# Timing references of the fused backward, in smoke_prior/ beside this
+# script (no code path of detjax_torch calls them): the one-kernel design at
+# two earlier commits (one C interface), and the current design with every
+# product on wmma fragments (the current C interface).
+PRIOR_DIR = Path(__file__).resolve().parent / "smoke_prior"
+PRIOR_BWD = ("e8572c4", "82723fd")
+WMMA = "wmma"
+
+
+def prior_bwd_lib(commit: str):
+    """The library of smoke_prior/bottleneck_bwd_<commit>.cu; ``commit`` is
+    one of PRIOR_BWD or WMMA."""
+    import ctypes
+
+    from detjax_torch.kernels import bottleneck as kb
+    from detjax_torch.kernels._build import load_library
+
+    lib = load_library(f"detjax_bottleneck_bwd_{commit}",
+                       [f"bottleneck_bwd_{commit}.cu"], src_dir=PRIOR_DIR)
+    fn = lib.detjax_bottleneck_bwd_launch
+    fn.restype = ctypes.c_int
+    if commit == WMMA:
+        fn.argtypes = kb._bwd_lib().detjax_bottleneck_bwd_launch.argtypes
+        return lib
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    lib.detjax_bottleneck_bwd_slice_floats.argtypes = [ctypes.c_int]
+    lib.detjax_bottleneck_bwd_slice_floats.restype = ctypes.c_int
+    return lib
+
+
+def prior_bwd_call(commit: str, x, dy, wts):
+    """A no-argument call of that backward on (x, dy, wts). At PRIOR_BWD:
+    its persistent grid of one block per SM (or per image row, if fewer),
+    its workspace and outputs allocated once, outside the call. At
+    WMMA: the port's own wrapper with that library in place of the
+    current one for the call."""
+    from detjax_torch.kernels import bottleneck as kb
+
+    lib = prior_bwd_lib(commit)
+    if commit == WMMA:
+        def swapped():
+            current, kb._BWD_LIB = kb._bwd_lib(), lib
+            try:
+                kb.bottleneck_identity_backward(x, dy, *wts)
+            finally:
+                kb._BWD_LIB = current
+        return swapped
+    b, h, w, c = x.shape
+    m = c // 4
+    parts = min(torch.cuda.get_device_properties(0).multi_processor_count,
+                b * h)
+    floats = lib.detjax_bottleneck_bwd_slice_floats(m)
+    ws = torch.empty(parts, floats, device=x.device)
+    flat = torch.empty(floats, device=x.device)
+    dx = torch.empty_like(x)
+    ptrs = [t.data_ptr() for t in (x, dy, *wts, dx, ws, flat)]
+
+    def call():
+        err = lib.detjax_bottleneck_bwd_launch(
+            *ptrs, b, h, w, m, parts, 0,
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise SystemExit(f"the backward at {commit} failed to launch: "
+                             f"cudaError {err}")
+    return call
+
+
 def phase_build() -> None:
     """Build every kernel library at once, one nvcc process per source."""
     from detjax_torch.kernels import bottleneck as kb
@@ -103,12 +176,18 @@ def phase_build() -> None:
     from detjax_torch.kernels import stem as ks
     from detjax_torch.kernels._build import build_info
 
-    libs = {"detjax_nms": ("nms.cu", pp._lib),
-            "detjax_match": ("matching.cu", km._lib),
-            "detjax_bottleneck": ("bottleneck.cu", kb._lib),
-            "detjax_bottleneck_bwd": ("bottleneck_bwd.cu", kb._bwd_lib),
-            "detjax_decode": ("decode.cu", pp._decode_lib),
-            "detjax_maxpool_bwd": ("maxpool_bwd.cu", ks._lib)}
+    libs = {f"detjax_{name}": (f"detjax_torch/csrc/{source}", fn)
+            for name, source, fn in (
+                ("nms", "nms.cu", pp._lib),
+                ("match", "matching.cu", km._lib),
+                ("bottleneck", "bottleneck.cu", kb._lib),
+                ("bottleneck_bwd", "bottleneck_bwd.cu", kb._bwd_lib),
+                ("decode", "decode.cu", pp._decode_lib),
+                ("maxpool_bwd", "maxpool_bwd.cu", ks._lib))}
+    for commit in PRIOR_BWD + (WMMA,):
+        libs[f"detjax_bottleneck_bwd_{commit}"] = (
+            f"smoke_prior/bottleneck_bwd_{commit}.cu",
+            lambda commit=commit: prior_bwd_lib(commit))
     errors: dict = {}
 
     def build(name, fn):
@@ -130,7 +209,7 @@ def phase_build() -> None:
     for name, (source, _) in libs.items():
         info = build_info[name]
         emit({"phase": "build", "kernel": name,
-              "source": f"detjax_torch/csrc/{source}", "target": "sm_90a",
+              "source": source, "target": "sm_90a",
               "nvcc_s": info["seconds"], "parallel_wall_s": wall_s,
               "ptxas": [ln for ln in info["log"].splitlines()
                         if "registers" in ln or "smem" in ln
@@ -498,9 +577,9 @@ def phase_bottleneck_kernel(report: dict) -> None:
 FUSED_TRAIN_SHAPES = (("layer1", 16, 160, 160, 64, 2),
                       ("layer2", 16, 80, 80, 128, 3))
 # Held to the twin too, outside the per-step totals: retinanet_r50_1024's
-# training shapes (train batch 8; rows too wide for one block's shared
-# memory, so the kernel splits them into column blocks), and layer2 of a
-# 608x832 canvas (W = 104: column blocks and a masked tail tile).
+# training shapes (train batch 8; rows of 256 and 128 px), and layer2 of a
+# 608x832 canvas (W = 104: 128-pixel tiles straddle rows, parts end
+# mid-row).
 EXTRA_FUSED_TRAIN_SHAPES = (("r50_1024_layer1", 8, 256, 256, 64, 2),
                             ("r50_1024_layer2", 8, 128, 128, 128, 3),
                             ("tail_608x832_layer2", 2, 76, 104, 128, None))
@@ -520,7 +599,38 @@ def bottleneck_bwd_bound_ms(b: int, h: int, w: int, m: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernel_ms_by_name(fn, calls: int = 3):
+    """Device ms a call of ``fn`` spends in each CUDA kernel, and how many
+    times a call launches each, from torch.profiler over ``calls`` calls;
+    None when the profiler cannot trace the card or records no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    except (AssertionError, RuntimeError) as exc:
+        emit({"profiler": "no device trace", "error": repr(exc)})
+        return None
+    ms, launches = {}, {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0.0)
+        if t > 0:  # "void (anonymous namespace)::y1_kernel<64>(...)"
+            name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
+            name = re.split(r"[<(]", name)[0]
+            ms[name] = ms.get(name, 0.0) + t / calls / 1e3
+            launches[name] = launches.get(name, 0) + e.count / calls
+    return (ms, launches) if ms else None
+
+
 BWD_NAMES = ("dx", "dw1", "db1", "dw2", "db2", "dw3", "db3")
+# the CUDA kernels of one call of the fused backward
+BWD_KERNEL_NAMES = ("y1_kernel", "dc2_kernel", "dc1_kernel", "wgrad_kernel",
+                    "sum_rows")
 # dx may leave the 0.02 x max|twin| bar on this share of its elements,
 # where a ReLU mask flips between the kernel's and cuDNN's fp32 sums
 # (measured on an H100: 8.5e-6 at layer1, 8.9e-5 at layer2)
@@ -531,13 +641,17 @@ def phase_bottleneck_bwd_kernel(report: dict) -> None:
     """The fused block's backward kernel against its twin (fp32 convs, TF32
     off) at the two shapes R50's fused blocks have at 640 px, train batch
     16, with detjax's bar for its backward (tests/test_kernels.py:196-197);
-    two runs on the same inputs bit-equal; times beside the bound, the
-    twin, the forward kernel and the port's unfused block's forward and
-    backward (cuDNN, bf16 autocast)."""
+    two runs on the same inputs bit-equal; the CUDA kernels a call, the
+    split-K parts and the scratch bytes; times beside the bound, the twin,
+    the forward kernel and the port's unfused block's forward and backward
+    (cuDNN, bf16 autocast). At those two shapes the backward is also timed
+    in turns against the one at commits e8572c4 and 82723fd (PRIOR_BWD)
+    and the one with every product on wmma (WMMA), and split
+    by CUDA kernel with torch.profiler, whose launch counts must match the
+    launcher's."""
     from detjax_torch.kernels import bottleneck as kb
 
     per_shape, extra = [], []
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for i, (name, b, h, w, m, n_step) in enumerate(FUSED_TRAIN_SHAPES
                                                    + EXTRA_FUSED_TRAIN_SHAPES):
         x, block = kb.seeded_block(20 + i, b, h, w, m, "cuda")
@@ -547,8 +661,15 @@ def phase_bottleneck_bwd_kernel(report: dict) -> None:
         with torch.no_grad():
             wts = block.folded_weights()
         args = (x, dy, *wts)
+        plan = kb.bwd_plan(b, h, w, m)
+        # the CUDA kernels each of the two calls launched, as the launcher
+        # counts them
+        k0 = kb.bottleneck_bwd_kernel_launches
         got = kb.bottleneck_identity_backward(*args)
+        k1 = kb.bottleneck_bwd_kernel_launches
         again = kb.bottleneck_identity_backward(*args)
+        k2 = kb.bottleneck_bwd_kernel_launches
+        kernels_a_call = k1 - k0 if k1 - k0 == k2 - k1 else [k1 - k0, k2 - k1]
         with tf32_off():
             want = kb.bottleneck_identity_backward_reference(*args)
         torch.cuda.synchronize()
@@ -572,7 +693,28 @@ def phase_bottleneck_bwd_kernel(report: dict) -> None:
                    "max_err_in_bf16_ulps_at_max_twin":
                        errs["dx"]["max_abs_err"] / ulp_at_max}
         del got, again, want
-        ms = cuda_ms(lambda: kb.bottleneck_identity_backward(*args), iters=10)
+        timed_turns, kernel_split, traced = None, None, None
+        if i < len(FUSED_TRAIN_SHAPES):
+            # the current backward and each reference in turns, in one
+            # call: e8572c4 and the all-wmma version each before and
+            # after the current one's two turns, then 82723fd
+            refs = PRIOR_BWD + (WMMA,)
+            calls = {c: prior_bwd_call(c, x, dy, wts) for c in refs}
+            calls["current"] = lambda: kb.bottleneck_identity_backward(*args)
+            timed_turns = [(c, cuda_ms(calls[c], iters=10)) for c in
+                           (PRIOR_BWD[0], WMMA, "current", "current",
+                            WMMA, PRIOR_BWD[0], PRIOR_BWD[1])]
+            ms = sum(t for c, t in timed_turns if c == "current") / 2
+            traced = kernel_ms_by_name(calls["current"])
+            kernel_split = traced and {"ms": traced[0],
+                                       "launches_a_call": traced[1]}
+            wmma_split = kernel_ms_by_name(calls[WMMA])
+            if wmma_split:
+                kernel_split[f"ms_{WMMA}"] = wmma_split[0]
+            del calls
+        else:
+            ms = cuda_ms(lambda: kb.bottleneck_identity_backward(*args),
+                         iters=10)
         with tf32_off():
             plain_ms = cuda_ms(
                 lambda: kb.bottleneck_identity_backward_reference(*args),
@@ -588,18 +730,24 @@ def phase_bottleneck_bwd_kernel(report: dict) -> None:
             y.backward(dy_nchw)
         unfused_ms = cuda_ms(unfused, iters=10)
         bound_ms, bound_by = bottleneck_bwd_bound_ms(b, h, w, m)
-        parts = min(sms, b * h)
-        col_block, smem = kb.bwd_plan(w, m)
+        geom = kb.bwd_geometry(m)
         row = {"shape": name, "B": b, "H": h, "W": w, "C": 4 * m, "M": m,
                "launches_per_step": n_step, "outputs": errs,
                "dx": dx_info, "bit_equal_across_two_runs": bit_equal,
-               "ms": ms, "plain_ms": plain_ms, "forward_kernel_ms": fwd_ms,
+               "ms": ms, "timed_in_turns": timed_turns,
+               "ms_by_kernel": kernel_split,
+               "plain_ms": plain_ms, "forward_kernel_ms": fwd_ms,
                "unfused_cudnn_ms": unfused_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "column_block": col_block,
-               "column_blocks_a_row": -(-w // col_block),
-               "smem_bytes": smem, "blocks": parts,
-               "workspace_bytes": kb.bwd_workspace_bytes(parts, m)}
+               "kernels_a_call": kernels_a_call,
+               "pixel_tiles": plan["tiles"],
+               "split_k_parts": plan["parts"],
+               "split_k_part_pixels": plan["part_pixels"],
+               "weight_jobs": plan["jobs"],
+               "scratch_bytes": plan["scratch_bytes"],
+               "workspace_bytes": plan["workspace_bytes"],
+               "smem_bytes": {k: geom[k] for k in
+                              ("smem_y1", "smem_tile", "smem_wgrad")}}
         emit({"phase": "bottleneck_bwd_kernel",
               "kernel": "bottleneck_identity_backward", **row,
               "library_ms": None,
@@ -620,11 +768,23 @@ def phase_bottleneck_bwd_kernel(report: dict) -> None:
         if not (ok and bit_equal):
             raise SystemExit(f"the bottleneck backward kernel disagrees with "
                              f"its twin at {name}: {row}")
+        if kernels_a_call != plan["kernels"]:
+            raise SystemExit(f"the backward launched {kernels_a_call} CUDA "
+                             f"kernels a call, planned {plan['kernels']}")
+        if traced and (sorted(traced[1]) != sorted(BWD_KERNEL_NAMES)
+                       or sum(traced[1].values()) != kernels_a_call):
+            raise SystemExit(f"torch.profiler saw {traced[1]} a call of the "
+                             f"backward, the launcher counted "
+                             f"{kernels_a_call} of {BWD_KERNEL_NAMES}")
         (per_shape if i < len(FUSED_TRAIN_SHAPES) else extra).append(row)
         del x, dy, block, wts, args, x_nchw, dy_nchw
     total = {k: sum(r[k] * r["launches_per_step"] for r in per_shape)
              for k in ("ms", "plain_ms", "unfused_cudnn_ms", "bound_ms",
                        "forward_kernel_ms")}
+    for commit in PRIOR_BWD + (WMMA,):
+        total[f"ms_at_{commit}"] = sum(
+            np.mean([t for c, t in r["timed_in_turns"] if c == commit])
+            * r["launches_per_step"] for r in per_shape)
     report["bottleneck_identity_bwd_cuda"] = {
         "name": "bottleneck_identity_bwd_cuda", "route": "cuda",
         "source": "detjax_torch/csrc/bottleneck_bwd.cu",
@@ -643,8 +803,11 @@ def phase_bottleneck_bwd_kernel(report: dict) -> None:
                         "and backward, is unfused_cudnn_ms",
         "unfused_cudnn_ms": total["unfused_cudnn_ms"],
         "forward_kernel_ms": total["forward_kernel_ms"],
+        **{f"ms_at_{c}": total[f"ms_at_{c}"]
+           for c in PRIOR_BWD + (WMMA,)},
+        "kernels_a_call": per_shape[0]["kernels_a_call"],
         "per": "one R50 train step at 640 px, bs 16: 2 layer1 + 3 layer2 "
-               "launches",
+               "calls",
         "shapes": per_shape, "extra_shapes": extra}
 
 
@@ -1543,7 +1706,7 @@ def phase_train_fused(report: dict, state: dict) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kb.bottleneck_launches = kb.bottleneck_bwd_launches = 0
-    kb.bottleneck_bwd_grad_copies = 0
+    kb.bottleneck_bwd_kernel_launches = kb.bottleneck_bwd_grad_copies = 0
     km.match_launches = 0
     steps = []
     for _ in range(warmup):
@@ -1568,6 +1731,7 @@ def phase_train_fused(report: dict, state: dict) -> None:
                 "bottleneck_bwd": kb.bottleneck_bwd_launches,
                 "match": km.match_launches}
     copies = kb.bottleneck_bwd_grad_copies
+    bwd_kernels = kb.bottleneck_bwd_kernel_launches
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     order = ["start", "forward", "loss", "backward", "update"]
     split = {f"{b_}_ms": events[a_].elapsed_time(events[b_])
@@ -1583,6 +1747,7 @@ def phase_train_fused(report: dict, state: dict) -> None:
           "output_scales": scales, "setup_s": setup_s,
           "steps_in_window": n, "launches_in_window": launches,
           "launches_per_step": {k: v / n for k, v in launches.items()},
+          "bottleneck_bwd_cuda_kernels_per_step": bwd_kernels / n,
           "grad_out_copies_per_step": copies / n,
           "losses": [m["loss"] for m in per_step],
           "ms_per_step": step_ms, "img_per_s": b / step_ms * 1e3,
@@ -1599,6 +1764,13 @@ def phase_train_fused(report: dict, state: dict) -> None:
         raise SystemExit(f"expected 5 forward, 5 backward fused-block "
                          f"launches and 1 matching launch a step in {n} "
                          f"steps, got {launches}")
+    if bwd_kernels != kb.BWD_KERNELS * launches["bottleneck_bwd"]:
+        raise SystemExit(f"the fused backward's {launches['bottleneck_bwd']} "
+                         f"calls launched {bwd_kernels} CUDA kernels, not "
+                         f"{kb.BWD_KERNELS} each")
+    if not peak_gb < unfused["peak_memory_gib"]:
+        raise SystemExit(f"peak memory with 'on' {peak_gb} GiB is not below "
+                         f"'off''s {unfused['peak_memory_gib']} GiB")
     report["bottleneck_identity_bwd_cuda"]["launches"] = launches[
         "bottleneck_bwd"]
     report["bottleneck_identity_bwd_cuda"]["launches_per_step"] = 5
@@ -1608,11 +1780,10 @@ def phase_train_fused(report: dict, state: dict) -> None:
 
 def train_fused_1024(state: dict) -> None:
     """Two train_steps of retinanet_r50_1024 (train batch 8, 1024 px) with
-    "on": rows of 256 px at layer1 and 128 px at layer2, which the backward
-    kernel splits into column blocks; 5 forward and 5 backward fused
-    launches a step; each step's loss within 1e-2 relative of the twin
-    route's (model.bottleneck_backend = "torch") from the same state and
-    batch."""
+    "on": rows of 256 px at layer1 and 128 px at layer2; 5 forward and 5
+    backward fused launches a step; each step's loss within 1e-2 relative
+    of the twin route's (model.bottleneck_backend = "torch") from the same
+    state and batch."""
     import detjax_torch
     from detjax_torch.kernels import bottleneck as kb
 
@@ -1625,31 +1796,59 @@ def train_fused_1024(state: dict) -> None:
     twin.model.bottleneck_backend = "torch"
     kb.bottleneck_launches = kb.bottleneck_bwd_launches = 0
     losses_k = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(2):
         losses_k.append(float(detjax_torch.train_step(train, batch)[1]
                               ["loss"]))
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / 2 * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
     launches = {"bottleneck_fwd": kb.bottleneck_launches,
                 "bottleneck_bwd": kb.bottleneck_bwd_launches}
     with tf32_off():
         losses_t = [float(detjax_torch.train_step(twin, batch)[1]["loss"])
                     for _ in range(2)]
-    del twin
+    del twin, train
+    off_peak_gb = unfused_peak_gib("retinanet_r50_1024", batch)
     rel = [abs(k - t) / abs(t) for k, t in zip(losses_k, losses_t)]
     emit({"phase": "train_fused_1024", "preset": cfg.model.name,
           "batch": cfg.train.batch_size, "canvas": list(cfg.model.image_size),
           "launches_in_2_steps": launches, "losses_kernel_route": losses_k,
           "losses_twin_route": losses_t, "loss_rel_err": rel,
           "loss_tolerance": "1e-2 relative",
-          "ms_per_step_incl_first": step_ms, "card": state["card"]})
+          "ms_per_step_incl_first": step_ms,
+          "peak_memory_gib": peak_gb, "unfused_peak_memory_gib": off_peak_gb,
+          "peak_note": "two steps each, with a second copy of the train "
+                       "state resident on both sides (the twin route's "
+                       "on 'on', an idle copy on 'off')",
+          "card": state["card"]})
     if launches != {"bottleneck_fwd": 10, "bottleneck_bwd": 10}:
         raise SystemExit(f"expected 5 + 5 fused launches a step at 1024 px, "
                          f"got {launches} in 2 steps")
     if not (all(np.isfinite(losses_k)) and max(rel) <= 1e-2):
         raise SystemExit(f"retinanet_r50_1024 with 'on': kernel-route "
                          f"losses {losses_k} vs twin route {losses_t}")
+
+
+def unfused_peak_gib(preset: str, batch: dict) -> float:
+    """Peak memory of two train_steps of ``preset`` with "off" on
+    ``batch``, with an idle copy of the train state resident, as the fused
+    run holds its twin's."""
+    import detjax_torch
+
+    train = detjax_torch.make_train_state(preset, seed=0)
+    desaturate_(train.model, batch["images"][:2], train.cfg)
+    spare = copy.deepcopy(train)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        detjax_torch.train_step(train, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del train, spare
+    return peak
 
 
 # The stem max-pool's input z at the two training stems, (name, B, 2H, 2W,

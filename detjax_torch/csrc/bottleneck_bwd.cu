@@ -3,7 +3,7 @@
 // Replaces the TPU kernel detjax/kernels/bottleneck.py::_bottleneck_bwd
 // (line 270; body _bwd_kernel, line 156). Same function: from x, the output's
 // gradient dy and the BN-folded weights of the forward (bottleneck.cu),
-// recompute y1 and y2 on chip and produce
+// recompute y1 and y2 and produce
 //   dy3 = dy * ((y2 @ w3 + b3) + x > 0)                 fp32
 //   dc2 = (bf16(dy3) @ w3^T) * (y2 > 0)                 fp32
 //   dy1 = sum_k shift_k(bf16(dc2)) @ w2[k]^T            the transposed 3x3
@@ -12,726 +12,1071 @@
 //   dw3 = sum y2^T bf16(dy3), dw2[k] = sum shift_k(y1)^T bf16(dc2),
 //   dw1 = sum x^T bf16(dc1), db3/db2/db1 = sum dy3 / dc2 / dc1   all fp32
 // with every product a bf16 x bf16 -> fp32 product, as _bwd_kernel rounds.
-// y1, y2, dy3, dc2 and dc1 never reach device memory.
 //
-// Design. A persistent grid of P blocks (P = the SM count, or fewer tiles);
-// block p walks the (image, row, column block) tiles p, p + P, ... one
-// output row at a time, with 8 warps. A column block owns the image columns
-// [cb, ce) of its row, Wc = ce - cb wide (Wc a multiple of 16; the last
-// block of a row may be narrower); a row that fits shared memory whole is
-// one column block. Per tile, in shared memory:
-//   Y1  5 rows (r-2 .. r+2) of y1;
-//   DC2 3 rows (r-1 .. r+1) of bf16(dc2);
-// each row a window of image columns o .. o + 16 nw - 1 computed in nw
-// 16-pixel tiles, plus a zeroed border column on each side; a row outside
-// the image stays all zero (the 3x3's padding). dy1 at the owned pixels
-// needs dc2 one column beyond them, so y2 there, so y1 two columns beyond:
-// o = cb - 2 (or 0 at the image's left edge) and the window reaches ce + 2
-// (or W), rounded up to whole tiles. Pixels at or beyond W (a row's masked
-// tail, or window tiles past it) load x and dy as zeros and get y1 = 0, so
-// dy3, dc2 and dc1 are exactly 0 there: they add nothing to any sum, and
-// they are never stored. Halo pixels (window pixels outside [cb, ce)) are
-// recomputed by every block that needs them and counted by none: phases 3
-// and 4 run over the owned tiles only, and db2's column sums are masked to
-// the owned pixels.
-// Phase 1 computes y1 on the 5 rows (conv1 recomputed on 4 halo rows and
-// the halo columns). Phase 2 gives each warp 16-pixel tiles of rows r-1,
-// r+1 (then r): y2 of the tile, y3 one 16-channel chunk at a time, the dy3
-// mask and its bf16 rounding, and dc2 accumulated over the chunks in
-// fragments. The halo rows' y2 goes where their dc2 will go; row r's y2 is
-// kept (for dw3) in y1 row r-2, dead by then. Phase 3: dy1 and dc1 per
-// owned 16-pixel tile, bf16(dc1) kept in y1 row r+2, also dead. Phase 4
-// switches from pixels to outputs: each warp owns whole 16x16 tiles of dw1
-// / dw2 / dw3 (dw3's owner also recomputes dy3 for its 16 channels of the
-// owned pixels, and writes dx for them) and sums the tile's pixels into the
-// block's own fp32 slice of a workspace with plain loads and stores. Bias
-// sums: per 16-pixel tile into shared memory, then one thread per channel.
+// Design: two passes. Every operand of a weight gradient is a bf16 tensor
+// (x, y1, y2, bf16(dy3), bf16(dc2), bf16(dc1)), so the activation pass
+// writes them to scratch in device memory (the wrapper's torch.empty, freed
+// after the call) without changing a bit, and the weight gradients become
+// plain GEMMs over all B H W pixels. dy3 is dy masked, so bf16(dy3) = dy3:
+// dx and db3 read either. Five launches, all on the caller's stream:
+//   1. y1_kernel:  y1 = bf16(relu(x @ w1 + b1)), per 128-pixel tile.
+//   2. dc2_kernel: per 128-pixel tile, y2 (the 3x3 over y1 read back with
+//      its halo; zero outside the image), then C in 64-channel chunks:
+//      y3, the dy3 mask, bf16(dy3) and dc2 += bf16(dy3) @ w3^T, the chunk
+//      of w3 staged once and used for both products; writes y2, bf16(dy3)
+//      and bf16(dc2), and the tile's column sums of dy3 and dc2.
+//   3. dc1_kernel: per tile, dy1 (the transposed 3x3 over bf16(dc2) read
+//      back with its halo), dc1, then dx chunk by chunk; writes bf16(dc1)
+//      and dx, and the tile's column sums of dc1.
+//   4. wgrad_kernel: split-K GEMMs for dw1, dw2 (one job per tap and
+//      64x64 tile: the shift is an address offset, zero at the image's
+//      borders) and dw3, on wgmma. Grid (jobs, parts): part j reduces its
+//      contiguous pixel range with the sums in registers and writes its
+//      fp32 partial once, to its own slice of a workspace.
+//   5. sum_rows: the parts' slices, and the tiles' bias sums, in a fixed
+//      order. No atomics: two runs give equal bits.
+// No pixel is recomputed: each tile owns its pixels, halos are read from
+// scratch. Halo pixels come back from L2 (the 3x3 reads y1 or bf16(dc2)
+// three rows wide). y1 goes to scratch whatever the split (dw2 and dc1's
+// mask read it), so folding y1_kernel into dc2_kernel would save one read
+// of y1 and its halo, against conv1 recomputed over the halo; that variant
+// has not been timed.
 //
-// Why one row a tile, and column blocks: with the forward's pad of 16 bf16
-// a pixel, 8 whole rows (5 of y1, 3 of dc2) at W = 160, M = 64 take 207 KB,
-// and at W = 80, M = 128 take 189 KB, of the 227 KB a block may have. Two
-// rows a tile would need 10 rows (259 and 236 KB). Wider rows (W = 256 at
-// M = 64, W = 104 or 128 at M = 128) do not fit whole: the launcher splits
-// them into the fewest column blocks of equal whole tiles that fit (Wc =
-// 128 at W = 256, M = 64; Wc = 64 at W = 128, M = 128), which costs one or
-// two halo tiles of y1 and dc2 work a block.
-//
-// The reduction across blocks, and determinism. The TPU kernel kept the six
-// gradients resident across its sequential grid. Here every block owns a
-// workspace slice of S = 2 C M + 9 M^2 + 2 M + C floats (C = 4 M), which it
-// zeroes first and then updates in a fixed order, element by element from
-// one thread or one fragment at a time; a second kernel sums the P slices in
-// slice order. No atomics: the bits are equal from run to run on one card
-// (P is the SM count). Output layout of the sum, fp32: dw1 [C, M], dw2
-// [3, 3, M, M], dw3 [M, C], db1 [M], db2 [M], db3 [C].
+// What the one-kernel design before this one (a persistent block per SM,
+// one image row a tile, the products on 16-pixel wmma tiles) spent its
+// time on, and what this one does about each:
+//   1. Weight gradients flushed per row through a per-block fp32 workspace
+//      slice (1.4 GB of traffic a launch at layer1, 2.9 GB at layer2; on
+//      an H100 at 700 W, skipping it saved only 1.0 of 10.0 ms at layer1
+//      and 0.4 of 9.8 at layer2, so items 2-4 held the rest): here each
+//      part's partial sits in registers over its whole pixel range and is
+//      written once a launch.
+//   2. Weights streamed from L2 for every 16-pixel tile: here a weight
+//      chunk is staged in shared memory once per 128-pixel tile (cp.async,
+//      two stages) and serves all 128 pixels; w3's chunk serves y3 and dc2.
+//   3. One-row tiles redid ~2.1x the products: here 1.0x.
+//   4. Small tiles, no overlap: 128-pixel tiles, every weight copy a
+//      cp.async two stages deep behind the products (dc1_kernel's
+//      bf16(dy3) chunks too; four stages of 64 pixels in the weight
+//      gradients), and the tile kernels ask for two blocks an SM where
+//      their shared memory allows (M <= 64).
+// Products: wgmma (m64n64k16, bf16 operands from 128-byte-swizzled shared
+// tiles, fp32 sums in registers; the layout is at "wgmma" below), in every
+// kernel but sum_rows. A pixel's 64 channels are one
+// 128-byte swizzle row, so the 3x3's shifted rows land by 16-byte cp.async
+// like any other row, as A (K-major: pixels x channels) in the tile
+// kernels and as both operands (MN-major) in the weight gradients; each
+// weight is read K-major or MN-major as its product needs, so w3's staged
+// rows serve y3 and dc2 alike. A tile kernel's two warpgroups take 64
+// pixel rows each, and its epilogues (bias, ReLU masks, column sums by warp
+// shuffles in a fixed order, bf16) work on the accumulator registers.
+// y1_kernel's 1x1 product is wgmma the same way.
 //
 // What bounds it on an H100: at R50's training shapes (bs 16) bytes at
 // layer1 (x and dy read once, dx written once: 629 MB, 0.188 ms at 3.35
 // TB/s) and operations at layer2 (3x the forward's multiply-adds, 171
-// GFLOP, 0.173 ms at 989 TFLOP/s). This kernel does about twice the
-// necessary products (conv1 on 5 rows, conv2 and conv3 on 3 rows, conv3
-// twice more for dw3 and dx), through wmma (mma.sync) rather than wgmma,
-// and moves each block's workspace slice through L2 (or HBM, at layer2's
-// 147 MB) once per row: it is far from that bound; times are in PERF.md.
+// GFLOP, 0.173 ms at 989 TFLOP/s). The scratch adds about 4 B H W M bf16
+// written and read (y1, y2, bf16(dc2), bf16(dc1)) and B H W C of bf16(dy3):
+// about 1.3 GB of extra traffic at layer1; times are in PERF.md.
 //
 // Requirements (the wrapper checks them): M in {16, 32, 64, 128}, C = 4 M,
-// any W >= 1, contiguous 32-byte-aligned bf16 tensors, fp32 biases.
+// contiguous 32-byte-aligned bf16 tensors, fp32 biases.
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAt = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kPad = 16;  // extra bf16 per pixel in shared memory: keeps
-                          // 32-byte alignment, spreads banks
-constexpr int kWarpBytes = 256 * 4 + 256 * 2;  // fp32 stage + bf16 dy3 tile
+constexpr int kThreads = 256;   // activation kernels: 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kTP = 128;        // pixels a tile of the activation kernels
+constexpr int kNC = 64;         // channels a chunk of C
+constexpr int kPad = 8;         // bf16 a shared row holds beyond its width
+constexpr int kWThreads = 128;  // weight-gradient kernel: one warpgroup
+constexpr int kKP = 64;         // pixels a stage of the weight gradients
 
-union Pack8 {
-  uint4 v;
-  __nv_bfloat162 h[4];
-};
-
-// The columns of column block j of a row, at block width wc: it owns image
-// columns [cb, ce), np 16-pixel tiles from cb; its shared rows hold the
-// window of nw tiles from image column o, shared index i being image column
-// o - 1 + i (index 0 and 16 nw + 1 are the zeroed borders). nw also covers
-// the owned tiles and one column past them, which phase 3 reads.
-struct Cols {
-  int cb, ce, np, o, nw;
-};
-
-__host__ __device__ inline Cols col_block(int j, int wc, int w) {
-  Cols g;
-  g.cb = j * wc;
-  g.ce = g.cb + wc < w ? g.cb + wc : w;
-  g.np = (g.ce - g.cb + 15) / 16;
-  g.o = g.cb > 0 ? g.cb - 2 : 0;
-  const int hi = g.ce < w ? g.ce + 2 : g.ce;
-  const int need = (hi - g.o + 15) / 16, own = g.np + (g.cb > 0 ? 1 : 0);
-  g.nw = need > own ? need : own;
-  return g;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  // 16 bytes, or 16 zero bytes when !valid (src is then not read)
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
 }
 
-// Shared memory of one block: 8 rows of 16 nwmax + 2 pixels (5 of y1, 3 of
-// dc2), per warp a staging tile and a dy3 tile, and the per-tile bias sums
-// of dc1 (npmax owned tiles) and dc2 (nwmax window tiles).
-template <int M>
-__host__ __device__ size_t rows_bytes(int nwmax) {
-  return static_cast<size_t>(8) * (16 * nwmax + 2) * (M + kPad) * sizeof(bf16);
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 template <int M>
-size_t smem_bytes(int nwmax, int npmax) {
-  return rows_bytes<M>(nwmax) + static_cast<size_t>(kWarps) * kWarpBytes +
-         static_cast<size_t>(npmax + nwmax) * M * sizeof(float);
+__host__ __device__ constexpr int k_chunk() {  // channels a 3x3 stage
+  return M < 64 ? M : 64;
 }
 
-// How a row of width w is tiled under `limit` bytes of shared memory: the
-// fewest column blocks of equal whole tiles that fit. wc = 0 when none do.
-struct Plan {
-  int wc, nwmax;
-  size_t smem;
-};
+// Image row and column of each pixel of the tile from p0; pixels at or
+// beyond np get -4, so that every 3x3 shift of them lands outside.
+__device__ __forceinline__ void tile_coords(int* prow, int* pcol, int p0,
+                                            int np, int h, int w) {
+  for (int i = threadIdx.x; i < kTP; i += kThreads) {
+    const int p = p0 + i;
+    prow[i] = p < np ? (p / w) % h : -4;
+    pcol[i] = p < np ? p % w : -4;
+  }
+}
+
+// Channels n0 .. n0 + 63 of the tile's pixels from src [np, C] into dst
+// (row stride kNC + kPad); zeros for pixels at or beyond np.
+__device__ __forceinline__ void load_chunk(bf16* dst, const bf16* src, int c,
+                                           int n0, int p0, int np) {
+  constexpr int VEC = kNC / 8;
+  for (int i = threadIdx.x; i < kTP * VEC; i += kThreads) {
+    const int r = i / VEC, v = i % VEC;
+    const bool ok = p0 + r < np;
+    cp_async16(dst + r * (kNC + kPad) + v * 8,
+               ok ? src + static_cast<size_t>(p0 + r) * c + n0 + v * 8 : src,
+               ok);
+  }
+}
+
+// ---- wgmma: the shared operand layout and the instruction -------------------
+
+// A SW128 tile: rows of 128 bytes (64 bf16 channels), 16-byte chunk c of row
+// r at chunk c ^ (r % 8), from a 1024-byte boundary, 8-row groups 1024
+// bytes apart. wgmma reads it as a K-major operand (rows are its M or N,
+// channels its K; a k16 step moves 32 bytes) or as an MN-major one (rows
+// are K; a k16 step moves 16 rows, 2048 bytes). Every operand a product
+// reads spans one 64-channel swizzle atom along M or N, so the
+// descriptor's leading offset is never used; it is set to the group stride
+// as well. Wider tiles are atoms of 128 rows, kAtom bytes apart.
+constexpr int kAtom = kTP * 128;
+
+__device__ __forceinline__ int sw(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// Byte offset of channel col (even) of row r in a tile of 128-row atoms.
+__device__ __forceinline__ int at2(int r, int col) {
+  return (col >> 6) * kAtom + sw(r, (col & 63) >> 3) + (col & 7) * 2;
+}
+
+__device__ __forceinline__ void put2(unsigned char* tile, int r, int col,
+                                     float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(tile + at2(r, col)) =
+      __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ float2 get2(const unsigned char* tile, int r,
+                                       int col) {
+  return __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(tile + at2(r, col)));
+}
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The block's dynamic shared memory from its first 1024-byte boundary (the
+// launch asks for 1024 bytes more).
+__device__ __forceinline__ unsigned char* smem_1k(unsigned char* raw) {
+  const uint32_t a = saddr(raw);
+  return raw + (((a + 1023u) & ~1023u) - a);
+}
+
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], bf16 products, fp32 sums; TA / TB:
+// that operand is stored MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma64(float (&d)[32], uint64_t da,
+                                        uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators across
+// the wgmma fence and wait (they are written behind its back).
+__device__ __forceinline__ void pin(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// This thread's shared writes (st.shared, cp.async) made visible to wgmma,
+// which reads through the async proxy; a barrier follows.
+__device__ __forceinline__ void proxy_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// In an accumulator of m64nNk16 (warp w of a warpgroup, lane l),
+// d[4 j + 2 e + i] is row 16 w + l / 4 + 8 e, column 8 j + 2 (l % 4) + i.
+// The sum of a column over the warp's 16 rows, in a fixed order: v is this
+// thread's two rows' sum; the xor steps add the warp's 8 row groups.
+__device__ __forceinline__ float warp_rows_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  return v;
+}
+
+// KC channels from ch0 of the tile's pixels shifted by (dyy, dxx) inside
+// their image, from src [np, M], into a SW128 tile; zeros where the
+// shifted pixel is outside.
+template <int KC>
+__device__ __forceinline__ void load_shifted_sw(unsigned char* dst,
+                                                const bf16* src, int m,
+                                                int ch0, int dyy, int dxx,
+                                                int p0, const int* prow,
+                                                const int* pcol, int h,
+                                                int w) {
+  constexpr int VEC = KC / 8;
+  for (int i = threadIdx.x; i < kTP * VEC; i += kThreads) {
+    const int r = i / VEC, v = i % VEC;
+    const int rr = prow[r] + dyy, cc = pcol[r] + dxx;
+    const bool ok = rr >= 0 && rr < h && cc >= 0 && cc < w;
+    const bf16* s =
+        ok ? src + (static_cast<size_t>(p0 + r + dyy * w + dxx)) * m + ch0 +
+                 v * 8
+           : src;
+    cp_async16(dst + sw(r, v), s, ok);
+  }
+}
+
+// COLS channels of the tile's pixels below np from a tile of 128-row atoms
+// to dst [np, ld] from column col0, 16 bytes a copy.
+template <int COLS>
+__device__ __forceinline__ void store_tile(bf16* dst, int ld, int col0,
+                                           const unsigned char* tile, int p0,
+                                           int np) {
+  constexpr int VEC = COLS / 8;
+  for (int i = threadIdx.x; i < kTP * VEC; i += kThreads) {
+    const int r = i / VEC, v = i % VEC;
+    if (p0 + r < np)
+      *reinterpret_cast<uint4*>(dst + static_cast<size_t>(p0 + r) * ld +
+                                col0 + v * 8) =
+          *reinterpret_cast<const uint4*>(tile + (v >> 3) * kAtom +
+                                          sw(r, v & 7));
+  }
+}
+
+// ---- 1: y1 = bf16(relu(x @ w1 + b1)) ----------------------------------------
 
 template <int M>
-Plan plan(int w, size_t limit) {
-  const int tiles = (w + 15) / 16;
-  Plan p = {0, 0, 0};
-  for (int nb = 1; nb <= tiles; ++nb) {
-    const int wc = 16 * ((tiles + nb - 1) / nb);
-    int nwmax = 0;
-    for (int j = 0; j * wc < w; ++j) {
-      const int nw = col_block(j, wc, w).nw;
-      nwmax = nw > nwmax ? nw : nwmax;
-    }
-    p = {wc, nwmax, smem_bytes<M>(nwmax, wc / 16)};
-    if (p.smem <= limit) return p;
-  }
-  p.wc = 0;
-  return p;
+__host__ __device__ constexpr int atoms() {  // 64-channel atoms of M
+  return M > 64 ? M / 64 : 1;
 }
 
+// From the 1024-byte boundary: x's chunks [2][kAtom], then w1's rows
+// [2][atoms][64 rows x 128 bytes]; y1 [atoms][kAtom] takes x's place after
+// the last chunk.
 template <int M>
-__host__ __device__ constexpr size_t slice_floats() {
-  return 2 * (4 * M) * M + 9 * M * M + 2 * M + 4 * M;
+__host__ __device__ constexpr size_t smem_y1() {
+  return 1024 + 2 * kAtom + 2 * atoms<M>() * 64 * 128;
 }
 
-// Bias, ReLU and bf16 rounding of one 16x16 fp32 tile staged in `stage`
-// (row-major), written to `dst` (row stride ld); rows (pixels) at or beyond
-// `valid` are written as zeros. Lane: row lane / 2, columns (lane % 2) * 8
-// .. + 7.
-__device__ __forceinline__ void store_relu_bf16(const float* stage,
-                                                const float* bias, bf16* dst,
-                                                int ld, int lane,
-                                                int valid = 16) {
-  const int r = lane >> 1, c = (lane & 1) * 8;
-  const float* s = stage + r * 16 + c;
-  Pack8 pack;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float a = fmaxf(s[2 * i] + bias[c + 2 * i], 0.0f);
-    const float b = fmaxf(s[2 * i + 1] + bias[c + 2 * i + 1], 0.0f);
-    pack.h[i] = __floats2bfloat162_rn(a, b);
-  }
-  if (r >= valid) pack.v = make_uint4(0u, 0u, 0u, 0u);
-  *reinterpret_cast<uint4*>(dst + r * ld + c) = pack.v;
-}
-
-// Copies a 16-pixel x 16-channel bf16 tile (pixel stride ld) into `dst`
-// (pixel stride 16), pixels at or beyond `valid` as zeros: an operand of a
-// masked tile, read from x.
-__device__ __forceinline__ void stage_tile(const bf16* src, int ld, int valid,
-                                           bf16* dst, int lane) {
-  const int p = lane >> 1, c = (lane & 1) * 8;
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (p < valid)
-    v = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(p) * ld + c);
-  *reinterpret_cast<uint4*>(dst + p * 16 + c) = v;
-  __syncwarp();
-}
-
-// Pixels of the 16-pixel tile from image column c0 that lie in the image.
-__device__ __forceinline__ int valid_pixels(int c0, int w) {
-  return w - c0 >= 16 ? 16 : (w - c0 > 0 ? w - c0 : 0);
-}
-
-// dy3 = dy * ((y3 + b3) + x > 0) for the lane's 8 elements of a staged
-// 16x16 y3 tile: written as fp32 to `d3` and to the stage, as bf16 to the
-// warp's dy3 tile. `pix` indexes the lane's first element in x and dy; a
-// lane whose pixel is not `live` (at or beyond W) gets 0, from a `pix` the
-// caller clamps into the row (the loads stay unconditional).
-__device__ __forceinline__ void dy3_chunk(float* stage, bf16* dy3t,
-                                          const bf16* x, const bf16* dy,
-                                          const float* b3, size_t pix, int ch,
-                                          int lane, bool live, float* d3) {
-  const int pr = lane >> 1, pc = (lane & 1) * 8;
-  float* s = stage + pr * 16 + pc;
-  Pack8 xv, dv, pack;
-  xv.v = *reinterpret_cast<const uint4*>(x + pix);
-  dv.v = *reinterpret_cast<const uint4*>(dy + pix);
-  if (!live) xv.v = dv.v = make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 xr = __bfloat1622float2(xv.h[i]);
-    const float2 g = __bfloat1622float2(dv.h[i]);
-    d3[2 * i] = (s[2 * i] + b3[ch + 2 * i]) + xr.x > 0.0f ? g.x : 0.0f;
-    d3[2 * i + 1] =
-        (s[2 * i + 1] + b3[ch + 2 * i + 1]) + xr.y > 0.0f ? g.y : 0.0f;
-    pack.h[i] = __floats2bfloat162_rn(d3[2 * i], d3[2 * i + 1]);
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) s[i] = d3[i];
-  *reinterpret_cast<uint4*>(dy3t + pr * 16 + pc) = pack.v;
-}
-
-// Masks a staged 16x16 fp32 tile by `ref > 0` (bf16, row stride ld; the
-// lane's elements as in store_relu_bf16), writes the masked values back to
-// the stage and, rounded, to `dst` (row stride ld; may be `ref` itself).
-__device__ __forceinline__ void mask_store(float* stage, const bf16* ref,
-                                           bf16* dst, int ld, int lane) {
-  const int r = lane >> 1, c = (lane & 1) * 8;
-  float* s = stage + r * 16 + c;
-  Pack8 rv, pack;
-  rv.v = *reinterpret_cast<const uint4*>(ref + r * ld + c);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 y = __bfloat1622float2(rv.h[i]);
-    const float a = y.x > 0.0f ? s[2 * i] : 0.0f;
-    const float b = y.y > 0.0f ? s[2 * i + 1] : 0.0f;
-    s[2 * i] = a;
-    s[2 * i + 1] = b;
-    pack.h[i] = __floats2bfloat162_rn(a, b);
-  }
-  *reinterpret_cast<uint4*>(dst + r * ld + c) = pack.v;
-}
-
-// Sum of column `lane` (< 16) of a staged 16x16 tile over rows lo .. hi - 1,
-// in order.
-__device__ __forceinline__ float column_sum(const float* stage, int lane,
-                                            int lo = 0, int hi = 16) {
-  float s = 0.0f;
-  for (int q = lo; q < hi; ++q) s += stage[q * 16 + lane];
-  return s;
-}
-
-// Phase 2 for one 16-pixel window tile of image row rr, the j-th row of
-// DC2: the tile starts at shared index s0 + 1 and image column c0. y2 from
-// y1 rows j .. j + 2 into y2dst, then dc2 over all C channels into dc2dst
-// (which may be y2dst); with `colsum`, the tile's column sums of the fp32
-// dc2 over its rows (pixels) lo .. hi - 1.
-template <int M>
-__device__ void dc2_tile(const bf16* Y1, int j, int s0, int c0, int wp, int w,
-                         int rr, bf16* y2dst, bf16* dc2dst, float* colsum,
-                         int lo, int hi, const bf16* ximg, const bf16* dyimg,
-                         const bf16* w2, const float* b2, const bf16* w3,
-                         const float* b3, float* stage, bf16* dy3t, int lane) {
-  constexpr int C = 4 * M, LD = M + kPad, NT = M / 16;
-  FragC acc[NT];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) wmma::fill_fragment(acc[n], 0.0f);
-  for (int ky = 0; ky < 3; ++ky) {
-    for (int kx = 0; kx < 3; ++kx) {
-      const bf16* ya = Y1 + (static_cast<size_t>(j + ky) * wp + s0 + kx) * LD;
-      const bf16* wt = w2 + static_cast<size_t>(ky * 3 + kx) * M * M;
-      for (int k = 0; k < M; k += 16) {
-        FragA a;
-        wmma::load_matrix_sync(a, ya + k, LD);
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          FragB b;
-          wmma::load_matrix_sync(b, wt + static_cast<size_t>(k) * M + n * 16, M);
-          wmma::mma_sync(acc[n], a, b, acc[n]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    wmma::store_matrix_sync(stage, acc[n], 16, wmma::mem_row_major);
-    __syncwarp();
-    store_relu_bf16(stage, b2 + n * 16, y2dst + n * 16, LD, lane);
-    __syncwarp();
-  }
-
-  // y2's fragments are read from shared memory per chunk: held in
-  // registers beside d2 they would spill at M = 128
-  FragC d2[NT];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) wmma::fill_fragment(d2[n], 0.0f);
-  const int pr = lane >> 1, pc = (lane & 1) * 8;
-  const bool live = c0 + pr < w;
-  const size_t pix =
-      (static_cast<size_t>(rr) * w + (live ? c0 + pr : w - 1)) * C + pc;
-  for (int n3 = 0; n3 < C / 16; ++n3) {
-    FragC acc3;
-    wmma::fill_fragment(acc3, 0.0f);
-#pragma unroll
-    for (int k = 0; k < NT; ++k) {
-      FragA a;
-      wmma::load_matrix_sync(a, y2dst + k * 16, LD);
-      FragB b;
-      wmma::load_matrix_sync(b, w3 + static_cast<size_t>(k) * 16 * C + n3 * 16,
-                             C);
-      wmma::mma_sync(acc3, a, b, acc3);
-    }
-    wmma::store_matrix_sync(stage, acc3, 16, wmma::mem_row_major);
-    __syncwarp();
-    float d3[8];
-    dy3_chunk(stage, dy3t, ximg, dyimg, b3, pix + n3 * 16, n3 * 16 + pc, lane,
-              live, d3);
-    __syncwarp();
-    FragA ad;
-    wmma::load_matrix_sync(ad, dy3t, 16);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      // w3^T: element (c, o) is w3[o, c]
-      FragBt bt;
-      wmma::load_matrix_sync(bt, w3 + static_cast<size_t>(n) * 16 * C + n3 * 16,
-                             C);
-      wmma::mma_sync(d2[n], ad, bt, d2[n]);
-    }
-    __syncwarp();
-  }
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    wmma::store_matrix_sync(stage, d2[n], 16, wmma::mem_row_major);
-    __syncwarp();
-    mask_store(stage, y2dst + n * 16, dc2dst + n * 16, LD, lane);
-    __syncwarp();
-    if (colsum != nullptr && lane < 16)
-      colsum[n * 16 + lane] = column_sum(stage, lane, lo, hi);
-    __syncwarp();
-  }
-}
-
+// One 128-pixel tile, two warpgroups of 64 pixel rows: A is x's chunk
+// (K-major), B w1's rows of the chunk (MN-major).
 template <int M>
 __global__ void __launch_bounds__(kThreads)
-    bottleneck_bwd_kernel(const bf16* __restrict__ x,    // [B, H, W, C]
-                          const bf16* __restrict__ dy,   // [B, H, W, C]
-                          const bf16* __restrict__ w1,   // [C, M]
-                          const float* __restrict__ b1,  // [M]
-                          const bf16* __restrict__ w2,   // [3, 3, M, M]
-                          const float* __restrict__ b2,  // [M]
-                          const bf16* __restrict__ w3,   // [M, C]
-                          const float* __restrict__ b3,  // [C]
-                          bf16* __restrict__ dx,         // [B, H, W, C]
-                          float* __restrict__ ws,        // [gridDim.x, S]
-                          int batch, int h, int w, int wc, int nwmax) {
-  constexpr int C = 4 * M, LD = M + kPad, NT = M / 16, CT = C / 16;
-  constexpr size_t S = slice_floats<M>();
-  constexpr int kVecPix = LD * 2 / 16;  // uint4 per shared pixel
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int wp = 16 * nwmax + 2;  // pixels a shared row, borders included
-  const int nb = (w + wc - 1) / wc;  // column blocks a row
-  const size_t rowe = static_cast<size_t>(wp) * LD;
-  bf16* Y1 = reinterpret_cast<bf16*>(smem);  // rows r-2 .. r+2
-  bf16* DC2 = Y1 + 5 * rowe;                 // rows r-1 .. r+1
-  bf16* Y2I = Y1;             // y2 of row r, in y1 row r-2 after phase 2a
-  bf16* DC1 = Y1 + 4 * rowe;  // bf16(dc1) of row r, in y1 row r+2
+    y1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+              const float* __restrict__ b1, bf16* __restrict__ y1, int np) {
+  constexpr int C = 4 * M, NA = atoms<M>(), STAGE = NA * 64 * 128;
+  constexpr int T = C / kNC;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* sm = smem_1k(smem_raw);
+  unsigned char* As = sm;              // [2][kAtom]
+  unsigned char* Bs = sm + 2 * kAtom;  // [2][STAGE]
+  unsigned char* Ys = sm;              // [NA][kAtom], after the last chunk
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  unsigned char* wbase = smem + rows_bytes<M>(nwmax) + warp * kWarpBytes;
-  float* stage = reinterpret_cast<float*>(wbase);
-  bf16* dy3t = reinterpret_cast<bf16*>(wbase + 1024);
-  float* colsum1 = reinterpret_cast<float*>(smem + rows_bytes<M>(nwmax) +
-                                            kWarps * kWarpBytes);
-  float* colsum2 = colsum1 + (wc / 16) * M;
+  const uint32_t grow = (warp >> 2) * 64 * 128;
+  const int row0 = 16 * warp + (lane >> 2);
+  const int q2 = 2 * (lane & 3);
+  const int p0 = blockIdx.x * kTP;
 
-  float* g_dw1 = ws + blockIdx.x * S;
-  float* g_dw2 = g_dw1 + C * M;
-  float* g_dw3 = g_dw2 + 9 * M * M;
-  float* g_db1 = g_dw3 + M * C;
-  float* g_db2 = g_db1 + M;
-  float* g_db3 = g_db2 + M;
-  for (size_t i = threadIdx.x; i < S; i += kThreads) g_dw1[i] = 0.0f;
-  // (seen by the block's threads after the first __syncthreads below)
-
-  const int pr = lane >> 1, pc = (lane & 1) * 8;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int t = blockIdx.x; t < batch * h * nb; t += gridDim.x) {
-    const Cols g = col_block(t % nb, wc, w);
-    const int r = (t / nb) % h;
-    const size_t img_off = static_cast<size_t>(t / nb / h) * h * w * C;
-    const bf16* ximg = x + img_off;
-    const bf16* dyimg = dy + img_off;
-    const int a0 = g.cb - g.o + 1;  // shared index of the first owned pixel
-
-    // -- zero the border columns of the 8 shared rows, and whole rows
-    // outside the image (y1 rows q < 5 are image rows r-2+q, dc2 rows
-    // q >= 5 image rows r-6+q).
-    for (int q = 0; q < 8; ++q) {
-      const int rr = q < 5 ? r - 2 + q : r - 6 + q;
-      uint4* row = reinterpret_cast<uint4*>(Y1 + q * rowe);
-      if (rr < 0 || rr >= h) {
-        for (int i = threadIdx.x; i < wp * kVecPix; i += kThreads) row[i] = zero;
-      } else {
-        for (int i = threadIdx.x; i < 2 * kVecPix; i += kThreads) {
-          const int col = i < kVecPix ? 0 : 16 * g.nw + 1;
-          row[col * kVecPix + i % kVecPix] = zero;
-        }
-      }
+  float acc[NA][32];
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[a][i] = 0.0f;
+  auto load = [&](int t, int s) {
+    for (int i = threadIdx.x; i < kTP * 8; i += kThreads) {
+      const int r = i >> 3, v = i & 7;
+      const bool ok = p0 + r < np;
+      cp_async16(As + s * kAtom + sw(r, v),
+                 ok ? x + static_cast<size_t>(p0 + r) * C + t * kNC + v * 8
+                    : x,
+                 ok);
     }
-
-    // -- phase 1: y1 = bf16(relu(x @ w1 + b1)) on rows r-2 .. r+2, over the
-    // window; 0 at pixels at or beyond W.
-    for (int u = warp; u < 5 * g.nw; u += kWarps) {
-      const int q = u / g.nw, k = u % g.nw;
-      const int rr = r - 2 + q, c0 = g.o + 16 * k;
-      if (rr < 0 || rr >= h) continue;
-      const int valid = valid_pixels(c0, w);
-      FragC acc[NT];
-#pragma unroll
-      for (int n = 0; n < NT; ++n) wmma::fill_fragment(acc[n], 0.0f);
-      const bf16* xa = ximg + (static_cast<size_t>(rr) * w + c0) * C;
-      for (int kc = 0; kc < C; kc += 16) {
-        FragA a;
-        if (valid == 16) {
-          wmma::load_matrix_sync(a, xa + kc, C);
-        } else {  // staged through the warp's (idle) dy3 tile
-          stage_tile(xa + kc, C, valid, dy3t, lane);
-          wmma::load_matrix_sync(a, dy3t, 16);
-          __syncwarp();
-        }
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          FragB b;
-          wmma::load_matrix_sync(b, w1 + static_cast<size_t>(kc) * M + n * 16,
-                                 M);
-          wmma::mma_sync(acc[n], a, b, acc[n]);
-        }
-      }
-      bf16* dst = Y1 + (q * wp + 16 * k + 1) * static_cast<size_t>(LD);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        wmma::store_matrix_sync(stage, acc[n], 16, wmma::mem_row_major);
-        __syncwarp();
-        store_relu_bf16(stage, b1 + n * 16, dst + n * 16, LD, lane, valid);
-        __syncwarp();
-      }
+    for (int i = threadIdx.x; i < kNC * (M / 8); i += kThreads) {
+      const int k = i / (M / 8), v = i % (M / 8);
+      cp_async16(Bs + s * STAGE + (v >> 3) * 8192 + sw(k, v & 7),
+                 w1 + static_cast<size_t>(t * kNC + k) * M + v * 8, true);
     }
+    cp_commit();
+  };
+  load(0, 0);
+  for (int t = 0; t < T; ++t) {
+    if (t + 1 < T) {
+      load(t + 1, (t + 1) & 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    proxy_fence();
     __syncthreads();
-
-    // -- phase 2a: dc2 on the halo rows r-1 and r+1 (y2 where dc2 goes).
-    for (int u = warp; u < 2 * g.nw; u += kWarps) {
-      const int j = (u / g.nw) * 2, k = u % g.nw;
-      const int rr = r - 1 + j;
-      if (rr < 0 || rr >= h) continue;  // stays zero
-      bf16* dst = DC2 + (j * wp + 16 * k + 1) * static_cast<size_t>(LD);
-      dc2_tile<M>(Y1, j, 16 * k, g.o + 16 * k, wp, w, rr, dst, dst, nullptr,
-                  0, 0, ximg, dyimg, w2, b2, w3, b3, stage, dy3t, lane);
-    }
-    __syncthreads();
-
-    // -- phase 2b: dc2 on row r, its y2 kept in Y2I, db2's column sums over
-    // the owned pixels of each window tile.
-    for (int k = warp; k < g.nw; k += kWarps) {
-      const int c0 = g.o + 16 * k;
-      const int lo = g.cb - c0 > 0 ? g.cb - c0 : 0;
-      const int hi = g.ce - c0 < 16 ? g.ce - c0 : 16;
-      dc2_tile<M>(Y1, 1, 16 * k, c0, wp, w, r,
-                  Y2I + (16 * k + 1) * static_cast<size_t>(LD),
-                  DC2 + (wp + 16 * k + 1) * static_cast<size_t>(LD),
-                  colsum2 + k * M, lo, hi, ximg, dyimg, w2, b2, w3, b3, stage,
-                  dy3t, lane);
-    }
-    __syncthreads();
-
-    // -- phase 3: dy1 = sum_k shift_k(dc2) @ w2[k]^T on the owned tiles of
-    // row r; dc1 = dy1 * (y1 > 0) into DC1 (bf16) and db1's column sums.
-    // dy1[r, c] takes dc2[r + 1 - ky, c + 1 - kx]: DC2 row 2 - ky, one
-    // shared index right of c's, less kx.
-    for (int p = warp; p < g.np; p += kWarps) {
-      const int sa = a0 + 16 * p;  // shared index of the tile's first pixel
-      FragC acc[NT];
+    const uint32_t a = saddr(As + (t & 1) * kAtom) + grow;
+    const uint32_t b = saddr(Bs + (t & 1) * STAGE);
 #pragma unroll
-      for (int n = 0; n < NT; ++n) wmma::fill_fragment(acc[n], 0.0f);
-      for (int ky = 0; ky < 3; ++ky) {
-        for (int kx = 0; kx < 3; ++kx) {
-          const bf16* da =
-              DC2 + (static_cast<size_t>(2 - ky) * wp + sa + 1 - kx) * LD;
-          const bf16* wt = w2 + static_cast<size_t>(ky * 3 + kx) * M * M;
-          for (int kc = 0; kc < M; kc += 16) {
-            FragA a;
-            wmma::load_matrix_sync(a, da + kc, LD);
+    for (int n = 0; n < NA; ++n) pin(acc[n]);
+    wg_fence();
 #pragma unroll
-            for (int n = 0; n < NT; ++n) {
-              // w2[k]^T: element (o, i) is w2[k][i, o]
-              FragBt bt;
-              wmma::load_matrix_sync(
-                  bt, wt + static_cast<size_t>(n) * 16 * M + kc, M);
-              wmma::mma_sync(acc[n], a, bt, acc[n]);
-            }
-          }
-        }
-      }
-      const bf16* y1r = Y1 + (2 * wp + sa) * static_cast<size_t>(LD);
-      bf16* dst = DC1 + sa * static_cast<size_t>(LD);
+    for (int k = 0; k < kNC / 16; ++k)
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        wmma::store_matrix_sync(stage, acc[n], 16, wmma::mem_row_major);
-        __syncwarp();
-        mask_store(stage, y1r + n * 16, dst + n * 16, LD, lane);
-        __syncwarp();
-        if (lane < 16) colsum1[p * M + n * 16 + lane] = column_sum(stage, lane);
-        __syncwarp();
-      }
-    }
-    __syncthreads();
-
-    // -- phase 4: sums owned by output, over the owned tiles. db1 and db2:
-    // one thread a channel.
-    for (int i = threadIdx.x; i < 2 * M; i += kThreads) {
-      float s = 0.0f;
-      if (i < M) {
-        for (int p = 0; p < g.np; ++p) s += colsum1[p * M + i];
-        g_db1[i] += s;
-      } else {
-        for (int k = 0; k < g.nw; ++k) s += colsum2[k * M + i - M];
-        g_db2[i - M] += s;
-      }
-    }
-    const bf16* xrow = ximg + static_cast<size_t>(r) * w * C;
-    bf16* dxrow = dx + img_off + static_cast<size_t>(r) * w * C;
-    const bf16* dyrow = dyimg + static_cast<size_t>(r) * w * C;
-    for (int u = warp; u < CT + 9 * NT * NT + CT * NT; u += kWarps) {
-      if (u < CT) {
-        // 16 channels jc of dw3, db3 and dx: y3 again from Y2I, dy3.
-        const int jc = u;
-        FragC dw3[NT];
+      for (int n = 0; n < NA; ++n)
+        wgmma64<0, 1>(acc[n], sw128_desc(a + 32 * k),
+                      sw128_desc(b + n * 8192 + 2048 * k));
+    wg_commit_wait();
 #pragma unroll
-        for (int n = 0; n < NT; ++n)
-          wmma::load_matrix_sync(dw3[n], g_dw3 + n * 16 * C + jc * 16, C,
-                                 wmma::mem_row_major);
-        float db3s = 0.0f;
-        for (int p = 0; p < g.np; ++p) {
-          const int sa = a0 + 16 * p, c0 = g.cb + 16 * p;
-          const bf16* y2p = Y2I + sa * static_cast<size_t>(LD);
-          FragC acc3;
-          wmma::fill_fragment(acc3, 0.0f);
-#pragma unroll
-          for (int k = 0; k < NT; ++k) {
-            FragA a;
-            wmma::load_matrix_sync(a, y2p + k * 16, LD);
-            FragB b;
-            wmma::load_matrix_sync(
-                b, w3 + static_cast<size_t>(k) * 16 * C + jc * 16, C);
-            wmma::mma_sync(acc3, a, b, acc3);
-          }
-          wmma::store_matrix_sync(stage, acc3, 16, wmma::mem_row_major);
-          __syncwarp();
-          const bool live = c0 + pr < w;
-          const size_t pix =
-              static_cast<size_t>(live ? c0 + pr : w - 1) * C + jc * 16 + pc;
-          float d3[8];
-          dy3_chunk(stage, dy3t, xrow, dyrow, b3, pix, jc * 16 + pc, lane,
-                    live, d3);
-          __syncwarp();
-          if (lane < 16) db3s += column_sum(stage, lane);
-          FragB bd;
-          wmma::load_matrix_sync(bd, dy3t, 16);
-#pragma unroll
-          for (int n = 0; n < NT; ++n) {
-            FragAt at;  // y2^T: element (i, pixel)
-            wmma::load_matrix_sync(at, y2p + n * 16, LD);
-            wmma::mma_sync(dw3[n], at, bd, dw3[n]);
-          }
-          FragC ax;
-          wmma::fill_fragment(ax, 0.0f);
-          const bf16* d1p = DC1 + sa * static_cast<size_t>(LD);
-#pragma unroll
-          for (int k = 0; k < NT; ++k) {
-            FragA a;
-            wmma::load_matrix_sync(a, d1p + k * 16, LD);
-            FragBt bt;  // w1^T: element (o, c) is w1[c, o]
-            wmma::load_matrix_sync(
-                bt, w1 + static_cast<size_t>(jc) * 16 * M + k * 16, M);
-            wmma::mma_sync(ax, a, bt, ax);
-          }
-          __syncwarp();  // the column sums have read the stage
-          wmma::store_matrix_sync(stage, ax, 16, wmma::mem_row_major);
-          __syncwarp();
-          const float* s = stage + pr * 16 + pc;
-          Pack8 pack;
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            pack.h[i] = __floats2bfloat162_rn(d3[2 * i] + s[2 * i],
-                                              d3[2 * i + 1] + s[2 * i + 1]);
-          if (live) *reinterpret_cast<uint4*>(dxrow + pix) = pack.v;
-          __syncwarp();
-        }
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-          wmma::store_matrix_sync(g_dw3 + n * 16 * C + jc * 16, dw3[n], C,
-                                  wmma::mem_row_major);
-        if (lane < 16) g_db3[jc * 16 + lane] += db3s;
-      } else if (u < CT + 9 * NT * NT) {
-        // a 16x16 tile (i0, o0) of dw2[ky, kx] += shift(y1)^T dc2, row r
-        const int v = u - CT, k = v / (NT * NT);
-        const int i0 = (v % (NT * NT)) / NT * 16, o0 = (v % NT) * 16;
-        const int ky = k / 3, kx = k % 3;
-        float* gp = g_dw2 + static_cast<size_t>(k) * M * M + i0 * M + o0;
-        FragC acc;
-        wmma::load_matrix_sync(acc, gp, M, wmma::mem_row_major);
-        for (int p = 0; p < g.np; ++p) {
-          const int sa = a0 + 16 * p;
-          FragAt at;  // element (i, pixel c) is y1[r + ky - 1, c + kx - 1, i]
-          wmma::load_matrix_sync(
-              at, Y1 + ((ky + 1) * wp + sa + kx - 1) * static_cast<size_t>(LD) +
-                      i0,
-              LD);
-          FragB b;
-          wmma::load_matrix_sync(
-              b, DC2 + (wp + sa) * static_cast<size_t>(LD) + o0, LD);
-          wmma::mma_sync(acc, at, b, acc);
-        }
-        wmma::store_matrix_sync(gp, acc, M, wmma::mem_row_major);
-      } else {
-        // a 16x16 tile (ci, o0) of dw1 += x^T dc1, row r
-        const int v = u - CT - 9 * NT * NT;
-        const int ci = v / NT, o0 = (v % NT) * 16;
-        float* gp = g_dw1 + static_cast<size_t>(ci) * 16 * M + o0;
-        FragC acc;
-        wmma::load_matrix_sync(acc, gp, M, wmma::mem_row_major);
-        for (int p = 0; p < g.np; ++p) {
-          const int c0 = g.cb + 16 * p, valid = valid_pixels(c0, w);
-          const bf16* xa = xrow + static_cast<size_t>(c0) * C + ci * 16;
-          FragAt at;  // element (c, pixel) is x[r, pixel, c]
-          if (valid == 16) {
-            wmma::load_matrix_sync(at, xa, C);
-          } else {  // staged through the warp's (idle) dy3 tile
-            stage_tile(xa, C, valid, dy3t, lane);
-            wmma::load_matrix_sync(at, dy3t, 16);
-            __syncwarp();
-          }
-          FragB b;
-          wmma::load_matrix_sync(
-              b, DC1 + (a0 + 16 * p) * static_cast<size_t>(LD) + o0, LD);
-          wmma::mma_sync(acc, at, b, acc);
-        }
-        wmma::store_matrix_sync(gp, acc, M, wmma::mem_row_major);
-      }
-    }
-    __syncthreads();  // the next tile rewrites the shared rows
+    for (int n = 0; n < NA; ++n) pin(acc[n]);
+    __syncthreads();  // before the next load rewrites this stage
   }
+#pragma unroll
+  for (int n = 0; n < NA; ++n)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 64 * n + 8 * j + q2;
+      if (col < M) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          put2(Ys, row0 + 8 * e, col,
+               fmaxf(acc[n][4 * j + 2 * e] + b1[col], 0.0f),
+               fmaxf(acc[n][4 * j + 2 * e + 1] + b1[col + 1], 0.0f));
+      }
+    }
+  __syncthreads();
+  store_tile<M>(y1, M, 0, Ys, p0, np);
 }
 
-// out[i] = sum over the workspace's slices, in slice order.
-__global__ void sum_slices(const float* __restrict__ ws,
-                           float* __restrict__ out, int parts, size_t s) {
-  const size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-  if (i >= s) return;
-  float acc = 0.0f;
-  for (int p = 0; p < parts; ++p) acc += ws[p * s + i];
-  out[i] = acc;
+// ---- 2: y2, dy3, dc2 -----------------------------------------------------
+
+// The shared memory of both tile kernels, from the 1024-byte boundary: a
+// region that the 3x3's stages use (A [2][kAtom], B [2][atoms][64 rows x
+// 128 bytes]) and then the C chunks (a weight [2][atoms][64 rows x 128
+// bytes], a 64-channel tile [kAtom], two [kTP][kNC + kPad] bf16 tiles);
+// then an [atoms][kAtom] tile, the column sums [kWarps][max(M, kNC)] fp32
+// and the tile's coordinates.
+template <int M>
+__host__ __device__ constexpr size_t region_tile() {
+  constexpr size_t stage = atoms<M>() * 64 * 128;
+  constexpr size_t conv = 2 * kAtom + 2 * stage;
+  constexpr size_t chunks =
+      2 * stage + kAtom + 2 * kTP * (kNC + kPad) * sizeof(bf16);
+  return conv > chunks ? conv : chunks;
 }
 
 template <int M>
-int launch(const void* x, const void* dy, const void* w1, const float* b1,
-           const void* w2, const float* b2, const void* w3, const float* b3,
-           void* dx, float* ws, float* grads, int batch, int h, int w,
-           int parts, size_t limit, cudaStream_t stream) {
-  const Plan p = plan<M>(w, limit);
-  if (p.wc == 0) return static_cast<int>(cudaErrorInvalidValue);
-  // fails (cudaErrorInvalidValue) past the card's per-block limit
-  cudaError_t err = cudaFuncSetAttribute(
-      bottleneck_bwd_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(p.smem));
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // not left for the next launch's check to find
-    return static_cast<int>(err);
-  }
-  bottleneck_bwd_kernel<M><<<parts, kThreads, p.smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(dy),
-      static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2,
-      static_cast<const bf16*>(w3), b3, static_cast<bf16*>(dx), ws, batch, h,
-      w, p.wc, p.nwmax);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t s = slice_floats<M>();
-  sum_slices<<<static_cast<unsigned>((s + 255) / 256), 256, 0, stream>>>(
-      ws, grads, parts, s);
-  return static_cast<int>(cudaGetLastError());
+__host__ __device__ constexpr size_t smem_tile() {
+  return 1024 + region_tile<M>() + atoms<M>() * kAtom +
+         kWarps * (M > kNC ? M : kNC) * sizeof(float) + 2 * kTP * sizeof(int);
 }
 
-// The shared memory a block of `device` may take, or < 0 (a cudaError_t).
-long long smem_limit(int device) {
-  int limit = 0;
-  const cudaError_t err = cudaDeviceGetAttribute(
-      &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  return err == cudaSuccess ? limit : -static_cast<long long>(err);
+// One 128-pixel tile, two warpgroups of 64 pixel rows; every product is
+// wgmma from SW128 tiles. Shared memory (region_tile): the 3x3's stages,
+// then w3 [2][atoms][64 rows x 128 bytes], bf16(dy3) [kAtom], the x and dy
+// chunks and, after the last chunk, bf16(dc2) [atoms][kAtom]; then y2
+// [atoms][kAtom], the column sums and the tile's coordinates. M < 64 runs the same 64-wide products: the
+// columns past M hold whatever the unused shared memory held and are never
+// stored or summed (a column of a product depends only on its own column of
+// B), and the K steps stop at M.
+template <int M>
+__global__ void __launch_bounds__(kThreads, M <= 64 ? 2 : 1)
+    dc2_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+               const bf16* __restrict__ y1, const bf16* __restrict__ w2,
+               const float* __restrict__ b2, const bf16* __restrict__ w3,
+               const float* __restrict__ b3, bf16* __restrict__ y2,
+               bf16* __restrict__ d3, bf16* __restrict__ dc2,
+               float* __restrict__ wsb, int np, int h, int w) {
+  constexpr int C = 4 * M, KC = k_chunk<M>(), NA = atoms<M>();
+  constexpr int SB = 2 * M + C, RED = M > kNC ? M : kNC, LDN = kNC + kPad;
+  constexpr int T = 9 * M / KC, NCH = C / kNC, STAGE = NA * 64 * 128;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* sm = smem_1k(smem_raw);
+  unsigned char* As = sm;                 // [2][kAtom]: shifted y1
+  unsigned char* Bs = sm + 2 * kAtom;     // [2][STAGE]: w2 rows, MN-major
+  unsigned char* W3s = sm;                // [2][STAGE]: w3 rows, after the 3x3
+  unsigned char* D3s = sm + 2 * STAGE;    // [kAtom]: bf16(dy3) of a chunk
+  bf16* Xs = reinterpret_cast<bf16*>(D3s + kAtom);  // [kTP][LDN]
+  bf16* Gs = Xs + kTP * LDN;                        // [kTP][LDN]
+  unsigned char* Ds = sm;                 // [NA][kAtom]: bf16(dc2), at the end
+  unsigned char* Y2s = sm + region_tile<M>();  // [NA][kAtom]
+  float* red = reinterpret_cast<float*>(Y2s + NA * kAtom);  // [kWarps][RED]
+  int* prow = reinterpret_cast<int*>(red + kWarps * RED);
+  int* pcol = prow + kTP;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t grow = (warp >> 2) * 64 * 128;  // the warpgroup's 64 rows
+  const int row0 = 16 * warp + (lane >> 2);      // rows row0, row0 + 8
+  const int q2 = 2 * (lane & 3);                 // columns 8 j + q2, + 1
+  const int p0 = blockIdx.x * kTP;
+  float* bias = wsb + static_cast<size_t>(blockIdx.x) * SB;
+
+  tile_coords(prow, pcol, p0, np, h, w);
+  __syncthreads();
+
+  // -- y2 = bf16(relu(sum_k shift_k(y1) @ w2[k] + b2)), K = 9 M in chunks
+  float acc[NA][32];
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[a][i] = 0.0f;
+  auto load = [&](int t, int s) {
+    const int tap = t / (M / KC), ch0 = (t % (M / KC)) * KC;
+    load_shifted_sw<KC>(As + s * kAtom, y1, M, ch0, tap / 3 - 1, tap % 3 - 1,
+                        p0, prow, pcol, h, w);
+    const bf16* src = w2 + (static_cast<size_t>(tap) * M + ch0) * M;
+    unsigned char* dst = Bs + s * STAGE;
+    for (int i = threadIdx.x; i < KC * (M / 8); i += kThreads) {
+      const int k = i / (M / 8), v = i % (M / 8);
+      cp_async16(dst + (v >> 3) * 8192 + sw(k, v & 7),
+                 src + static_cast<size_t>(k) * M + v * 8, true);
+    }
+    cp_commit();
+  };
+  load(0, 0);
+  for (int t = 0; t < T; ++t) {
+    if (t + 1 < T) {
+      load(t + 1, (t + 1) & 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    proxy_fence();
+    __syncthreads();
+    const uint32_t a = saddr(As + (t & 1) * kAtom) + grow;
+    const uint32_t b = saddr(Bs + (t & 1) * STAGE);
+#pragma unroll
+    for (int n = 0; n < NA; ++n) pin(acc[n]);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < KC / 16; ++k)
+#pragma unroll
+      for (int n = 0; n < NA; ++n)
+        wgmma64<0, 1>(acc[n], sw128_desc(a + 32 * k),
+                      sw128_desc(b + n * 8192 + 2048 * k));
+    wg_commit_wait();
+#pragma unroll
+    for (int n = 0; n < NA; ++n) pin(acc[n]);
+    __syncthreads();  // before the next load rewrites this stage
+  }
+#pragma unroll
+  for (int n = 0; n < NA; ++n)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 64 * n + 8 * j + q2;
+      if (col < M) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          put2(Y2s, row0 + 8 * e, col,
+               fmaxf(acc[n][4 * j + 2 * e] + b2[col], 0.0f),
+               fmaxf(acc[n][4 * j + 2 * e + 1] + b2[col + 1], 0.0f));
+      }
+    }
+  proxy_fence();
+  __syncthreads();  // y2 complete
+  store_tile<M>(y2, M, 0, Y2s, p0, np);
+
+  // -- per 64-channel chunk of C: y3 = y2 @ w3[:, chunk], dy3 and its column
+  // sums, then dc2 += bf16(dy3) @ w3[:, chunk]^T from the same staged rows
+  // of w3 (MN-major B for y3, K-major B for dc2)
+  float accd[NA][32];
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) accd[a][i] = 0.0f;
+  auto load_w3 = [&](int n, int s) {
+    for (int i = threadIdx.x; i < M * 8; i += kThreads) {
+      const int k = i >> 3, v = i & 7;
+      cp_async16(W3s + s * STAGE + sw(k, v),
+                 w3 + static_cast<size_t>(k) * C + n * kNC + v * 8, true);
+    }
+    cp_commit();
+  };
+  load_w3(0, 0);
+  for (int n = 0; n < NCH; ++n) {
+    load_chunk(Xs, x, C, n * kNC, p0, np);
+    load_chunk(Gs, dy, C, n * kNC, p0, np);
+    cp_commit();
+    if (n + 1 < NCH) {
+      load_w3(n + 1, (n + 1) & 1);
+      cp_wait<2>();
+    } else {
+      cp_wait<1>();
+    }
+    proxy_fence();
+    __syncthreads();  // w3's chunk landed; x and dy may still be in flight
+    const uint32_t w3c = saddr(W3s + (n & 1) * STAGE);
+    float acc3[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc3[i] = 0.0f;
+    pin(acc3);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < M / 16; ++k)
+      wgmma64<0, 1>(acc3,
+                    sw128_desc(saddr(Y2s) + (k >> 2) * kAtom + grow +
+                               32 * (k & 3)),
+                    sw128_desc(w3c + 2048 * k));
+    wg_commit_wait();
+    pin(acc3);
+    if (n + 1 < NCH)
+      cp_wait<1>();
+    else
+      cp_wait<0>();
+    __syncthreads();  // x and dy of the chunk landed
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int cl = 8 * j + q2, ch = n * kNC + cl;
+      float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = row0 + 8 * e;
+        const float2 xf = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(Xs + r * LDN + cl));
+        const float2 g = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(Gs + r * LDN + cl));
+        const float a =
+            (acc3[4 * j + 2 * e] + b3[ch]) + xf.x > 0.0f ? g.x : 0.0f;
+        const float b =
+            (acc3[4 * j + 2 * e + 1] + b3[ch + 1]) + xf.y > 0.0f ? g.y : 0.0f;
+        s0 += a;
+        s1 += b;
+        put2(D3s, r, cl, a, b);
+      }
+      s0 = warp_rows_sum(s0);
+      s1 = warp_rows_sum(s1);
+      if (lane < 4) {
+        red[warp * RED + cl] = s0;
+        red[warp * RED + cl + 1] = s1;
+      }
+    }
+    proxy_fence();
+    __syncthreads();  // bf16(dy3) and the column sums complete
+    if (threadIdx.x < kNC) {
+      float s = 0.0f;
+      for (int g = 0; g < kWarps; ++g) s += red[g * RED + threadIdx.x];
+      bias[2 * M + n * kNC + threadIdx.x] = s;
+    }
+#pragma unroll
+    for (int a = 0; a < NA; ++a) pin(accd[a]);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < kNC / 16; ++k)
+#pragma unroll
+      for (int a = 0; a < NA; ++a)
+        wgmma64<0, 0>(accd[a], sw128_desc(saddr(D3s) + grow + 32 * k),
+                      sw128_desc(w3c + a * 8192 + 32 * k));
+    wg_commit_wait();
+#pragma unroll
+    for (int a = 0; a < NA; ++a) pin(accd[a]);
+    store_tile<kNC>(d3, C, n * kNC, D3s, p0, np);
+    __syncthreads();  // before the next chunk rewrites x, dy, dy3, the sums
+                      // and this stage of w3
+  }
+
+  // -- dc2 = mask(y2 > 0): its column sums, bf16(dc2)
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 64 * a + 8 * j + q2;
+      if (col < M) {
+        float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = row0 + 8 * e;
+          const float2 y = get2(Y2s, r, col);
+          const float u = y.x > 0.0f ? accd[a][4 * j + 2 * e] : 0.0f;
+          const float v = y.y > 0.0f ? accd[a][4 * j + 2 * e + 1] : 0.0f;
+          s0 += u;
+          s1 += v;
+          put2(Ds, r, col, u, v);
+        }
+        s0 = warp_rows_sum(s0);
+        s1 = warp_rows_sum(s1);
+        if (lane < 4) {
+          red[warp * RED + col] = s0;
+          red[warp * RED + col + 1] = s1;
+        }
+      }
+    }
+  __syncthreads();
+  if (threadIdx.x < M) {
+    float s = 0.0f;
+    for (int g = 0; g < kWarps; ++g) s += red[g * RED + threadIdx.x];
+    bias[M + threadIdx.x] = s;
+  }
+  store_tile<M>(dc2, M, 0, Ds, p0, np);
+}
+
+// ---- 3: dy1, dc1, dx -----------------------------------------------------
+
+// One 128-pixel tile, two warpgroups, every product wgmma, as dc2_kernel.
+// Shared memory (region_tile): the 3x3's stages (A [2][kAtom], B [2][atoms]
+// [64 rows x 128 bytes]), then the C chunks (w1 [2][atoms][64 rows x 128
+// bytes], dx [kAtom], bf16(dy3) [2][kTP][kNC + kPad]); then bf16(dc1)
+// [atoms][kAtom], the column sums and the tile's coordinates.
+template <int M>
+__global__ void __launch_bounds__(kThreads, M <= 64 ? 2 : 1)
+    dc1_kernel(const bf16* __restrict__ d3, const bf16* __restrict__ y1,
+               const bf16* __restrict__ dc2, const bf16* __restrict__ w1,
+               const bf16* __restrict__ w2, bf16* __restrict__ dx,
+               bf16* __restrict__ dc1, float* __restrict__ wsb, int np, int h,
+               int w) {
+  constexpr int C = 4 * M, KC = k_chunk<M>(), NA = atoms<M>();
+  constexpr int SB = 2 * M + C, RED = M > kNC ? M : kNC, LDN = kNC + kPad;
+  constexpr int T = 9 * M / KC, NCH = C / kNC, STAGE = NA * 64 * 128;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* sm = smem_1k(smem_raw);
+  unsigned char* As = sm;                 // [2][kAtom]: shifted bf16(dc2)
+  unsigned char* Bs = sm + 2 * kAtom;     // [2][STAGE]: w2[k] rows, K-major
+  unsigned char* W1s = sm;                // [2][STAGE]: w1 rows, after dy1
+  unsigned char* Os = sm + 2 * STAGE;     // [kAtom]: dx of a chunk
+  bf16* D3c = reinterpret_cast<bf16*>(Os + kAtom);  // [2][kTP][LDN]
+  unsigned char* D1s = sm + region_tile<M>();       // [NA][kAtom]
+  float* red = reinterpret_cast<float*>(D1s + NA * kAtom);  // [kWarps][RED]
+  int* prow = reinterpret_cast<int*>(red + kWarps * RED);
+  int* pcol = prow + kTP;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t grow = (warp >> 2) * 64 * 128;
+  const int row0 = 16 * warp + (lane >> 2);
+  const int q2 = 2 * (lane & 3);
+  const int p0 = blockIdx.x * kTP;
+
+  tile_coords(prow, pcol, p0, np, h, w);
+  __syncthreads();
+
+  // -- dy1[p] = sum_k bf16(dc2)[p - shift_k] @ w2[k]^T: tap (ky, kx) reads
+  // dc2 at row + 1 - ky, column + 1 - kx. B is w2[k]'s rows i (its N),
+  // channels o0 .. o0 + KC of each (its K).
+  float acc[NA][32];
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[a][i] = 0.0f;
+  auto load = [&](int t, int s) {
+    const int tap = t / (M / KC), o0 = (t % (M / KC)) * KC;
+    load_shifted_sw<KC>(As + s * kAtom, dc2, M, o0, 1 - tap / 3, 1 - tap % 3,
+                        p0, prow, pcol, h, w);
+    const bf16* src = w2 + static_cast<size_t>(tap) * M * M + o0;
+    for (int i = threadIdx.x; i < M * (KC / 8); i += kThreads) {
+      const int r = i / (KC / 8), v = i % (KC / 8);
+      cp_async16(Bs + s * STAGE + (r >> 6) * 8192 + sw(r & 63, v),
+                 src + static_cast<size_t>(r) * M + v * 8, true);
+    }
+    cp_commit();
+  };
+  load(0, 0);
+  for (int t = 0; t < T; ++t) {
+    if (t + 1 < T) {
+      load(t + 1, (t + 1) & 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    proxy_fence();
+    __syncthreads();
+    const uint32_t a = saddr(As + (t & 1) * kAtom) + grow;
+    const uint32_t b = saddr(Bs + (t & 1) * STAGE);
+#pragma unroll
+    for (int n = 0; n < NA; ++n) pin(acc[n]);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < KC / 16; ++k)
+#pragma unroll
+      for (int n = 0; n < NA; ++n)
+        wgmma64<0, 0>(acc[n], sw128_desc(a + 32 * k),
+                      sw128_desc(b + n * 8192 + 32 * k));
+    wg_commit_wait();
+#pragma unroll
+    for (int n = 0; n < NA; ++n) pin(acc[n]);
+    __syncthreads();  // before the next load rewrites this stage
+  }
+
+  // -- dc1 = dy1 * (y1 > 0): column sums, bf16 into D1s and out
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 64 * a + 8 * j + q2;
+      if (col < M) {
+        float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = row0 + 8 * e, p = p0 + r;
+          const float2 y =
+              p < np ? __bfloat1622float2(*reinterpret_cast<
+                           const __nv_bfloat162*>(
+                           y1 + static_cast<size_t>(p) * M + col))
+                     : make_float2(0.0f, 0.0f);
+          const float u = y.x > 0.0f ? acc[a][4 * j + 2 * e] : 0.0f;
+          const float v = y.y > 0.0f ? acc[a][4 * j + 2 * e + 1] : 0.0f;
+          s0 += u;
+          s1 += v;
+          put2(D1s, r, col, u, v);
+        }
+        s0 = warp_rows_sum(s0);
+        s1 = warp_rows_sum(s1);
+        if (lane < 4) {
+          red[warp * RED + col] = s0;
+          red[warp * RED + col + 1] = s1;
+        }
+      }
+    }
+  proxy_fence();
+  __syncthreads();  // bf16(dc1) and the column sums complete
+  if (threadIdx.x < M) {
+    float s = 0.0f;
+    for (int g = 0; g < kWarps; ++g) s += red[g * RED + threadIdx.x];
+    wsb[static_cast<size_t>(blockIdx.x) * SB + threadIdx.x] = s;
+  }
+  store_tile<M>(dc1, M, 0, D1s, p0, np);
+
+  // -- dx = bf16(dy3 + bf16(dc1) @ w1^T), 64 channels of C a chunk: B is
+  // w1's rows n0 .. n0 + 63 (its N), M channels each (its K, in atoms); the
+  // chunk's bf16(dy3) arrives with it (cp.async, one chunk ahead)
+  auto load_c = [&](int n, int s) {
+    for (int i = threadIdx.x; i < kNC * (M / 8); i += kThreads) {
+      const int r = i / (M / 8), v = i % (M / 8);
+      cp_async16(W1s + s * STAGE + (v >> 3) * 8192 + sw(r, v & 7),
+                 w1 + (static_cast<size_t>(n) * kNC + r) * M + v * 8, true);
+    }
+    load_chunk(D3c + s * kTP * LDN, d3, C, n * kNC, p0, np);
+    cp_commit();
+  };
+  load_c(0, 0);
+  for (int n = 0; n < NCH; ++n) {
+    if (n + 1 < NCH) {
+      load_c(n + 1, (n + 1) & 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    proxy_fence();
+    __syncthreads();
+    const uint32_t wc = saddr(W1s + (n & 1) * STAGE);
+    float acc3[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc3[i] = 0.0f;
+    pin(acc3);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < M / 16; ++k)
+      wgmma64<0, 0>(acc3,
+                    sw128_desc(saddr(D1s) + (k >> 2) * kAtom + grow +
+                               32 * (k & 3)),
+                    sw128_desc(wc + (k >> 2) * 8192 + 32 * (k & 3)));
+    wg_commit_wait();
+    pin(acc3);
+    const bf16* dc = D3c + (n & 1) * kTP * LDN;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int cl = 8 * j + q2;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = row0 + 8 * e;
+        const float2 g = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(dc + r * LDN + cl));
+        put2(Os, r, cl, g.x + acc3[4 * j + 2 * e],
+             g.y + acc3[4 * j + 2 * e + 1]);
+      }
+    }
+    __syncthreads();  // this chunk of dx complete
+    store_tile<kNC>(dx, C, n * kNC, Os, p0, np);
+    __syncthreads();  // before the next chunk's copy rewrites this stage
+  }
+}
+
+// ---- 4: weight gradients, split-K over pixel ranges -------------------------
+
+template <int M>
+__host__ __device__ constexpr int weight_tile() {
+  return M < 64 ? M : 64;
+}
+
+template <int M>
+__host__ __device__ constexpr int weight_jobs() {
+  constexpr int NTM = M / weight_tile<M>(), NTC = 4 * M / weight_tile<M>();
+  return NTC * NTM + 9 * NTM * NTM + NTM * NTC;
+}
+
+// dw1 [C, M], dw2 [9, M, M], dw3 [M, C]
+template <int M>
+__host__ __device__ constexpr size_t weight_floats() {
+  return 2 * static_cast<size_t>(4 * M) * M + 9 * static_cast<size_t>(M) * M;
+}
+
+// The weight-gradient products read both operands transposed ("MN-major",
+// which bf16 allows): a stage holds kKP pixel rows of 64 channels in
+// 128-byte swizzle, which is how the operands lie in device memory,
+// [pixel, channel], so a cp.async of 16 bytes lands each chunk and the
+// 3x3's shift stays an address offset.
+constexpr int kWStageBytes = 2 * kKP * 128;  // A and B, one stage
+constexpr int kWStages = 4;
+
+__host__ __device__ constexpr size_t smem_wgrad() {
+  return static_cast<size_t>(kWStages) * kWStageBytes + 1024;  // + alignment
+}
+
+// Block (job, part), one warpgroup: job is one T x T tile of dw1, of one
+// tap of dw2, or of dw3 (in that order); part reduces pixels [part * pp,
+// part * pp + pp) in steps of kKP through a ring of four cp.async stages,
+// with the sums in registers, and writes its tile of slice `part` of wsw
+// once. A tile narrower than 64 (T = M < 64) fills the rest of the 64 x 64
+// product with zero channels and stores its T x T corner.
+template <int M>
+__global__ void __launch_bounds__(kWThreads)
+    wgrad_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y1,
+                 const bf16* __restrict__ y2, const bf16* __restrict__ d3,
+                 const bf16* __restrict__ dc1, const bf16* __restrict__ dc2,
+                 float* __restrict__ wsw, int np, int h, int w, int pp) {
+  constexpr int C = 4 * M, T = weight_tile<M>();
+  constexpr int NTM = M / T, NTC = C / T;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* sm = smem_1k(smem_raw);
+
+  int job = blockIdx.x, dyy = 0, dxx = 0, lda, ldb, ldo;
+  const bf16 *A, *B;
+  size_t out;
+  if (job < NTC * NTM) {  // dw1 = x^T bf16(dc1)
+    const int a0 = job / NTM * T, b0 = job % NTM * T;
+    A = x + a0, lda = C, B = dc1 + b0, ldb = M;
+    out = static_cast<size_t>(a0) * M + b0, ldo = M;
+  } else if ((job -= NTC * NTM) < 9 * NTM * NTM) {  // dw2[tap]
+    const int tap = job / (NTM * NTM), rem = job % (NTM * NTM);
+    const int a0 = rem / NTM * T, b0 = rem % NTM * T;
+    dyy = tap / 3 - 1, dxx = tap % 3 - 1;
+    A = y1 + a0, lda = M, B = dc2 + b0, ldb = M;
+    out = static_cast<size_t>(C) * M + static_cast<size_t>(tap) * M * M +
+          static_cast<size_t>(a0) * M + b0,
+    ldo = M;
+  } else {  // dw3 = y2^T bf16(dy3)
+    job -= 9 * NTM * NTM;
+    const int a0 = job / NTC * T, b0 = job % NTC * T;
+    A = y2 + a0, lda = M, B = d3 + b0, ldb = C;
+    out = static_cast<size_t>(C) * M + 9 * static_cast<size_t>(M) * M +
+          static_cast<size_t>(a0) * C + b0,
+    ldo = C;
+  }
+  const int pb = blockIdx.y * pp;
+  const int pe = pb + pp < np ? pb + pp : np;
+  const int steps = pe > pb ? (pe - pb + kKP - 1) / kKP : 0;
+  const bool shifted = dyy != 0 || dxx != 0;
+  // each thread copies chunk v (channels 8 v .. 8 v + 7) of rows r0, r0 +
+  // 16, ...; chunks past the tile's T channels are zeros
+  const int v = threadIdx.x & 7, r0 = threadIdx.x >> 3;
+  const bool live = v * 8 < T;
+
+  auto load = [&](int t, int s) {
+    const int q0 = pb + t * kKP;
+    unsigned char* sa = sm + s * kWStageBytes;
+    unsigned char* sb = sa + kKP * 128;
+#pragma unroll
+    for (int k = 0; k < kKP * 8 / kWThreads; ++k) {
+      const int r = r0 + k * (kWThreads / 8), p = q0 + r;
+      const bool ok = live && p < pe;
+      bool oka = ok;
+      if (shifted && ok) {
+        const int rr = (p / w) % h + dyy, cc = p % w + dxx;
+        oka = rr >= 0 && rr < h && cc >= 0 && cc < w;
+      }
+      const int at = sw(r, v);
+      cp_async16(sb + at, ok ? B + static_cast<size_t>(p) * ldb + v * 8 : B,
+                 ok);
+      cp_async16(sa + at,
+                 oka ? A + static_cast<size_t>(p + dyy * w + dxx) * lda + v * 8
+                     : A,
+                 oka);
+    }
+  };
+
+  float d[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < kWStages - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_commit();
+  }
+  for (int t = 0; t < steps; ++t) {
+    cp_wait<kWStages - 2>();
+    proxy_fence();
+    __syncthreads();  // stage t landed; stage t - 1's products are done
+    if (t + kWStages - 1 < steps)
+      load(t + kWStages - 1, (t + kWStages - 1) % kWStages);
+    cp_commit();
+    const uint32_t sa = saddr(sm + (t % kWStages) * kWStageBytes);
+    const uint32_t sb = sa + kKP * 128;
+    pin(d);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < kKP / 16; ++k)
+      wgmma64<1, 1>(d, sw128_desc(sa + k * 2048), sw128_desc(sb + k * 2048));
+    wg_commit_wait();
+    pin(d);
+  }
+  cp_wait<0>();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* o = wsw + blockIdx.y * weight_floats<M>() + out;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = warp * 16 + (lane >> 2) + 8 * e;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * (lane & 3);
+      if (row < T && col < T)
+        *reinterpret_cast<float2*>(o + static_cast<size_t>(row) * ldo + col) =
+            make_float2(d[4 * j + 2 * e], d[4 * j + 2 * e + 1]);
+    }
+  }
+}
+
+// ---- 5: the ordered sums ----------------------------------------------------
+
+// out[col] = the sum of rows of a [rows, cols] fp32 array: 32 row groups
+// (group g takes rows g, g + 32, ... in order), then the groups in order.
+// Blocks [0, nba) sum a into oa, the rest b into ob; block (32, 32).
+__global__ void sum_rows(const float* __restrict__ a, float* __restrict__ oa,
+                         int ra, int ca, int nba, const float* __restrict__ b,
+                         float* __restrict__ ob, int rb, int cb) {
+  __shared__ float part[32][33];
+  const bool first = blockIdx.x < nba;
+  const float* src = first ? a : b;
+  float* dst = first ? oa : ob;
+  const int rows = first ? ra : rb, cols = first ? ca : cb;
+  const int col = (first ? blockIdx.x : blockIdx.x - nba) * 32 + threadIdx.x;
+  float s = 0.0f;
+  if (col < cols) {
+#pragma unroll 8
+    for (int r = threadIdx.y; r < rows; r += 32)
+      s += src[static_cast<size_t>(r) * cols + col];
+  }
+  part[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < cols) {
+    float t = 0.0f;
+    for (int g = 0; g < 32; ++g) t += part[g][threadIdx.x];
+    dst[col] = t;
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) cudaGetLastError();  // not left for the next check
+  return err;
+}
+
+template <int M>
+int launch(const bf16* x, const bf16* dy, const bf16* w1, const float* b1,
+           const bf16* w2, const float* b2, const bf16* w3, const float* b3,
+           bf16* dx, bf16* y1, bf16* y2, bf16* d3, bf16* dc2, bf16* dc1,
+           float* wsw, float* wsb, float* grads, int batch, int h, int w,
+           int parts, int pp, cudaStream_t stream, int* launched) {
+  const int np = batch * h * w, tiles = (np + kTP - 1) / kTP;
+  cudaError_t err;
+  if ((err = allow_smem(y1_kernel<M>, smem_y1<M>())) != cudaSuccess ||
+      (err = allow_smem(dc2_kernel<M>, smem_tile<M>())) != cudaSuccess ||
+      (err = allow_smem(dc1_kernel<M>, smem_tile<M>())) != cudaSuccess ||
+      (err = allow_smem(wgrad_kernel<M>, smem_wgrad())) != cudaSuccess)
+    return static_cast<int>(err);
+  // each launch the runtime accepted adds one to *launched
+  auto accepted = [&]() {
+    err = cudaGetLastError();
+    if (err == cudaSuccess) ++*launched;
+    return err == cudaSuccess;
+  };
+  y1_kernel<M><<<tiles, kThreads, smem_y1<M>(), stream>>>(x, w1, b1, y1, np);
+  if (!accepted()) return static_cast<int>(err);
+  dc2_kernel<M><<<tiles, kThreads, smem_tile<M>(), stream>>>(
+      x, dy, y1, w2, b2, w3, b3, y2, d3, dc2, wsb, np, h, w);
+  if (!accepted()) return static_cast<int>(err);
+  dc1_kernel<M><<<tiles, kThreads, smem_tile<M>(), stream>>>(
+      d3, y1, dc2, w1, w2, dx, dc1, wsb, np, h, w);
+  if (!accepted()) return static_cast<int>(err);
+  wgrad_kernel<M><<<dim3(weight_jobs<M>(), parts), kWThreads, smem_wgrad(),
+                    stream>>>(x, y1, y2, d3, dc1, dc2, wsw, np, h, w, pp);
+  if (!accepted()) return static_cast<int>(err);
+  const int sw = static_cast<int>(weight_floats<M>()), sb = 6 * M;
+  const int nba = (sw + 31) / 32, nbb = (sb + 31) / 32;
+  sum_rows<<<nba + nbb, dim3(32, 32), 0, stream>>>(wsw, grads, parts, sw, nba,
+                                                   wsb, grads + sw, tiles, sb);
+  accepted();
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
-// Launches the backward and the slice sum on `stream` of `device`; returns
-// a cudaError_t (0 = ok). ws holds parts x S floats (uninitialised), grads
-// S floats in the layout above. The caller guarantees batch, h, w >= 1,
-// 1 <= parts and the requirements above.
+// Launches the five kernels on `stream` of `device`, adding one to
+// *launched for each launch the runtime accepted; returns a cudaError_t (0 =
+// ok: all five launched). Scratch (uninitialised): y1, y2, dc2, dc1 [B H W,
+// M] bf16, d3 [B H W, C] bf16, wsw [parts, 2 C M + 9 M^2] fp32 (part j
+// reduces pixels [j pp, j pp + pp)), wsb [ceil(B H W / 128), 6 M] fp32.
+// grads: the 2 C M + 9 M^2 + 6 M summed floats, dw1 [C, M], dw2 [3, 3, M,
+// M], dw3 [M, C], db1 [M], db2 [M], db3 [C]. The caller guarantees batch,
+// h, w >= 1, parts = ceil(B H W / pp) and the requirements above.
 extern "C" int detjax_bottleneck_bwd_launch(
     const void* x, const void* dy, const void* w1, const float* b1,
     const void* w2, const float* b2, const void* w3, const float* b3, void* dx,
-    float* ws, float* grads, int batch, int h, int w, int m, int parts,
-    int device, void* stream) {
+    void* y1, void* y2, void* d3, void* dc2, void* dc1, float* wsw, float* wsb,
+    float* grads, int batch, int h, int w, int m, int parts, int pp,
+    int device, void* stream, int* launched) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long limit = smem_limit(device);
-  if (limit < 0) return static_cast<int>(-limit);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DETJAX_BWD(MM)                                                      \
-  case MM:                                                                  \
-    return launch<MM>(x, dy, w1, b1, w2, b2, w3, b3, dx, ws, grads, batch, \
-                      h, w, parts, static_cast<size_t>(limit), s);
+#define DETJAX_BWD(MM)                                                        \
+  case MM:                                                                    \
+    return launch<MM>(                                                        \
+        static_cast<const bf16*>(x), static_cast<const bf16*>(dy),            \
+        static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2,   \
+        static_cast<const bf16*>(w3), b3, static_cast<bf16*>(dx),             \
+        static_cast<bf16*>(y1), static_cast<bf16*>(y2),                       \
+        static_cast<bf16*>(d3), static_cast<bf16*>(dc2),                      \
+        static_cast<bf16*>(dc1), wsw, wsb, grads, batch, h, w, parts, pp, s,  \
+        launched);
   switch (m) {
     DETJAX_BWD(16)
     DETJAX_BWD(32)
@@ -743,34 +1088,30 @@ extern "C" int detjax_bottleneck_bwd_launch(
 #undef DETJAX_BWD
 }
 
-// How the launcher tiles a row of width w at M = m on `device`: writes the
-// column-block width (w rounded up to whole tiles when the row fits whole;
-// 0 when nothing fits) and the dynamic shared memory of a block; returns a
-// cudaError_t.
-extern "C" int detjax_bottleneck_bwd_plan(int w, int m, int device, int* wc,
-                                          int* smem) {
-  const long long limit = smem_limit(device);
-  if (limit < 0) return static_cast<int>(-limit);
-  Plan p = {0, 0, 0};
+// The launcher's geometry at M = m, for the wrapper to check its own copy
+// against once: out[0..6] = pixels a tile, pixels a weight-gradient stage,
+// the weight-gradient tile, its jobs, and the dynamic shared memory of
+// y1_kernel, of dc2_kernel and dc1_kernel (each), and of wgrad_kernel.
+// Returns 0, or cudaErrorInvalidValue for another m.
+extern "C" int detjax_bottleneck_bwd_geometry(int m, int* out) {
+#define DETJAX_GEOM(MM)                          \
+  case MM:                                       \
+    out[2] = weight_tile<MM>();                  \
+    out[3] = weight_jobs<MM>();                  \
+    out[4] = static_cast<int>(smem_y1<MM>());    \
+    out[5] = static_cast<int>(smem_tile<MM>());  \
+    break;
   switch (m) {
-    case 16: p = plan<16>(w, static_cast<size_t>(limit)); break;
-    case 32: p = plan<32>(w, static_cast<size_t>(limit)); break;
-    case 64: p = plan<64>(w, static_cast<size_t>(limit)); break;
-    case 128: p = plan<128>(w, static_cast<size_t>(limit)); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    DETJAX_GEOM(16)
+    DETJAX_GEOM(32)
+    DETJAX_GEOM(64)
+    DETJAX_GEOM(128)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  *wc = p.wc;
-  *smem = static_cast<int>(p.smem);
+#undef DETJAX_GEOM
+  out[0] = kTP;
+  out[1] = kKP;
+  out[6] = static_cast<int>(smem_wgrad());
   return 0;
-}
-
-// Floats in one workspace slice (and in the summed gradients) at M = m.
-extern "C" int detjax_bottleneck_bwd_slice_floats(int m) {
-  switch (m) {
-    case 16: return static_cast<int>(slice_floats<16>());
-    case 32: return static_cast<int>(slice_floats<32>());
-    case 64: return static_cast<int>(slice_floats<64>());
-    case 128: return static_cast<int>(slice_floats<128>());
-    default: return 0;
-  }
 }

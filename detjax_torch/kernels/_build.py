@@ -50,15 +50,17 @@ def nvcc() -> str:
     return found
 
 
-def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """Compile ``sources`` (file names in ``csrc/``) into ``lib<name>.so``
-    unless that exact build exists, then load it once per process."""
+def load_library(name: str, sources: Sequence[str],
+                 src_dir: Path = CSRC) -> ctypes.CDLL:
+    """Compile ``sources`` (file names in ``src_dir``, by default
+    ``csrc/``) into ``lib<name>.so`` unless that exact build exists, then
+    load it once per process."""
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())
     with name_lock:
         if name in _libs:
             return _libs[name]
-        paths = [CSRC / s for s in sources]
+        paths = [Path(src_dir) / s for s in sources]
         digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
         for p in sorted(set(paths) | set(CSRC.glob("*.cuh"))):
             digest.update(p.name.encode())

@@ -10,23 +10,26 @@ convs: ``relu(conv3(relu(conv2(relu(conv1(x))))) + x)``, in bf16 with fp32
 accumulation, and keeps y1 and y2 out of device memory. One block takes two
 output rows of one image; y1 for those rows and their halo rows sits in
 shared memory with zeroed borders, so the 3x3's zero padding costs nothing.
-Both kernels take any width W: a row is cut into 16-pixel tiles, and a last,
-partial tile is masked (its pixels past W load as zeros, add nothing to a
-sum and are never stored). The backward recomputes y1 and y2 on chip from x
-and returns dx and the six weight and bias gradients, rounding where
-``_bwd_kernel`` rounds; a row too wide for one block's shared memory is
-split into column blocks with a two-column halo; its note says how the
-cross-block sums are made (a workspace slice per block, summed in a fixed
-order: the bits do not change between runs).
+Both kernels take any width W. The forward cuts a row into 16-pixel tiles
+and masks a last, partial one (its pixels past W load as zeros, add nothing
+to a sum and are never stored). The backward recomputes y1 and y2 from x and
+returns dx and the six weight and bias gradients, rounding where
+``_bwd_kernel`` rounds, in five launches: three kernels over 128-pixel tiles
+write dx and every weight-gradient operand to transient bf16 scratch, a
+split-K kernel reduces the weight gradients over contiguous pixel ranges
+into one fp32 partial per part, and a last kernel sums the partials and the
+tiles' bias sums in a fixed order (the bits do not change between runs).
+:func:`bwd_plan` is the partition in Python.
 
 What bounds them on an H100: the forward is bound by bytes at the main
 path's shapes, reading x and writing the output once (210 MB for layer1 at
 B=8, 0.063 ms at 3.35 TB/s), with the tensor-core operations just below
 (28.5 GFLOP, 0.029 ms at 989 TFLOP/s). The backward at the training shapes
 (B=16) is bound by bytes at layer1 (x and dy read, dx written: 0.188 ms) and
-by operations at layer2 (three times the forward's: 0.173 ms). Both use
-``nvcuda::wmma`` bf16 fragments with fp32 accumulators and are far from
-those bounds; their times are in ``PERF.md``.
+by operations at layer2 (three times the forward's: 0.173 ms). The forward
+uses ``nvcuda::wmma`` bf16 fragments with fp32 accumulators, the backward
+Hopper's ``wgmma``; both are far from those bounds; their times are in
+``PERF.md``.
 
 Layout: NHWC, as detjax's kernels take it. The port's modules hold NCHW
 tensors in ``channels_last`` memory, so ``x.permute(0, 2, 3, 1)`` is
@@ -42,8 +45,11 @@ kernel (or raises); its backward sends CPU tensors to the plain twin
 backward kernel (or raises). Tests and ``chip_smoke.py`` call the twins
 directly on any device to compare whole paths
 (``Detector.bottleneck_backend="torch"`` differentiates through the forward
-twin by plain autograd). ``bottleneck_launches`` and
-``bottleneck_bwd_launches`` count kernel launches, and nothing else;
+twin by plain autograd). ``bottleneck_launches`` counts
+forward-kernel launches, ``bottleneck_bwd_launches`` calls of the fused
+backward on CUDA tensors and ``bottleneck_bwd_kernel_launches`` the CUDA
+kernels those calls launched, as the launcher counts them (one for each
+launch the CUDA runtime accepted; ``BWD_KERNELS`` a call), and nothing else;
 ``bottleneck_bwd_grad_copies`` counts gradients that arrived in another
 layout or dtype than the kernel takes and were copied.
 """
@@ -62,7 +68,8 @@ import torch.nn.functional as F
 WIDTHS = (16, 32, 64, 128)
 
 bottleneck_launches = 0
-bottleneck_bwd_launches = 0
+bottleneck_bwd_launches = 0  # calls of the fused backward
+bottleneck_bwd_kernel_launches = 0  # CUDA kernels those calls launched
 bottleneck_bwd_grad_copies = 0
 
 _LIB = None
@@ -94,14 +101,21 @@ def _bwd_lib():
 
         lib = load_library("detjax_bottleneck_bwd", ["bottleneck_bwd.cu"])
         fn = lib.detjax_bottleneck_bwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
-        lib.detjax_bottleneck_bwd_plan.argtypes = [ctypes.c_int] * 3 + [
-            ctypes.POINTER(ctypes.c_int)] * 2
-        lib.detjax_bottleneck_bwd_plan.restype = ctypes.c_int
-        lib.detjax_bottleneck_bwd_slice_floats.argtypes = [ctypes.c_int]
-        lib.detjax_bottleneck_bwd_slice_floats.restype = ctypes.c_int
+        lib.detjax_bottleneck_bwd_geometry.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.detjax_bottleneck_bwd_geometry.restype = ctypes.c_int
+        for m in WIDTHS:  # the launcher's partition is bwd_plan's
+            geom = _geometry(lib, m)
+            want = {"pixel_tile": BWD_PIXEL_TILE,
+                    "pixel_step": BWD_PIXEL_STEP,
+                    "weight_tile": bwd_weight_tile(m),
+                    "jobs": len(bwd_jobs(m))}
+            if {k: geom[k] for k in want} != want:
+                raise RuntimeError(f"the backward library's partition at "
+                                   f"M={m} is {geom}, bwd_plan's {want}")
         _BWD_LIB = lib
     return _BWD_LIB
 
@@ -122,25 +136,87 @@ def max_width(m: int, device: int = 0) -> int:
     return w
 
 
-def bwd_plan(w: int, m: int, device: int = 0) -> Tuple[int, int]:
-    """How the backward kernel tiles a row of width ``w`` at ``M = m`` on
-    CUDA device ``device``: ``(column-block width, dynamic shared memory of
-    one block)``. The width is ``w`` rounded up to whole 16-pixel tiles
-    when the row fits one block's shared memory whole (builds the
-    library)."""
-    wc, smem = ctypes.c_int(), ctypes.c_int()
-    err = _bwd_lib().detjax_bottleneck_bwd_plan(w, m, device,
-                                                ctypes.byref(wc),
-                                                ctypes.byref(smem))
+# The backward's partition (csrc/bottleneck_bwd.cu; the launcher reports
+# its copy through detjax_bottleneck_bwd_geometry, checked when the library
+# loads):
+# the activation kernels own the pixels of one image after another in tiles
+# of BWD_PIXEL_TILE; the weight-gradient kernel cuts dw1 / dw2 (per tap) /
+# dw3 into square tiles of bwd_weight_tile(M) and reduces each over
+# contiguous pixel ranges ("parts") in steps of BWD_PIXEL_STEP.
+BWD_PIXEL_TILE = 128
+BWD_PIXEL_STEP = 64
+BWD_KERNELS = 5  # y1, dy3/dc2, dc1/dx, weight gradients, ordered sums
+# weight-gradient blocks (jobs x parts) to aim at, per SM: 8, 16 and 32
+# timed within 3 % of each other on an H100 at R50's shapes; 16 keeps the
+# partials under 40 MB
+BWD_BLOCKS_PER_SM = 16
+
+
+def bwd_weight_tile(m: int) -> int:
+    return min(64, m)
+
+
+def bwd_jobs(m: int) -> list:
+    """The weight-gradient kernel's jobs at ``M = m``, in launch order:
+    ``(gradient, tap, row0, col0)`` tiles of dw1 [C, M], dw2[tap] [M, M]
+    (tap = 3 ky + kx) and dw3 [M, C]; together they cover each element of
+    the three gradients once."""
+    t, c = bwd_weight_tile(m), 4 * m
+    jobs = [("dw1", None, a, b) for a in range(0, c, t)
+            for b in range(0, m, t)]
+    jobs += [("dw2", k, a, b) for k in range(9) for a in range(0, m, t)
+             for b in range(0, m, t)]
+    jobs += [("dw3", None, a, b) for a in range(0, m, t)
+             for b in range(0, c, t)]
+    return jobs
+
+
+def bwd_plan(b: int, h: int, w: int, m: int, sms: int = None) -> dict:
+    """How the backward cuts a [b, h, w, 4 m] block for a card with ``sms``
+    SMs (default: CUDA device 0's): pixel tiles of the activation kernels,
+    the weight-gradient jobs, its parts (``parts`` contiguous ranges of
+    ``part_pixels`` pixels, the last one shorter) and the bytes of the bf16
+    scratch (y1, y2, bf16(dc2), bf16(dc1) [B H W, M]; bf16(dy3) [B H W, C])
+    and of the fp32 workspaces (one slice of the three weight gradients per
+    part, one row of the bias sums per tile). Pure arithmetic: the wrapper
+    launches with it and the CPU tests check it."""
+    if sms is None:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+    c, npx = 4 * m, b * h * w
+    tiles = -(-npx // BWD_PIXEL_TILE)
+    jobs = len(bwd_jobs(m))
+    parts = max(1, min(-(-BWD_BLOCKS_PER_SM * sms // jobs),
+                       -(-npx // (8 * BWD_PIXEL_STEP))))
+    part_pixels = -(-npx // parts)
+    part_pixels = -(-part_pixels // BWD_PIXEL_STEP) * BWD_PIXEL_STEP
+    parts = -(-npx // part_pixels)
+    weight_floats = 2 * c * m + 9 * m * m
+    return {"pixel_tile": BWD_PIXEL_TILE, "pixel_step": BWD_PIXEL_STEP,
+            "tiles": tiles,
+            "weight_tile": bwd_weight_tile(m), "jobs": jobs,
+            "parts": parts, "part_pixels": part_pixels,
+            "kernels": BWD_KERNELS,
+            "scratch_bytes": 2 * npx * (4 * m + c),
+            "workspace_bytes": 4 * (parts * weight_floats + tiles * 6 * m)}
+
+
+def _geometry(lib, m: int) -> dict:
+    out = (ctypes.c_int * 7)()
+    err = lib.detjax_bottleneck_bwd_geometry(m, out)
     if err != 0:
-        raise RuntimeError(f"bottleneck backward plan failed: cudaError {err}")
-    return wc.value, smem.value
+        raise RuntimeError(f"bottleneck backward geometry failed: cudaError "
+                           f"{err} (M={m})")
+    keys = ("pixel_tile", "pixel_step", "weight_tile", "jobs", "smem_y1",
+            "smem_tile", "smem_wgrad")
+    return dict(zip(keys, out))
 
 
-def bwd_workspace_bytes(parts: int, m: int) -> int:
-    """Bytes of the backward's fp32 workspace: one slice per block of the
-    persistent grid (``parts`` blocks) at ``M = m`` (builds the library)."""
-    return 4 * parts * int(_bwd_lib().detjax_bottleneck_bwd_slice_floats(m))
+def bwd_geometry(m: int) -> dict:
+    """The launcher's own copy of the partition constants at ``M = m`` and
+    the dynamic shared memory of its kernels: ``smem_y1``, ``smem_tile``
+    (dc2_kernel and dc1_kernel each) and ``smem_wgrad`` (builds the
+    library)."""
+    return _geometry(_bwd_lib(), m)
 
 
 def bottleneck_identity_reference(x: torch.Tensor, w1: torch.Tensor,
@@ -309,11 +385,12 @@ def _launch(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
 
 def _launch_backward(x, dy, w1, b1, w2, b2, w3, b3
                      ) -> Tuple[torch.Tensor, ...]:
-    """Checks what the backward kernel takes, then launches it (and its
-    slice sum) on the current stream; raises on anything else. Returns the
-    twin's outputs: ``(dx, dw1, db1, dw2, db2, dw3, db3)``, all but dx fp32
-    views of one summed buffer."""
-    global bottleneck_bwd_launches
+    """Checks what the backward kernels take, then launches them on the
+    current stream with scratch and workspaces from ``torch.empty`` (freed
+    on return; the caching allocator keeps them stream-ordered); raises on
+    anything else. Returns the twin's outputs: ``(dx, dw1, db1, dw2, db2,
+    dw3, db3)``, all but dx fp32 views of one summed buffer."""
+    global bottleneck_bwd_launches, bottleneck_bwd_kernel_launches
     bsz, h, w, c, m = _check_kernel_args(x, w1, b1, w2, b2, w3, b3, dy=dy)
     dx = torch.empty_like(x)
     sizes = (c * m, 9 * m * m, m * c, m, m, c)
@@ -322,25 +399,35 @@ def _launch_backward(x, dy, w1, b1, w2, b2, w3, b3
     else:
         lib = _bwd_lib()
         index, stream = _stream(x.device)
-        parts = min(torch.cuda.get_device_properties(index)
-                    .multi_processor_count, bsz * h)
-        slice_floats = int(lib.detjax_bottleneck_bwd_slice_floats(m))
-        if slice_floats != sum(sizes):
-            raise RuntimeError(f"the backward library sums {slice_floats} "
-                               f"floats at M={m}, expected {sum(sizes)}")
-        ws = torch.empty(parts, slice_floats, dtype=torch.float32,
-                         device=x.device)
-        flat = torch.empty(slice_floats, dtype=torch.float32, device=x.device)
+        plan = bwd_plan(bsz, h, w, m, torch.cuda.get_device_properties(index)
+                        .multi_processor_count)
+        npx = bsz * h * w
+
+        def scratch(width):
+            return torch.empty(npx, width, dtype=torch.bfloat16,
+                               device=x.device)
+
+        y1, y2, dc2, dc1, d3 = (scratch(m), scratch(m), scratch(m),
+                                scratch(m), scratch(c))
+        wsw = torch.empty(plan["parts"], sum(sizes[:3]), dtype=torch.float32,
+                          device=x.device)
+        wsb = torch.empty(plan["tiles"], sum(sizes[3:]), dtype=torch.float32,
+                          device=x.device)
+        flat = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+        launched = ctypes.c_int(0)
         err = lib.detjax_bottleneck_bwd_launch(
             x.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), w3.data_ptr(), b3.data_ptr(),
-            dx.data_ptr(), ws.data_ptr(), flat.data_ptr(), bsz, h, w, m,
-            parts, index, stream)
-        if err != 0:
+            dx.data_ptr(), y1.data_ptr(), y2.data_ptr(), d3.data_ptr(),
+            dc2.data_ptr(), dc1.data_ptr(), wsw.data_ptr(), wsb.data_ptr(),
+            flat.data_ptr(), bsz, h, w, m, plan["parts"],
+            plan["part_pixels"], index, stream, ctypes.byref(launched))
+        bottleneck_bwd_kernel_launches += launched.value
+        if err != 0 or launched.value != plan["kernels"]:
             raise RuntimeError(
                 f"bottleneck backward kernel launch failed: cudaError {err} "
-                f"(W={w}, M={m}: (column-block width, shared memory bytes "
-                f"a block) = {bwd_plan(w, m, index)})")
+                f"after {launched.value} of {plan['kernels']} kernels (B={bsz}"
+                f", H={h}, W={w}, M={m}; plan {plan})")
         bottleneck_bwd_launches += 1
     dw1, dw2, dw3, db1, db2, db3 = flat.split(sizes)
     return (dx, dw1.view(c, m), db1.view(1, m), dw2.view(3, 3, m, m),

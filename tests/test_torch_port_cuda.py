@@ -343,9 +343,13 @@ def _bwd_case(seed, b, h, w, m, device):
     (3, 100, 16, 16),  # more rows than blocks: each block walks several
     (2, 5, 8, 16),  # W < 16: one masked tile a row
     (1, 6, 24, 32),  # a masked tail tile
-    (1, 5, 104, 128),  # 608x832's layer2: column blocks and a tail tile
-    (1, 4, 232, 64),  # column blocks at layer1's width, a tail tile
-    (1, 2, 1024, 16),  # a 1024-px row at M=16: column blocks
+    (1, 5, 104, 128),  # 608x832's layer2: tiles straddle rows
+    (1, 4, 232, 64),  # a wide row at layer1's width: tiles straddle rows
+    (1, 2, 1024, 16),  # a 1024-px row at M=16: eight tiles a row
+    (3, 11, 13, 32),  # 128-pixel tiles straddle rows and images
+    (2, 7, 20, 64),  # a tile holds the end of one image and the next's top
+    (1, 1, 3, 64),  # B H W = 3: one part-filled tile, fewer than one per SM
+    (2, 3, 5, 128),  # B H W = 30 at layer2's width
 ])
 def test_bottleneck_bwd_kernel_matches_twin(cuda, b, h, w, m):
     """Against the twin with TF32 off, detjax's 2 % bar (tests/
@@ -423,11 +427,14 @@ def test_bottleneck_bwd_wrapper_raises_instead_of_falling_back(cuda):
     with pytest.raises(TypeError, match="float32"):
         kb.bottleneck_identity_backward(x, dy, w[0], w[1].double(), *w[2:])
     assert kb.bottleneck_bwd_launches == before
-    # a row too wide for one block's shared memory whole is split into
-    # column blocks, not refused: held to the twin at that shape
+    # a 1024-px row is cut into pixel tiles like any other, not refused:
+    # held to the twin at that shape, every tile kernel's shared memory
+    # within the card's limit
     wx, wdy, ww = _bwd_case(1, 1, 2, 1024, 16, cuda)
-    wc, smem = kb.bwd_plan(1024, 16)
-    assert 0 < wc < 1024 and wc % 16 == 0 and smem <= 232448
+    assert kb.bwd_plan(1, 2, 1024, 16)["tiles"] == 16
+    geom = kb.bwd_geometry(16)
+    assert max(geom[k] for k in ("smem_y1", "smem_tile", "smem_wgrad")
+               ) <= 232448
     got = kb.bottleneck_identity_backward(wx, wdy, *ww)
     flag = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
@@ -441,6 +448,55 @@ def test_bottleneck_bwd_wrapper_raises_instead_of_falling_back(cuda):
         assert (torch.linalg.vector_norm(g - r)
                 / torch.linalg.vector_norm(r).clamp(min=1e-3)).item() <= 0.02
     assert kb.bottleneck_bwd_launches == before + 1
+
+
+def test_bottleneck_bwd_launches_the_planned_kernels(cuda):
+    """One call of the fused backward counts one in bottleneck_bwd_launches
+    and, in bottleneck_bwd_kernel_launches, the CUDA kernels the launcher
+    reports it launched (one for each launch the runtime accepted): the
+    planned five (y1, dy3/dc2, dc1/dx, weight gradients, ordered sums), at
+    a shape whose parts and tiles have tails; the library's geometry is the
+    wrapper's plan."""
+    from detjax_torch.kernels import bottleneck as kb
+
+    x, dy, weights = _bwd_case(3, 2, 6, 40, 64, cuda)
+    plan = kb.bwd_plan(2, 6, 40, 64)
+    geom = kb.bwd_geometry(64)
+    assert (geom["pixel_tile"], geom["pixel_step"], geom["weight_tile"],
+            geom["jobs"]) == (plan["pixel_tile"], plan["pixel_step"],
+                              plan["weight_tile"], plan["jobs"])
+    calls, kernels = kb.bottleneck_bwd_launches, \
+        kb.bottleneck_bwd_kernel_launches
+    kb.bottleneck_identity_backward(x, dy, *weights)
+    torch.cuda.synchronize()
+    assert kb.bottleneck_bwd_launches == calls + 1
+    assert kb.bottleneck_bwd_kernel_launches - kernels == plan["kernels"]
+    assert plan["kernels"] == kb.BWD_KERNELS == 5
+
+
+def test_bottleneck_bwd_frees_its_scratch(cuda):
+    """The scratch (y1, y2, bf16(dy3), bf16(dc2), bf16(dc1)) and the
+    workspaces are freed when the backward returns: allocated memory is
+    back to its value before the call, dx and the summed gradients aside.
+    The scratch alone is larger than those two together."""
+    from detjax_torch.kernels import bottleneck as kb
+
+    x, dy, weights = _bwd_case(4, 4, 40, 40, 64, cuda)
+    plan = kb.bwd_plan(4, 40, 40, 64)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = kb.bottleneck_identity_backward(x, dy, *weights)
+    torch.cuda.synchronize()
+    storages = {o.untyped_storage().data_ptr(): o.untyped_storage().nbytes()
+                for o in out}
+    held = torch.cuda.memory_allocated() - before
+    assert len(storages) == 2  # dx, and one buffer of the six sums
+    kept = sum(storages.values())
+    assert kept <= held < kept + 2 * 512  # the allocator's 512-byte blocks
+    assert plan["scratch_bytes"] > held
+    del out
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
 
 
 def test_fused_train_step_runs_both_kernels(cuda):
