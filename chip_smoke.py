@@ -3,23 +3,22 @@
 Drives ``detjax_torch``'s serving path (RetinaNet-R50-FPN at 640, eval
 batch 8, bf16, seeded random weights), its full-anchor-set eval branch
 (decode + clip of every anchor, per-class NMS), the same serving path with
-``model.fused_backbone="on"`` (layer1/layer2 identity bottlenecks as one
-fused kernel each; also on a 608x832 canvas), and its training path (the
-same model, train batch 16, bf16 autocast over fp32 parameters, Adam, clip
-0.1, synthetic scenes; then with "on", and retinanet_r50_1024 with "on")
-through the entry points a user calls, and the R50 stem (conv1 -> bn1 ->
-ReLU -> 3x3/s2 max-pool) forward and backward at the 640 and 1024 training
-shapes, with ATen's pool backward and with the max-pool backward kernel
-(``kernels/stem.py::max_pool_3x3s2``, which no model path calls). Builds
-every CUDA kernel of those paths from ``detjax_torch/csrc/`` (one nvcc per
-source, all started together; also, from ``smoke_prior/``, the fused
-backward as it stood at two earlier commits and with every product on
-wmma, timed in turns against the current one),
-holds each kernel against its plain
-PyTorch twin on the card, and checks that each path really launched its
-kernel. Prints JSON lines; the last line is ``{"ok": true, "device":
-{...}}`` and appears only when every phase passed. Exits non-zero without
-a CUDA device.
+``model.fused_backbone="on"`` (layer1/layer2 identity bottlenecks through
+the fused block's kernels; also on a 608x832 canvas), and its training
+path (the same model, train batch 16, bf16 autocast over fp32 parameters,
+Adam, clip 0.1, synthetic scenes; then with "on", and retinanet_r50_1024
+with "on") through the entry points a user calls, and the R50 stem (conv1
+-> bn1 -> ReLU -> 3x3/s2 max-pool) forward and backward at the 640 and 1024
+training shapes, with ATen's pool backward and with the max-pool backward
+kernel (``kernels/stem.py::max_pool_3x3s2``, which no model path calls).
+Builds every CUDA kernel of those paths from ``detjax_torch/csrc/`` (one
+nvcc per source, all started together; also, from ``smoke_prior/``, the
+fused forward as it stood at commit 2503cdf, one kernel on wmma, timed in
+turns against the current one and the unfused cuDNN block), holds each
+kernel against its plain PyTorch twin on the card, and checks that each
+path really launched its kernels. Prints JSON lines; the last line is
+``{"ok": true, "device": {...}}`` and appears only when every phase
+passed. Exits non-zero without a CUDA device.
 
     python3 chip_smoke.py
 """
@@ -100,72 +99,74 @@ def nms_bound_ms(b: int, n: int, max_det: int, steps: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# Timing references of the fused backward, in smoke_prior/ beside this
-# script (no code path of detjax_torch calls them): the one-kernel design at
-# two earlier commits (one C interface), and the current design with every
-# product on wmma fragments (the current C interface).
+# Timing reference of the fused forward, in smoke_prior/ beside this script
+# (no code path of detjax_torch calls it): the one-kernel design with every
+# product on wmma fragments, as it stood at commit 2503cdf, through its own C
+# interface.
 PRIOR_DIR = Path(__file__).resolve().parent / "smoke_prior"
-PRIOR_BWD = ("e8572c4", "82723fd")
-WMMA = "wmma"
+PRIOR_FWD = "2503cdf"
 
 
-def prior_bwd_lib(commit: str):
-    """The library of smoke_prior/bottleneck_bwd_<commit>.cu; ``commit`` is
-    one of PRIOR_BWD or WMMA."""
+def prior_fwd_lib():
+    """The library of smoke_prior/bottleneck_fwd_<PRIOR_FWD>.cu."""
     import ctypes
 
-    from detjax_torch.kernels import bottleneck as kb
     from detjax_torch.kernels._build import load_library
 
-    lib = load_library(f"detjax_bottleneck_bwd_{commit}",
-                       [f"bottleneck_bwd_{commit}.cu"], src_dir=PRIOR_DIR)
-    fn = lib.detjax_bottleneck_bwd_launch
-    fn.restype = ctypes.c_int
-    if commit == WMMA:
-        fn.argtypes = kb._bwd_lib().detjax_bottleneck_bwd_launch.argtypes
-        return lib
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+    lib = load_library(f"detjax_bottleneck_fwd_{PRIOR_FWD}",
+                       [f"bottleneck_fwd_{PRIOR_FWD}.cu"], src_dir=PRIOR_DIR)
+    fn = lib.detjax_bottleneck_fwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
-    lib.detjax_bottleneck_bwd_slice_floats.argtypes = [ctypes.c_int]
-    lib.detjax_bottleneck_bwd_slice_floats.restype = ctypes.c_int
+    fn.restype = ctypes.c_int
     return lib
 
 
-def prior_bwd_call(commit: str, x, dy, wts):
-    """A no-argument call of that backward on (x, dy, wts). At PRIOR_BWD:
-    its persistent grid of one block per SM (or per image row, if fewer),
-    its workspace and outputs allocated once, outside the call. At
-    WMMA: the port's own wrapper with that library in place of the
-    current one for the call."""
-    from detjax_torch.kernels import bottleneck as kb
-
-    lib = prior_bwd_lib(commit)
-    if commit == WMMA:
-        def swapped():
-            current, kb._BWD_LIB = kb._bwd_lib(), lib
-            try:
-                kb.bottleneck_identity_backward(x, dy, *wts)
-            finally:
-                kb._BWD_LIB = current
-        return swapped
+def prior_fwd_call(x, wts):
+    """A no-argument call of the prior forward on (x, wts), its output
+    allocated once, outside the call."""
+    lib = prior_fwd_lib()
     b, h, w, c = x.shape
-    m = c // 4
-    parts = min(torch.cuda.get_device_properties(0).multi_processor_count,
-                b * h)
-    floats = lib.detjax_bottleneck_bwd_slice_floats(m)
-    ws = torch.empty(parts, floats, device=x.device)
-    flat = torch.empty(floats, device=x.device)
-    dx = torch.empty_like(x)
-    ptrs = [t.data_ptr() for t in (x, dy, *wts, dx, ws, flat)]
+    out = torch.empty_like(x)
+    ptrs = [t.data_ptr() for t in (x, *wts, out)]
 
     def call():
-        err = lib.detjax_bottleneck_bwd_launch(
-            *ptrs, b, h, w, m, parts, 0,
+        err = lib.detjax_bottleneck_fwd_launch(
+            *ptrs, b, h, w, c // 4, x.device.index or 0,
             torch.cuda.current_stream().cuda_stream)
         if err != 0:
-            raise SystemExit(f"the backward at {commit} failed to launch: "
+            raise SystemExit(f"the forward at {PRIOR_FWD} failed to launch: "
                              f"cudaError {err}")
     return call
+
+
+def ptxas_by_kernel(log: str, names) -> dict:
+    """Registers, spill bytes and static shared memory of each instance of
+    the kernels ``names`` in an ``nvcc -Xptxas -v`` log, keyed "name<M>"."""
+    found, current = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\w+)", line)
+        if entry:
+            current = None
+            for name in names:
+                m = re.search(rf"{name}ILi(\d+)E", entry.group(1))
+                if m:
+                    current = found.setdefault(f"{name}<{m.group(1)}>", {})
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            current["spill_stores"] = int(spill.group(1))
+            current["spill_loads"] = int(spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            current["registers"] = int(regs.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            current["static_smem"] = int(smem.group(1)) if smem else 0
+    return found
 
 
 def phase_build() -> None:
@@ -184,10 +185,8 @@ def phase_build() -> None:
                 ("bottleneck_bwd", "bottleneck_bwd.cu", kb._bwd_lib),
                 ("decode", "decode.cu", pp._decode_lib),
                 ("maxpool_bwd", "maxpool_bwd.cu", ks._lib))}
-    for commit in PRIOR_BWD + (WMMA,):
-        libs[f"detjax_bottleneck_bwd_{commit}"] = (
-            f"smoke_prior/bottleneck_bwd_{commit}.cu",
-            lambda commit=commit: prior_bwd_lib(commit))
+    libs[f"detjax_bottleneck_fwd_{PRIOR_FWD}"] = (
+        f"smoke_prior/bottleneck_fwd_{PRIOR_FWD}.cu", prior_fwd_lib)
     errors: dict = {}
 
     def build(name, fn):
@@ -456,8 +455,11 @@ def phase_match_kernel(report: dict) -> None:
 # (name, B, H, W, M, launches per forward); C = 4 M.
 FUSED_SHAPES = (("layer1", 8, 160, 160, 64, 2), ("layer2", 8, 80, 80, 128, 3))
 # Held to the twin too, outside the per-forward totals: layer2 of a 608x832
-# canvas (W = 104, a masked tail tile).
+# canvas (W = 104: 128-pixel tiles straddle rows).
 EXTRA_FUSED_SHAPES = (("tail_608x832_layer2", 2, 76, 104, 128, None),)
+# the CUDA kernels of one call of the fused forward, and of the prior one
+FWD_KERNEL_NAMES = ("y1_kernel", "fwd_tile_kernel")
+PRIOR_FWD_KERNEL_NAMES = ("bottleneck_fwd_kernel",)
 
 
 def bottleneck_bound_ms(b: int, h: int, w: int, m: int) -> tuple:
@@ -498,22 +500,48 @@ def tf32_off():
 
 
 def phase_bottleneck_kernel(report: dict) -> None:
-    """The fused-block kernel against its twin (fp32 convs, TF32 off) at
-    the two shapes R50's fused blocks have at 640 px, eval batch 8, with
-    detjax's bars (tests/test_kernels.py:175-177); times beside the bound,
-    the twin and the port's own unfused block (cuDNN, bf16 autocast)."""
+    """The fused forward against its twin (fp32 convs, TF32 off) at the two
+    shapes R50's fused blocks have at 640 px, eval batch 8 and train batch
+    16, and at a 104-px tail, with detjax's bars (tests/test_kernels.py:
+    175-177); two runs bit-equal. At the 640 shapes, in turns in one call:
+    the forward, the prior one-kernel wmma forward (PRIOR_FWD) and the
+    port's unfused block (cuDNN, bf16 autocast); beside them the twin and
+    the bound, the split by CUDA kernel (torch.profiler, whose launch
+    counts must equal the launcher's), each kernel's shared memory,
+    registers and spills, and the y1 scratch's bytes."""
     from detjax_torch.kernels import bottleneck as kb
+    from detjax_torch.kernels._build import build_info
 
-    per_shape, extra = [], []
-    for i, (name, b, h, w, m, n_fwd) in enumerate(FUSED_SHAPES
-                                                  + EXTRA_FUSED_SHAPES):
+    ptxas = ptxas_by_kernel(build_info["detjax_bottleneck"]["log"],
+                            FWD_KERNEL_NAMES)
+    prior_ptxas = ptxas_by_kernel(
+        build_info[f"detjax_bottleneck_fwd_{PRIOR_FWD}"]["log"],
+        PRIOR_FWD_KERNEL_NAMES)
+    spills = {k: v for k, v in ptxas.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    emit({"phase": "bottleneck_kernel_build", "ptxas": ptxas,
+          "prior_ptxas": prior_ptxas})
+    if len(ptxas) != 2 * len(kb.WIDTHS) or spills:
+        raise SystemExit(f"the forward's kernels spill or are missing from "
+                         f"the ptxas log: {ptxas}")
+    # seeds 10 + i in this order: the eval and tail shapes keep theirs
+    groups = {"eval_bs8": FUSED_SHAPES, "extra": EXTRA_FUSED_SHAPES,
+              "train_bs16": FUSED_TRAIN_SHAPES}
+    rows = {g: [] for g in groups}
+    for i, (group, (name, b, h, w, m, n_fwd)) in enumerate(
+            (g, shape) for g, shapes in groups.items() for shape in shapes):
         x, block = kb.seeded_block(10 + i, b, h, w, m, "cuda")
         with torch.no_grad():
             wts = block.folded_weights()
+        plan = kb.fwd_plan(b, h, w, m)
+        k0 = kb.bottleneck_kernel_launches
         got = kb.bottleneck_identity(x, *wts)
+        kernels_a_call = kb.bottleneck_kernel_launches - k0
+        again = kb.bottleneck_identity(x, *wts)
         with tf32_off():
             want = kb.bottleneck_identity_reference(x, *wts)
         torch.cuda.synchronize()
+        bit_equal = torch.equal(got.view(torch.int16), again.view(torch.int16))
         gf, wf = got.float(), want.float()
         err = float((gf - wf).abs().max())
         tol = 0.05 * max(float(wf.abs().max()), 1.0)
@@ -522,54 +550,98 @@ def phase_bottleneck_kernel(report: dict) -> None:
         # the same error in bf16 steps at the output's largest magnitude
         ulp_at_max = 2.0 ** (np.floor(np.log2(float(wf.abs().max()))) - 7)
         finite = bool(torch.isfinite(gf).all())
-        ms = cuda_ms(lambda: kb.bottleneck_identity(x, *wts), iters=20)
-        with tf32_off():
-            plain_ms = cuda_ms(
-                lambda: kb.bottleneck_identity_reference(x, *wts), iters=5,
-                warmup=1)
+        del got, again, want, gf, wf
+        row = {"shape": name, "B": b, "H": h, "W": w, "C": 4 * m, "M": m,
+               "launches_per_forward": n_fwd, "max_abs_err": err,
+               "tolerance": tol, "frac_differ": frac, "max_bf16_ulps": ulps,
+               "max_err_in_bf16_ulps_at_max_twin": err / ulp_at_max,
+               "bit_equal_across_two_runs": bit_equal,
+               "kernels_a_call": kernels_a_call,
+               "pixel_tiles": plan["tiles"],
+               "scratch_bytes": plan["scratch_bytes"],
+               "smem_bytes": {k: v for k, v in kb.fwd_geometry(m).items()
+                              if k.startswith("smem")},
+               "ptxas": {k: v for k, v in ptxas.items()
+                         if k.endswith(f"<{m}>")}}
+        if not (finite and err <= tol and frac < 0.01 and bit_equal):
+            raise SystemExit(f"the bottleneck kernel disagrees with its twin "
+                             f"at {name} (B={b}): {row}")
+        if kernels_a_call != plan["kernels"]:
+            raise SystemExit(f"the forward launched {kernels_a_call} CUDA "
+                             f"kernels a call, planned {plan['kernels']}")
+        def current():
+            return kb.bottleneck_identity(x, *wts)
         x_nchw = x.permute(0, 3, 1, 2)  # channels-last view, no copy
 
         def unfused():
             with torch.autocast(x.device.type, dtype=torch.bfloat16):
                 return block(x_nchw)
-        with torch.inference_mode():
-            unfused_ms = cuda_ms(unfused, iters=20)
-        bound_ms, bound_by = bottleneck_bound_ms(b, h, w, m)
-        row = {"shape": name, "B": b, "H": h, "W": w, "C": 4 * m, "M": m,
-               "launches_per_forward": n_fwd, "max_abs_err": err,
-               "tolerance": tol, "frac_differ": frac, "max_bf16_ulps": ulps,
-               "max_err_in_bf16_ulps_at_max_twin": err / ulp_at_max,
-               "ms": ms, "plain_ms": plain_ms, "unfused_cudnn_ms": unfused_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "smem_bytes": kb.smem_bytes(w, m)}
+        if group != "extra":
+            # in turns in one call: prior, current, cuDNN, then back
+            calls = {"current": current, PRIOR_FWD: prior_fwd_call(x, wts),
+                     "unfused_cudnn": unfused}
+            with torch.inference_mode():
+                turns = [(c, cuda_ms(calls[c], iters=20)) for c in
+                         (PRIOR_FWD, "current", "unfused_cudnn",
+                          "unfused_cudnn", "current", PRIOR_FWD)]
+
+            def mean_of(c):
+                return float(np.mean([t for k, t in turns if k == c]))
+            traced = kernel_ms_by_name(current)
+            prior_traced = kernel_ms_by_name(calls[PRIOR_FWD])
+            row.update({
+                "ms": mean_of("current"), "prior_ms": mean_of(PRIOR_FWD),
+                "unfused_cudnn_ms": mean_of("unfused_cudnn"),
+                "timed_in_turns": turns,
+                "ms_by_kernel": traced and {"ms": traced[0],
+                                            "launches_a_call": traced[1]},
+                "prior_ms_by_kernel": prior_traced and prior_traced[0]})
+            if traced and (sorted(traced[1]) != sorted(FWD_KERNEL_NAMES)
+                           or sum(traced[1].values()) != kernels_a_call):
+                raise SystemExit(f"torch.profiler saw {traced[1]} a call of "
+                                 f"the forward, the launcher counted "
+                                 f"{kernels_a_call} of {FWD_KERNEL_NAMES}")
+            del calls
+        else:
+            row["ms"] = cuda_ms(current, iters=20)
+        with tf32_off():
+            row["plain_ms"] = cuda_ms(
+                lambda: kb.bottleneck_identity_reference(x, *wts), iters=5,
+                warmup=1)
+        row["bound_ms"], row["bound_by"] = bottleneck_bound_ms(b, h, w, m)
         emit({"phase": "bottleneck_kernel", "kernel": "bottleneck_identity",
-              **row, "library_ms": None,
+              "group": group, **row, "library_ms": None,
               "bars": "max |kernel - twin| <= 0.05 * max(|twin|, 1) and "
                       "under 1 % of elements differ (detjax's own): the "
-                      "kernel sums fp32 in another order than cuDNN"})
-        if not (finite and err <= tol and frac < 0.01):
-            raise SystemExit(f"the bottleneck kernel disagrees with its twin "
-                             f"at {name}: {row}")
-        (per_shape if i < len(FUSED_SHAPES) else extra).append(row)
-        del x, block, wts, got, want, gf, wf
-    total = {k: sum(r[k] * r["launches_per_forward"] for r in per_shape)
-             for k in ("ms", "plain_ms", "unfused_cudnn_ms", "bound_ms")}
+                      "kernel sums fp32 in another order than cuDNN; two "
+                      "runs bit-equal"})
+        rows[group].append(row)
+        del x, block, wts, x_nchw, current
+    keys = ("ms", "prior_ms", "plain_ms", "unfused_cudnn_ms", "bound_ms")
+    total = {g: {k: sum(r[k] * r["launches_per_forward"] for r in rows[g])
+                 for k in keys} for g in ("eval_bs8", "train_bs16")}
+    per_shape = rows["eval_bs8"]
     report["bottleneck_identity_cuda"] = {
         "name": "bottleneck_identity_cuda", "route": "cuda",
         "source": "detjax_torch/csrc/bottleneck.cu",
         "replaces": "detjax/kernels/bottleneck.py:131",
         "launches": None, "match": True,
-        "max_abs_err": max(r["max_abs_err"] for r in per_shape),
-        "ms": total["ms"], "plain_ms": total["plain_ms"],
-        "bound_ms": total["bound_ms"],
+        "max_abs_err": max(r["max_abs_err"] for g in rows for r in rows[g]),
+        "ms": total["eval_bs8"]["ms"],
+        "plain_ms": total["eval_bs8"]["plain_ms"],
+        "bound_ms": total["eval_bs8"]["bound_ms"],
         "bound_by": "/".join(sorted({r["bound_by"] for r in per_shape})),
         "library_ms": None,
         "library_note": "no single PyTorch call computes the fused block; "
                         "the port's unfused cuDNN block is unfused_cudnn_ms",
-        "unfused_cudnn_ms": total["unfused_cudnn_ms"],
+        "unfused_cudnn_ms": total["eval_bs8"]["unfused_cudnn_ms"],
+        f"ms_at_{PRIOR_FWD}": total["eval_bs8"]["prior_ms"],
+        "kernels_a_call": per_shape[0]["kernels_a_call"],
         "per": "one R50 forward at 640 px, bs 8: 2 layer1 + 3 layer2 "
                "launches",
-        "shapes": per_shape, "extra_shapes": extra}
+        "train_bs16_per_step": total["train_bs16"],
+        "shapes": per_shape,
+        "extra_shapes": rows["train_bs16"] + rows["extra"]}
 
 
 # The identity bottlenecks that fuse in R50 at 640 px, train batch 16:
@@ -627,6 +699,31 @@ def kernel_ms_by_name(fn, calls: int = 3):
     return (ms, launches) if ms else None
 
 
+def forward_busy(model, x, grad: bool) -> dict:
+    """One forward of ``model`` on ``x`` as serving runs it (inference
+    mode) or as the training step does (autograd recording): ms a call by
+    CUDA events, the device time its CUDA kernels take (torch.profiler),
+    and the share of the call the device is idle. The same forward with
+    every fused block unfused beside it, on the same weights."""
+    def run(m):
+        def fwd():
+            if grad:
+                return m(x)
+            with torch.inference_mode():
+                return m(x)
+        ms = cuda_ms(fwd, iters=10)
+        traced = kernel_ms_by_name(fwd)
+        busy = sum(traced[0].values()) if traced else None
+        return {"ms": ms, "device_busy_ms": busy,
+                "idle_share": None if busy is None else 1 - busy / ms}
+    unfused = copy.deepcopy(model)
+    for blk in unfused.fused_blocks():
+        blk.fused = False
+    out = {"on": run(model), "off": run(unfused)}
+    del unfused
+    return out
+
+
 BWD_NAMES = ("dx", "dw1", "db1", "dw2", "db2", "dw3", "db3")
 # the CUDA kernels of one call of the fused backward
 BWD_KERNEL_NAMES = ("y1_kernel", "dc2_kernel", "dc1_kernel", "wgrad_kernel",
@@ -644,9 +741,7 @@ def phase_bottleneck_bwd_kernel(report: dict) -> None:
     two runs on the same inputs bit-equal; the CUDA kernels a call, the
     split-K parts and the scratch bytes; times beside the bound, the twin,
     the forward kernel and the port's unfused block's forward and backward
-    (cuDNN, bf16 autocast). At those two shapes the backward is also timed
-    in turns against the one at commits e8572c4 and 82723fd (PRIOR_BWD)
-    and the one with every product on wmma (WMMA), and split
+    (cuDNN, bf16 autocast). At those two shapes the backward is also split
     by CUDA kernel with torch.profiler, whose launch counts must match the
     launcher's."""
     from detjax_torch.kernels import bottleneck as kb
@@ -693,28 +788,14 @@ def phase_bottleneck_bwd_kernel(report: dict) -> None:
                    "max_err_in_bf16_ulps_at_max_twin":
                        errs["dx"]["max_abs_err"] / ulp_at_max}
         del got, again, want
-        timed_turns, kernel_split, traced = None, None, None
+        def current():
+            return kb.bottleneck_identity_backward(*args)
+        ms = cuda_ms(current, iters=10)
+        kernel_split, traced = None, None
         if i < len(FUSED_TRAIN_SHAPES):
-            # the current backward and each reference in turns, in one
-            # call: e8572c4 and the all-wmma version each before and
-            # after the current one's two turns, then 82723fd
-            refs = PRIOR_BWD + (WMMA,)
-            calls = {c: prior_bwd_call(c, x, dy, wts) for c in refs}
-            calls["current"] = lambda: kb.bottleneck_identity_backward(*args)
-            timed_turns = [(c, cuda_ms(calls[c], iters=10)) for c in
-                           (PRIOR_BWD[0], WMMA, "current", "current",
-                            WMMA, PRIOR_BWD[0], PRIOR_BWD[1])]
-            ms = sum(t for c, t in timed_turns if c == "current") / 2
-            traced = kernel_ms_by_name(calls["current"])
+            traced = kernel_ms_by_name(current)
             kernel_split = traced and {"ms": traced[0],
                                        "launches_a_call": traced[1]}
-            wmma_split = kernel_ms_by_name(calls[WMMA])
-            if wmma_split:
-                kernel_split[f"ms_{WMMA}"] = wmma_split[0]
-            del calls
-        else:
-            ms = cuda_ms(lambda: kb.bottleneck_identity_backward(*args),
-                         iters=10)
         with tf32_off():
             plain_ms = cuda_ms(
                 lambda: kb.bottleneck_identity_backward_reference(*args),
@@ -734,8 +815,7 @@ def phase_bottleneck_bwd_kernel(report: dict) -> None:
         row = {"shape": name, "B": b, "H": h, "W": w, "C": 4 * m, "M": m,
                "launches_per_step": n_step, "outputs": errs,
                "dx": dx_info, "bit_equal_across_two_runs": bit_equal,
-               "ms": ms, "timed_in_turns": timed_turns,
-               "ms_by_kernel": kernel_split,
+               "ms": ms, "ms_by_kernel": kernel_split,
                "plain_ms": plain_ms, "forward_kernel_ms": fwd_ms,
                "unfused_cudnn_ms": unfused_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
@@ -777,14 +857,10 @@ def phase_bottleneck_bwd_kernel(report: dict) -> None:
                              f"backward, the launcher counted "
                              f"{kernels_a_call} of {BWD_KERNEL_NAMES}")
         (per_shape if i < len(FUSED_TRAIN_SHAPES) else extra).append(row)
-        del x, dy, block, wts, args, x_nchw, dy_nchw
+        del x, dy, block, wts, args, x_nchw, dy_nchw, current
     total = {k: sum(r[k] * r["launches_per_step"] for r in per_shape)
              for k in ("ms", "plain_ms", "unfused_cudnn_ms", "bound_ms",
                        "forward_kernel_ms")}
-    for commit in PRIOR_BWD + (WMMA,):
-        total[f"ms_at_{commit}"] = sum(
-            np.mean([t for c, t in r["timed_in_turns"] if c == commit])
-            * r["launches_per_step"] for r in per_shape)
     report["bottleneck_identity_bwd_cuda"] = {
         "name": "bottleneck_identity_bwd_cuda", "route": "cuda",
         "source": "detjax_torch/csrc/bottleneck_bwd.cu",
@@ -803,8 +879,6 @@ def phase_bottleneck_bwd_kernel(report: dict) -> None:
                         "and backward, is unfused_cudnn_ms",
         "unfused_cudnn_ms": total["unfused_cudnn_ms"],
         "forward_kernel_ms": total["forward_kernel_ms"],
-        **{f"ms_at_{c}": total[f"ms_at_{c}"]
-           for c in PRIOR_BWD + (WMMA,)},
         "kernels_a_call": per_shape[0]["kernels_a_call"],
         "per": "one R50 train step at 640 px, bs 16: 2 layer1 + 3 layer2 "
                "calls",
@@ -1191,10 +1265,11 @@ def phase_main_fused(report: dict, state: dict) -> None:
     detjax_torch.detect_u8(model, canvases, cfg)  # warm-up
     torch.cuda.synchronize()
 
-    kb.bottleneck_launches = 0
+    kb.bottleneck_launches = kb.bottleneck_kernel_launches = 0
     det = detjax_torch.detect_u8(model, canvases, cfg)
     torch.cuda.synchronize()
     launches = kb.bottleneck_launches
+    kernels = kb.bottleneck_kernel_launches
     fused = model.fused_blocks()
 
     def forward_fold_each_call():
@@ -1207,6 +1282,7 @@ def phase_main_fused(report: dict, state: dict) -> None:
         fwd_ms = cuda_ms(lambda: model(x), iters=20)
         fwd_fold_ms = cuda_ms(forward_fold_each_call, iters=20)
         fwd_ms_again = cuda_ms(lambda: model(x), iters=20)
+    busy = forward_busy(model, x, grad=False)
     batch_ms = host_ms(model, cfg, canvases)
 
     model.bottleneck_backend = "torch"
@@ -1255,7 +1331,8 @@ def phase_main_fused(report: dict, state: dict) -> None:
           "dtype": cfg.model.dtype, "batch": b, "model_seed": 0,
           "canvas_seed": 1,
           "fused_blocks": n_fused, "bottleneck_launches": launches,
-          "output_scales": scales, "outputs_vs_twin_route": errs,
+          "bottleneck_cuda_kernels": kernels, "output_scales": scales,
+          "outputs_vs_twin_route": errs,
           "twin_pairs_found_by_margin": pairs,
           "clear_pairs_per_image": [int((mg >= CLEAR_STEPS).sum())
                                     for mg in margins],
@@ -1279,12 +1356,15 @@ def phase_main_fused(report: dict, state: dict) -> None:
           "ms_per_batch": batch_ms, "img_per_s": b / batch_ms * 1e3,
           "forward_ms": fwd_ms, "forward_ms_again": fwd_ms_again,
           "forward_ms_fold_each_call": fwd_fold_ms,
+          "forward_on_off_device_busy": busy,
           "unfused_ms_per_batch": main["ms_per_batch"],
           "unfused_img_per_s": main["img_per_s"],
           "unfused_forward_ms": main["forward_ms"]})
-    if launches != 5 or n_fused != 5:
-        raise SystemExit(f"expected 5 fused-block launches in one forward "
-                         f"of R50, got {launches} ({n_fused} fused blocks)")
+    if launches != 5 or n_fused != 5 or kernels != kb.FWD_KERNELS * 5:
+        raise SystemExit(f"expected 5 fused-block launches and "
+                         f"{kb.FWD_KERNELS * 5} CUDA kernels in one forward "
+                         f"of R50, got {launches} and {kernels} ({n_fused} "
+                         f"fused blocks)")
     if not shapes_ok or not all(e["finite"] and e["max_abs_err"]
                                 <= e["tolerance"] for e in errs.values()):
         raise SystemExit(f"the fused kernel route differs from the twin "
@@ -1295,6 +1375,7 @@ def phase_main_fused(report: dict, state: dict) -> None:
                          f"of the twin route's {clear['twin_pairs']} clear "
                          f"kept pairs ({total} kept in all)")
     report["bottleneck_identity_cuda"]["launches"] = launches
+    report["bottleneck_identity_cuda"]["cuda_kernels_per_forward"] = kernels
     fused_detect_608x832(model, state)
     del model
 
@@ -1706,8 +1787,8 @@ def phase_train_fused(report: dict, state: dict) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kb.bottleneck_launches = kb.bottleneck_bwd_launches = 0
-    kb.bottleneck_bwd_kernel_launches = kb.bottleneck_bwd_grad_copies = 0
-    km.match_launches = 0
+    kb.bottleneck_kernel_launches = kb.bottleneck_bwd_kernel_launches = 0
+    kb.bottleneck_bwd_grad_copies = km.match_launches = 0
     steps = []
     for _ in range(warmup):
         steps.append(detjax_torch.train_step(train, batch)[1])
@@ -1731,6 +1812,7 @@ def phase_train_fused(report: dict, state: dict) -> None:
                 "bottleneck_bwd": kb.bottleneck_bwd_launches,
                 "match": km.match_launches}
     copies = kb.bottleneck_bwd_grad_copies
+    fwd_kernels = kb.bottleneck_kernel_launches
     bwd_kernels = kb.bottleneck_bwd_kernel_launches
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     order = ["start", "forward", "loss", "backward", "update"]
@@ -1739,6 +1821,9 @@ def phase_train_fused(report: dict, state: dict) -> None:
     split["step_ms"] = events["start"].elapsed_time(events["update"])
     per_step = [{k: float(v) for k, v in m.items()} for m in steps]
     finite = all(np.isfinite(list(m.values())).all() for m in per_step)
+    busy = forward_busy(train.model,
+                        normalized_nchw(train.model, batch["images"], cfg),
+                        grad=True)
     unfused = state["train"]
     emit({"phase": "train_fused", "preset": cfg.model.name,
           "fused_backbone": cfg.model.fused_backbone,
@@ -1747,6 +1832,7 @@ def phase_train_fused(report: dict, state: dict) -> None:
           "output_scales": scales, "setup_s": setup_s,
           "steps_in_window": n, "launches_in_window": launches,
           "launches_per_step": {k: v / n for k, v in launches.items()},
+          "bottleneck_fwd_cuda_kernels_per_step": fwd_kernels / n,
           "bottleneck_bwd_cuda_kernels_per_step": bwd_kernels / n,
           "grad_out_copies_per_step": copies / n,
           "losses": [m["loss"] for m in per_step],
@@ -1755,6 +1841,10 @@ def phase_train_fused(report: dict, state: dict) -> None:
           "unfused_ms_per_step": unfused["ms_per_step"],
           "unfused_img_per_s": unfused["img_per_s"],
           "unfused_split_one_step": unfused["split_one_step"],
+          "forward_on_off_device_busy": busy,
+          "forward_share": split["forward_ms"] / split["step_ms"],
+          "unfused_forward_share": (unfused["split_one_step"]["forward_ms"]
+                                    / unfused["split_one_step"]["step_ms"]),
           "unfused_peak_memory_gib": unfused["peak_memory_gib"],
           "card": state["card"]})
     if not finite:
@@ -1764,6 +1854,10 @@ def phase_train_fused(report: dict, state: dict) -> None:
         raise SystemExit(f"expected 5 forward, 5 backward fused-block "
                          f"launches and 1 matching launch a step in {n} "
                          f"steps, got {launches}")
+    if fwd_kernels != kb.FWD_KERNELS * launches["bottleneck_fwd"]:
+        raise SystemExit(f"the fused forward's {launches['bottleneck_fwd']} "
+                         f"calls launched {fwd_kernels} CUDA kernels, not "
+                         f"{kb.FWD_KERNELS} each")
     if bwd_kernels != kb.BWD_KERNELS * launches["bottleneck_bwd"]:
         raise SystemExit(f"the fused backward's {launches['bottleneck_bwd']} "
                          f"calls launched {bwd_kernels} CUDA kernels, not "

@@ -9,10 +9,14 @@ RetinaNet preset, and serving and training with
 replaced by CUDA kernels written by hand for ``sm_90a``: NMS
 (``detjax_torch/csrc/nms.cu``), anchor matching
 (``detjax_torch/csrc/matching.cu``), the fused identity bottleneck's
-forward (``detjax_torch/csrc/bottleneck.cu``) and backward
-(``detjax_torch/csrc/bottleneck_bwd.cu``), and the full-anchor-set box
-decode of the eval branch (``detjax_torch/csrc/decode.cu``, under
-``ops.decode_clip_boxes``).
+forward (``detjax_torch/csrc/bottleneck.cu``: y1, then the 3x3 and the
+second 1x1 per 128-pixel tile) and backward
+(``detjax_torch/csrc/bottleneck_bwd.cu``), both on Hopper's ``wgmma`` and
+sharing ``csrc/bottleneck_common.cuh``, the full-anchor-set box decode of
+the eval branch (``detjax_torch/csrc/decode.cu``, under
+``ops.decode_clip_boxes``), and the stem max-pool's backward
+(``detjax_torch/csrc/maxpool_bwd.cu``, which no model path calls, as in
+detjax).
 
 Ground rules:
 

@@ -7,351 +7,201 @@
 //   y2  = bf16(relu(conv3x3(y1, w2, pad 1) + b2))  3x3, M -> M
 //   out = bf16(relu((y2 @ w3 + b3) + x))          1x1, M -> C, residual
 // with fp32 accumulation throughout, x and out NHWC bf16, w1 [C, M], w2
-// [3, 3, M, M] (HWIO), w3 [M, C] bf16, biases fp32. y1 and y2 never reach
-// device memory.
+// [3, 3, M, M] (HWIO), w3 [M, C] bf16, biases fp32. y2 never reaches device
+// memory.
 //
-// Design: one block per (kRows output rows, image); grid (ceil(H / kRows),
-// B), kWarps warps. Phase 1 computes y1 for the block's rows plus one halo
-// row above and below into shared memory, laid out as (kRows + 2) rows of
-// 16 ceil(W / 16) + 2 pixels with zeroed border columns; a halo row outside
-// the image is left all zero, which is exactly the 3x3's zero padding. When
-// W is not a multiple of 16 the last tile of a row is a masked tail: its
-// pixels at or beyond W load x as zeros (staged through the warp's y2
-// tile), get y1 = 0 (so column W still acts as the padding) and are never
-// stored. Phase 2 gives each
-// warp 16-pixel tiles of the output rows: the 3x3 as nine shifted products
-// read straight from the shared y1 (a shift by kx is a pointer offset of one
-// pixel), y2 for the tile into the warp's own shared tile, then the second
-// 1x1, the bias, the residual and the ReLU, stored as 16-byte vectors. All
-// products are nvcuda::wmma 16x16x16 bf16 fragments with fp32 accumulators;
-// the A operand comes from x in global memory (phase 1) or from shared
-// memory (phase 2), the B operand (the weights) from global memory, where
-// L1 and the 50 MB L2 hold them (layer2's w2 alone is 288 KB).
+// Design: two kernels a call on the caller's stream, over the B H W pixels
+// cut into flat 128-pixel tiles (one image after another; a tile may
+// straddle rows and images), as the backward's activation kernels cut them:
+//   1. y1_kernel (bottleneck_common.cuh, the backward's own): y1 to a
+//      transient bf16 scratch [B H W, M] (the wrapper's torch.empty, freed
+//      after the call).
+//   2. fwd_tile_kernel: per tile, y2 (tile_y2: the 3x3 as nine shifted
+//      K-major A tiles of y1 read back with their halo, zero outside the
+//      image, against w2's rows staged once a tile) into shared memory;
+//      then C in 64-channel chunks: y3 = y2 @ w3's staged chunk
+//      (chunk_y3), and the epilogue on the accumulator registers (+ b3, +
+//      the chunk of x, ReLU, bf16), stored as 16-byte vectors. Each chunk
+//      of w3 and of x arrives by cp.async while the chunk before it is
+//      computed.
+// No pixel is recomputed: halo rows of y1 come back from L2. Every product
+// is wgmma.m64n64k16 from 128-byte-swizzled shared tiles (the layout is at
+// "wgmma" in bottleneck_common.cuh), two warpgroups of 64 pixel rows a
+// tile; shared memory does not depend on W, and the tile kernel asks for
+// two blocks an SM where its shared memory allows (M <= 64). The backward
+// runs the same y1_kernel, tile_y2 and chunk_y3, so the pre-activation
+// (y2 @ w3 + b3) + x here equals, bit for bit, the one its ReLU mask reads.
 //
 // What bounds it: bytes, at the main path's shapes. Reading x and writing
 // out once is 210 MB for layer1 at B=8 (0.063 ms at 3.35 TB/s) against 28.5
 // GFLOP of tensor-core work (0.029 ms at 989 TFLOP/s); layer2 is 105 MB
 // (0.031 ms) against the same operations. What this design does about it:
-// the intermediates stay on chip, so device memory sees x (once, its halo
-// rows again from L2, the residual again from L2) and out only. What it
-// leaves: conv1 is recomputed on the two halo rows of every block (2x conv1
-// work at kRows = 2), wmma through mma.sync reaches only part of Hopper's
-// tensor-core rate (wgmma is needed for the rest), fragments of the weights
-// are reloaded from L1/L2 by every warp, and one block fills an SM (about
-// 140-150 KB of shared memory). wgmma, TMA and a persistent schedule belong
-// to a later PR.
+// y2 stays on chip and x is read twice (by y1_kernel, then as the residual,
+// often from L2); the y1 scratch adds 2 B H W M bf16 of traffic (written
+// once, read once with its halo rows from L2): 52 MB at layer1, B=8, a
+// quarter over the bound's bytes. What it leaves: each stage's products
+// are waited out before the next copy (one wgmma group in flight), and
+// the y1 round trip; times are in PERF.md.
 //
 // Requirements (the wrapper checks them): M in {16, 32, 64, 128}, C = 4 M,
-// contiguous 32-byte-aligned bf16 tensors. Any W >= 1 up to the widest row
-// whose shared memory fits a block (detjax_bottleneck_max_width).
+// contiguous 32-byte-aligned bf16 tensors, fp32 biases, any W >= 1.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "bottleneck_common.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-constexpr int kRows = 2;    // output rows per block
-constexpr int kWarps = 10;  // 20 (layer1) or 10 (layer2) 16-pixel tiles
-constexpr int kThreads = 32 * kWarps;
-constexpr int kPad = 16;  // extra bf16 per pixel in shared memory: keeps
-                          // 32-byte alignment, spreads banks
-
-// Bias, ReLU and bf16 rounding of one 16x16 fp32 tile staged in `stage`
-// (row-major), written to `dst` (row stride ld elements); rows (pixels) at
-// or beyond `valid` are written as zeros. Each lane takes 8 consecutive
-// columns of one row: row lane / 2, columns (lane % 2) * 8.
-__device__ __forceinline__ void store_relu_bf16(const float* stage,
-                                                const float* bias, bf16* dst,
-                                                int ld, int lane,
-                                                int valid = 16) {
-  const int r = lane >> 1, c = (lane & 1) * 8;
-  const float* s = stage + r * 16 + c;
-  union {
-    uint4 v;
-    __nv_bfloat162 h[4];
-  } pack;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float a = fmaxf(s[2 * i] + bias[c + 2 * i], 0.0f);
-    const float b = fmaxf(s[2 * i + 1] + bias[c + 2 * i + 1], 0.0f);
-    pack.h[i] = __floats2bfloat162_rn(a, b);
-  }
-  if (r >= valid) pack.v = make_uint4(0u, 0u, 0u, 0u);
-  *reinterpret_cast<uint4*>(dst + r * ld + c) = pack.v;
-}
-
-// Copies a 16-pixel x 16-channel bf16 tile (pixel stride ld) into `dst`
-// (pixel stride 16), pixels at or beyond `valid` as zeros: the A operand of
-// a masked tail tile.
-__device__ __forceinline__ void stage_tile(const bf16* src, int ld, int valid,
-                                           bf16* dst, int lane) {
-  const int p = lane >> 1, c = (lane & 1) * 8;
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (p < valid)
-    v = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(p) * ld + c);
-  *reinterpret_cast<uint4*>(dst + p * 16 + c) = v;
-  __syncwarp();
-}
-
+// From the 1024-byte boundary: region_tile (the 3x3's stages, then w3
+// [2][atoms][64 rows x 128 bytes], out [kAtom] and x [2][kTP][kNC + kPad]),
+// y2 [atoms][kAtom] and the tile's coordinates.
 template <int M>
-__global__ void __launch_bounds__(kThreads)
-    bottleneck_fwd_kernel(const bf16* __restrict__ x,    // [B, H, W, C]
-                          const bf16* __restrict__ w1,   // [C, M]
-                          const float* __restrict__ b1,  // [M]
-                          const bf16* __restrict__ w2,   // [3, 3, M, M]
-                          const float* __restrict__ b2,  // [M]
-                          const bf16* __restrict__ w3,   // [M, C]
-                          const float* __restrict__ b3,  // [C]
-                          bf16* __restrict__ out,        // [B, H, W, C]
-                          int h, int w) {
-  constexpr int C = 4 * M;
-  constexpr int LD = M + kPad;  // bf16 per pixel in shared memory
-  constexpr int NT = M / 16;    // 16-column tiles of y1 and y2
-  constexpr int kVecPix = LD * 2 / 16;  // uint4 per shared pixel
+__host__ __device__ constexpr size_t smem_fwd() {
+  return 1024 + region_tile<M>() + atoms<M>() * kAtom + 2 * kTP * sizeof(int);
+}
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tiles_per_row = (w + 15) / 16;  // the last one may be a tail
-  const int wp = 16 * tiles_per_row + 2;  // y1 pixels a row, with borders
-  bf16* y1p = reinterpret_cast<bf16*>(smem);
-  const size_t y1_elems = static_cast<size_t>(kRows + 2) * wp * LD;
+// One 128-pixel tile, two warpgroups of 64 pixel rows: y2 by tile_y2, then
+// out chunk by chunk.
+template <int M>
+__global__ void __launch_bounds__(kThreads, M <= 64 ? 2 : 1)
+    fwd_tile_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y1,
+                    const bf16* __restrict__ w2, const float* __restrict__ b2,
+                    const bf16* __restrict__ w3, const float* __restrict__ b3,
+                    bf16* __restrict__ out, int np, int h, int w) {
+  constexpr int C = 4 * M, NA = atoms<M>(), LDN = kNC + kPad;
+  constexpr int NCH = C / kNC, STAGE = NA * 64 * 128;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* sm = smem_1k(smem_raw);
+  unsigned char* W3s = sm;              // [2][STAGE]: w3 rows, after the 3x3
+  unsigned char* Os = sm + 2 * STAGE;   // [kAtom]: out of a chunk
+  bf16* Xs = reinterpret_cast<bf16*>(Os + kAtom);  // [2][kTP][LDN]
+  unsigned char* Y2s = sm + region_tile<M>();      // [NA][kAtom]
+  int* prow = reinterpret_cast<int*>(Y2s + NA * kAtom);
+  int* pcol = prow + kTP;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* y2t = y1p + y1_elems + static_cast<size_t>(warp) * 16 * LD;
-  float* stage = reinterpret_cast<float*>(y1p + y1_elems +
-                                          static_cast<size_t>(kWarps) * 16 *
-                                              LD) +
-                 warp * 256;
+  const uint32_t grow = (warp >> 2) * 64 * 128;  // the warpgroup's 64 rows
+  const int row0 = 16 * warp + (lane >> 2);      // rows row0, row0 + 8
+  const int q2 = 2 * (lane & 3);                 // columns 8 j + q2, + 1
+  const int p0 = blockIdx.x * kTP;
 
-  const int img = blockIdx.y;
-  const int r0 = blockIdx.x * kRows;  // first output row of the block
-  const size_t img_off = static_cast<size_t>(img) * h * w * C;
-  const bf16* ximg = x + img_off;
-  bf16* oimg = out + img_off;
-
-  // -- zero the border columns, and whole halo rows outside the image.
-  uint4* y1v = reinterpret_cast<uint4*>(y1p);
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int j = 0; j < kRows + 2; ++j) {
-    const int r = r0 - 1 + j;
-    uint4* row = y1v + static_cast<size_t>(j) * wp * kVecPix;
-    if (r < 0 || r >= h) {
-      for (int i = threadIdx.x; i < wp * kVecPix; i += kThreads) row[i] = zero;
-    } else {
-      for (int i = threadIdx.x; i < 2 * kVecPix; i += kThreads) {
-        const int col = i < kVecPix ? 0 : wp - 1;
-        row[col * kVecPix + i % kVecPix] = zero;
-      }
-    }
-  }
-
-  // -- phase 1: y1 = bf16(relu(x @ w1 + b1)) on rows r0 - 1 .. r0 + kRows.
-  for (int t = warp; t < (kRows + 2) * tiles_per_row; t += kWarps) {
-    const int j = t / tiles_per_row, c0 = (t % tiles_per_row) * 16;
-    const int r = r0 - 1 + j;
-    if (r < 0 || r >= h) continue;  // stays zero: the 3x3's padding
-    const int valid = w - c0 < 16 ? w - c0 : 16;  // pixels in the image
-    FragC acc[NT];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) wmma::fill_fragment(acc[n], 0.0f);
-    const bf16* xa = ximg + (static_cast<size_t>(r) * w + c0) * C;
-    for (int k = 0; k < C; k += 16) {
-      FragA a;
-      if (valid == 16) {
-        wmma::load_matrix_sync(a, xa + k, C);
-      } else {  // the tail: staged through the warp's (idle) y2 tile
-        stage_tile(xa + k, C, valid, y2t, lane);
-        wmma::load_matrix_sync(a, y2t, 16);
-        __syncwarp();
-      }
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        FragB b;
-        wmma::load_matrix_sync(b, w1 + static_cast<size_t>(k) * M + n * 16,
-                               M);
-        wmma::mma_sync(acc[n], a, b, acc[n]);
-      }
-    }
-    bf16* dst = y1p + (static_cast<size_t>(j) * wp + c0 + 1) * LD;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      wmma::store_matrix_sync(stage, acc[n], 16, wmma::mem_row_major);
-      __syncwarp();
-      store_relu_bf16(stage, b1 + n * 16, dst + n * 16, LD, lane, valid);
-      __syncwarp();
-    }
-  }
+  tile_coords(prow, pcol, p0, np, h, w);
   __syncthreads();
 
-  // -- phase 2: per 16-pixel tile of the output rows, the 3x3 into the
-  // warp's y2 tile, then the second 1x1, the residual and the ReLU.
-  for (int t = warp; t < kRows * tiles_per_row; t += kWarps) {
-    const int j = t / tiles_per_row, c0 = (t % tiles_per_row) * 16;
-    const int r = r0 + j;
-    if (r >= h) continue;  // the ragged last row tile
-    FragC acc[NT];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) wmma::fill_fragment(acc[n], 0.0f);
-    for (int ky = 0; ky < 3; ++ky) {
-      for (int kx = 0; kx < 3; ++kx) {
-        // output pixel (r, c) reads y1 at (r + ky - 1, c + kx - 1), which
-        // is shared row j + ky, shared column c + kx
-        const bf16* ya = y1p + (static_cast<size_t>(j + ky) * wp + c0 + kx) *
-                                   LD;
-        const bf16* wt = w2 + static_cast<size_t>(ky * 3 + kx) * M * M;
-        for (int k = 0; k < M; k += 16) {
-          FragA a;
-          wmma::load_matrix_sync(a, ya + k, LD);
-#pragma unroll
-          for (int n = 0; n < NT; ++n) {
-            FragB b;
-            wmma::load_matrix_sync(b, wt + static_cast<size_t>(k) * M + n * 16,
-                                   M);
-            wmma::mma_sync(acc[n], a, b, acc[n]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      wmma::store_matrix_sync(stage, acc[n], 16, wmma::mem_row_major);
-      __syncwarp();
-      store_relu_bf16(stage, b2 + n * 16, y2t + n * 16, LD, lane);
-      __syncwarp();
-    }
+  // -- y2 = bf16(relu(sum_k shift_k(y1) @ w2[k] + b2)), into Y2s
+  tile_y2<M>(sm, Y2s, y1, w2, b2, p0, prow, pcol, h, w);
 
-    FragA a2[NT];
-#pragma unroll
-    for (int k = 0; k < NT; ++k) wmma::load_matrix_sync(a2[k], y2t + k * 16, LD);
-    const int pr = lane >> 1, pc = (lane & 1) * 8;
-    const bool live = c0 + pr < w;  // the lane's pixel is in the image
-    // a pixel past W reads the row's last one (unconditional loads) and is
-    // not stored
-    const size_t pix =
-        (static_cast<size_t>(r) * w + (live ? c0 + pr : w - 1)) * C;
-    for (int n3 = 0; n3 < C / 16; ++n3) {
-      FragC acc3;
-      wmma::fill_fragment(acc3, 0.0f);
-#pragma unroll
-      for (int k = 0; k < NT; ++k) {
-        FragB b;
-        wmma::load_matrix_sync(
-            b, w3 + static_cast<size_t>(k) * 16 * C + n3 * 16, C);
-        wmma::mma_sync(acc3, a2[k], b, acc3);
-      }
-      wmma::store_matrix_sync(stage, acc3, 16, wmma::mem_row_major);
-      __syncwarp();
-      const int ch = n3 * 16 + pc;
-      const float* s = stage + pr * 16 + pc;
-      union {
-        uint4 v;
-        __nv_bfloat162 h[4];
-      } res, pack;
-      res.v = *reinterpret_cast<const uint4*>(ximg + pix + ch);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 xr = __bfloat1622float2(res.h[i]);
-        const float a = fmaxf((s[2 * i] + b3[ch + 2 * i]) + xr.x, 0.0f);
-        const float b = fmaxf((s[2 * i + 1] + b3[ch + 2 * i + 1]) + xr.y, 0.0f);
-        pack.h[i] = __floats2bfloat162_rn(a, b);
-      }
-      if (live) *reinterpret_cast<uint4*>(oimg + pix + ch) = pack.v;
-      __syncwarp();
+  // -- per 64-channel chunk of C: out = bf16(relu((y2 @ w3 + b3) + x)); the
+  // chunk's rows of w3 and its x arrive one chunk ahead
+  auto load_c = [&](int n, int s) {
+    load_w3_chunk<M>(W3s + s * STAGE, w3, n);
+    load_chunk(Xs + s * kTP * LDN, x, C, n * kNC, p0, np);
+    cp_commit();
+  };
+  load_c(0, 0);
+  for (int n = 0; n < NCH; ++n) {
+    if (n + 1 < NCH) {
+      load_c(n + 1, (n + 1) & 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
+    proxy_fence();
+    __syncthreads();  // the chunk's w3 and x landed
+    float acc3[32];
+    chunk_y3<M>(acc3, saddr(Y2s), saddr(W3s + (n & 1) * STAGE), grow);
+    const bf16* xs = Xs + (n & 1) * kTP * LDN;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int cl = 8 * j + q2, ch = n * kNC + cl;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = row0 + 8 * e;
+        const float2 xf = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(xs + r * LDN + cl));
+        put2(Os, r, cl,
+             fmaxf((acc3[4 * j + 2 * e] + b3[ch]) + xf.x, 0.0f),
+             fmaxf((acc3[4 * j + 2 * e + 1] + b3[ch + 1]) + xf.y, 0.0f));
+      }
+    }
+    __syncthreads();  // this chunk of out complete
+    store_tile<kNC>(out, C, n * kNC, Os, p0, np);
+    __syncthreads();  // before the next chunk's copy rewrites this stage
   }
 }
 
-// Dynamic shared memory of one block: y1 for the block's rows plus two halo
-// rows (whole 16-pixel tiles and two border columns, LD bf16 a pixel), and
-// per warp a 16-pixel y2 tile and a 16x16 fp32 staging tile.
 template <int M>
-size_t smem_bytes(int w) {
-  constexpr int LD = M + kPad;
-  return static_cast<size_t>(kRows + 2) * (16 * ((w + 15) / 16) + 2) * LD *
-             sizeof(bf16) +
-         static_cast<size_t>(kWarps) * (16 * LD * sizeof(bf16) + 256 * 4);
-}
-
-template <int M>
-int launch(const void* x, const void* w1, const float* b1, const void* w2,
-           const float* b2, const void* w3, const float* b3, void* out,
-           int batch, int h, int w, cudaStream_t stream) {
-  const size_t smem = smem_bytes<M>(w);
-  if (smem > 48 * 1024) {
-    // fails (cudaErrorInvalidValue) past the card's per-block limit
-    const cudaError_t err = cudaFuncSetAttribute(
-        bottleneck_fwd_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid((h + kRows - 1) / kRows, batch);
-  bottleneck_fwd_kernel<M><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1,
-      static_cast<const bf16*>(w2), b2, static_cast<const bf16*>(w3), b3,
-      static_cast<bf16*>(out), h, w);
-  return static_cast<int>(cudaGetLastError());
+int launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
+           const float* b2, const bf16* w3, const float* b3, bf16* y1,
+           bf16* out, int batch, int h, int w, cudaStream_t stream,
+           int* launched) {
+  const int np = batch * h * w, tiles = (np + kTP - 1) / kTP;
+  cudaError_t err;
+  if ((err = allow_smem(y1_kernel<M>, smem_y1<M>())) != cudaSuccess ||
+      (err = allow_smem(fwd_tile_kernel<M>, smem_fwd<M>())) != cudaSuccess)
+    return static_cast<int>(err);
+  // each launch the runtime accepted adds one to *launched
+  auto accepted = [&]() {
+    err = cudaGetLastError();
+    if (err == cudaSuccess) ++*launched;
+    return err == cudaSuccess;
+  };
+  y1_kernel<M><<<tiles, kThreads, smem_y1<M>(), stream>>>(x, w1, b1, y1, np);
+  if (!accepted()) return static_cast<int>(err);
+  fwd_tile_kernel<M><<<tiles, kThreads, smem_fwd<M>(), stream>>>(
+      x, y1, w2, b2, w3, b3, out, np, h, w);
+  accepted();
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
-// Launches on `stream` of `device`; returns a cudaError_t (0 = ok). The
-// caller guarantees batch, h >= 1 and the requirements above.
-extern "C" int detjax_bottleneck_fwd_launch(const void* x, const void* w1,
-                                            const float* b1, const void* w2,
-                                            const float* b2, const void* w3,
-                                            const float* b3, void* out,
-                                            int batch, int h, int w, int m,
-                                            int device, void* stream) {
+// Launches the two kernels on `stream` of `device`, adding one to *launched
+// for each launch the runtime accepted; returns a cudaError_t (0 = ok: both
+// launched). y1: scratch [B H W, M] bf16 (uninitialised). The caller
+// guarantees batch, h, w >= 1 and the requirements above.
+extern "C" int detjax_bottleneck_fwd_launch(
+    const void* x, const void* w1, const float* b1, const void* w2,
+    const float* b2, const void* w3, const float* b3, void* y1, void* out,
+    int batch, int h, int w, int m, int device, void* stream, int* launched) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DETJAX_FWD(MM)                                                       \
+  case MM:                                                                   \
+    return launch<MM>(static_cast<const bf16*>(x),                           \
+                      static_cast<const bf16*>(w1), b1,                      \
+                      static_cast<const bf16*>(w2), b2,                      \
+                      static_cast<const bf16*>(w3), b3,                      \
+                      static_cast<bf16*>(y1), static_cast<bf16*>(out), batch, \
+                      h, w, s, launched);
   switch (m) {
-    case 16:
-      return launch<16>(x, w1, b1, w2, b2, w3, b3, out, batch, h, w, s);
-    case 32:
-      return launch<32>(x, w1, b1, w2, b2, w3, b3, out, batch, h, w, s);
-    case 64:
-      return launch<64>(x, w1, b1, w2, b2, w3, b3, out, batch, h, w, s);
-    case 128:
-      return launch<128>(x, w1, b1, w2, b2, w3, b3, out, batch, h, w, s);
+    DETJAX_FWD(16)
+    DETJAX_FWD(32)
+    DETJAX_FWD(64)
+    DETJAX_FWD(128)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef DETJAX_FWD
 }
 
-// Dynamic shared memory a block takes at width w and M = m; 0 for an M the
-// kernel is not instantiated for.
-extern "C" int detjax_bottleneck_smem_bytes(int w, int m);
-
-// The widest W whose block fits the shared memory a block of `device` may
-// take at M = m (a multiple of 16); 0 for an unknown M, < 0 a cudaError_t.
-extern "C" int detjax_bottleneck_max_width(int m, int device) {
-  int limit = 0;
-  const cudaError_t err = cudaDeviceGetAttribute(
-      &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  if (detjax_bottleneck_smem_bytes(16, m) <= 0) return 0;
-  int w = 0;
-  while (detjax_bottleneck_smem_bytes(w + 16, m) <= limit) w += 16;
-  return w;
-}
-
-extern "C" int detjax_bottleneck_smem_bytes(int w, int m) {
+// The launcher's geometry at M = m, for the wrapper to check its own copy
+// against once: out[0..2] = pixels a tile, and the dynamic shared memory of
+// y1_kernel and of fwd_tile_kernel. Returns 0, or cudaErrorInvalidValue for
+// another m.
+extern "C" int detjax_bottleneck_fwd_geometry(int m, int* out) {
+#define DETJAX_GEOM(MM)                         \
+  case MM:                                      \
+    out[1] = static_cast<int>(smem_y1<MM>());   \
+    out[2] = static_cast<int>(smem_fwd<MM>());  \
+    break;
   switch (m) {
-    case 16:
-      return static_cast<int>(smem_bytes<16>(w));
-    case 32:
-      return static_cast<int>(smem_bytes<32>(w));
-    case 64:
-      return static_cast<int>(smem_bytes<64>(w));
-    case 128:
-      return static_cast<int>(smem_bytes<128>(w));
+    DETJAX_GEOM(16)
+    DETJAX_GEOM(32)
+    DETJAX_GEOM(64)
+    DETJAX_GEOM(128)
     default:
-      return 0;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef DETJAX_GEOM
+  out[0] = kTP;
+  return 0;
 }

@@ -35,6 +35,9 @@
 //      fp32 partial once, to its own slice of a workspace.
 //   5. sum_rows: the parts' slices, and the tiles' bias sums, in a fixed
 //      order. No atomics: two runs give equal bits.
+// y1_kernel, dc2_kernel's y2 (tile_y2) and its y3 (chunk_y3) are the
+// forward's own code, in bottleneck_common.cuh: the dy3 mask is taken on the
+// forward's pre-activation (y2 @ w3 + b3) + x, bit for bit.
 // No pixel is recomputed: each tile owns its pixels, halos are read from
 // scratch. Halo pixels come back from L2 (the 3x3 reads y1 or bf16(dc2)
 // three rows wide). y1 goes to scratch whatever the split (dw2 and dc1's
@@ -61,15 +64,16 @@
 //      gradients), and the tile kernels ask for two blocks an SM where
 //      their shared memory allows (M <= 64).
 // Products: wgmma (m64n64k16, bf16 operands from 128-byte-swizzled shared
-// tiles, fp32 sums in registers; the layout is at "wgmma" below), in every
-// kernel but sum_rows. A pixel's 64 channels are one
-// 128-byte swizzle row, so the 3x3's shifted rows land by 16-byte cp.async
-// like any other row, as A (K-major: pixels x channels) in the tile
-// kernels and as both operands (MN-major) in the weight gradients; each
-// weight is read K-major or MN-major as its product needs, so w3's staged
-// rows serve y3 and dc2 alike. A tile kernel's two warpgroups take 64
-// pixel rows each, and its epilogues (bias, ReLU masks, column sums by warp
-// shuffles in a fixed order, bf16) work on the accumulator registers.
+// tiles, fp32 sums in registers; the layout is at "wgmma" in
+// bottleneck_common.cuh), in every kernel but sum_rows. A pixel's 64
+// channels are one 128-byte swizzle row, so the 3x3's shifted rows land by
+// 16-byte cp.async like any other row, as A (K-major: pixels x channels) in
+// the tile kernels and as both operands (MN-major) in the weight
+// gradients; each weight is read K-major or MN-major as its product needs,
+// so w3's staged rows serve y3 and dc2 alike. A tile kernel's two
+// warpgroups take 64 pixel rows each, and its epilogues (bias, ReLU masks,
+// column sums by warp shuffles in a fixed order, bf16) work on the
+// accumulator registers.
 // y1_kernel's 1x1 product is wgmma the same way.
 //
 // What bounds it on an H100: at R50's training shapes (bs 16) bytes at
@@ -82,162 +86,12 @@
 // Requirements (the wrapper checks them): M in {16, 32, 64, 128}, C = 4 M,
 // contiguous 32-byte-aligned bf16 tensors, fp32 biases.
 
-#include <cstdint>
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "bottleneck_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kThreads = 256;   // activation kernels: 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kTP = 128;        // pixels a tile of the activation kernels
-constexpr int kNC = 64;         // channels a chunk of C
-constexpr int kPad = 8;         // bf16 a shared row holds beyond its width
 constexpr int kWThreads = 128;  // weight-gradient kernel: one warpgroup
 constexpr int kKP = 64;         // pixels a stage of the weight gradients
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  // 16 bytes, or 16 zero bytes when !valid (src is then not read)
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <int M>
-__host__ __device__ constexpr int k_chunk() {  // channels a 3x3 stage
-  return M < 64 ? M : 64;
-}
-
-// Image row and column of each pixel of the tile from p0; pixels at or
-// beyond np get -4, so that every 3x3 shift of them lands outside.
-__device__ __forceinline__ void tile_coords(int* prow, int* pcol, int p0,
-                                            int np, int h, int w) {
-  for (int i = threadIdx.x; i < kTP; i += kThreads) {
-    const int p = p0 + i;
-    prow[i] = p < np ? (p / w) % h : -4;
-    pcol[i] = p < np ? p % w : -4;
-  }
-}
-
-// Channels n0 .. n0 + 63 of the tile's pixels from src [np, C] into dst
-// (row stride kNC + kPad); zeros for pixels at or beyond np.
-__device__ __forceinline__ void load_chunk(bf16* dst, const bf16* src, int c,
-                                           int n0, int p0, int np) {
-  constexpr int VEC = kNC / 8;
-  for (int i = threadIdx.x; i < kTP * VEC; i += kThreads) {
-    const int r = i / VEC, v = i % VEC;
-    const bool ok = p0 + r < np;
-    cp_async16(dst + r * (kNC + kPad) + v * 8,
-               ok ? src + static_cast<size_t>(p0 + r) * c + n0 + v * 8 : src,
-               ok);
-  }
-}
-
-// ---- wgmma: the shared operand layout and the instruction -------------------
-
-// A SW128 tile: rows of 128 bytes (64 bf16 channels), 16-byte chunk c of row
-// r at chunk c ^ (r % 8), from a 1024-byte boundary, 8-row groups 1024
-// bytes apart. wgmma reads it as a K-major operand (rows are its M or N,
-// channels its K; a k16 step moves 32 bytes) or as an MN-major one (rows
-// are K; a k16 step moves 16 rows, 2048 bytes). Every operand a product
-// reads spans one 64-channel swizzle atom along M or N, so the
-// descriptor's leading offset is never used; it is set to the group stride
-// as well. Wider tiles are atoms of 128 rows, kAtom bytes apart.
-constexpr int kAtom = kTP * 128;
-
-__device__ __forceinline__ int sw(int r, int c) {
-  return r * 128 + ((c ^ (r & 7)) << 4);
-}
-
-// Byte offset of channel col (even) of row r in a tile of 128-row atoms.
-__device__ __forceinline__ int at2(int r, int col) {
-  return (col >> 6) * kAtom + sw(r, (col & 63) >> 3) + (col & 7) * 2;
-}
-
-__device__ __forceinline__ void put2(unsigned char* tile, int r, int col,
-                                     float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(tile + at2(r, col)) =
-      __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ float2 get2(const unsigned char* tile, int r,
-                                       int col) {
-  return __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(tile + at2(r, col)));
-}
-
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// The block's dynamic shared memory from its first 1024-byte boundary (the
-// launch asks for 1024 bytes more).
-__device__ __forceinline__ unsigned char* smem_1k(unsigned char* raw) {
-  const uint32_t a = saddr(raw);
-  return raw + (((a + 1023u) & ~1023u) - a);
-}
-
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1024 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// d[64 x 64] += A[64 x 16] B[16 x 64], bf16 products, fp32 sums; TA / TB:
-// that operand is stored MN-major.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma64(float (&d)[32], uint64_t da,
-                                        uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
-
-// Keeps the compiler from moving reads or writes of the accumulators across
-// the wgmma fence and wait (they are written behind its back).
-__device__ __forceinline__ void pin(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// This thread's shared writes (st.shared, cp.async) made visible to wgmma,
-// which reads through the async proxy; a barrier follows.
-__device__ __forceinline__ void proxy_fence() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 // In an accumulator of m64nNk16 (warp w of a warpgroup, lane l),
 // d[4 j + 2 e + i] is row 16 w + l / 4 + 8 e, column 8 j + 2 (l % 4) + i.
@@ -250,161 +104,14 @@ __device__ __forceinline__ float warp_rows_sum(float v) {
   return v;
 }
 
-// KC channels from ch0 of the tile's pixels shifted by (dyy, dxx) inside
-// their image, from src [np, M], into a SW128 tile; zeros where the
-// shifted pixel is outside.
-template <int KC>
-__device__ __forceinline__ void load_shifted_sw(unsigned char* dst,
-                                                const bf16* src, int m,
-                                                int ch0, int dyy, int dxx,
-                                                int p0, const int* prow,
-                                                const int* pcol, int h,
-                                                int w) {
-  constexpr int VEC = KC / 8;
-  for (int i = threadIdx.x; i < kTP * VEC; i += kThreads) {
-    const int r = i / VEC, v = i % VEC;
-    const int rr = prow[r] + dyy, cc = pcol[r] + dxx;
-    const bool ok = rr >= 0 && rr < h && cc >= 0 && cc < w;
-    const bf16* s =
-        ok ? src + (static_cast<size_t>(p0 + r + dyy * w + dxx)) * m + ch0 +
-                 v * 8
-           : src;
-    cp_async16(dst + sw(r, v), s, ok);
-  }
-}
-
-// COLS channels of the tile's pixels below np from a tile of 128-row atoms
-// to dst [np, ld] from column col0, 16 bytes a copy.
-template <int COLS>
-__device__ __forceinline__ void store_tile(bf16* dst, int ld, int col0,
-                                           const unsigned char* tile, int p0,
-                                           int np) {
-  constexpr int VEC = COLS / 8;
-  for (int i = threadIdx.x; i < kTP * VEC; i += kThreads) {
-    const int r = i / VEC, v = i % VEC;
-    if (p0 + r < np)
-      *reinterpret_cast<uint4*>(dst + static_cast<size_t>(p0 + r) * ld +
-                                col0 + v * 8) =
-          *reinterpret_cast<const uint4*>(tile + (v >> 3) * kAtom +
-                                          sw(r, v & 7));
-  }
-}
-
-// ---- 1: y1 = bf16(relu(x @ w1 + b1)) ----------------------------------------
-
-template <int M>
-__host__ __device__ constexpr int atoms() {  // 64-channel atoms of M
-  return M > 64 ? M / 64 : 1;
-}
-
-// From the 1024-byte boundary: x's chunks [2][kAtom], then w1's rows
-// [2][atoms][64 rows x 128 bytes]; y1 [atoms][kAtom] takes x's place after
-// the last chunk.
-template <int M>
-__host__ __device__ constexpr size_t smem_y1() {
-  return 1024 + 2 * kAtom + 2 * atoms<M>() * 64 * 128;
-}
-
-// One 128-pixel tile, two warpgroups of 64 pixel rows: A is x's chunk
-// (K-major), B w1's rows of the chunk (MN-major).
-template <int M>
-__global__ void __launch_bounds__(kThreads)
-    y1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-              const float* __restrict__ b1, bf16* __restrict__ y1, int np) {
-  constexpr int C = 4 * M, NA = atoms<M>(), STAGE = NA * 64 * 128;
-  constexpr int T = C / kNC;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  unsigned char* sm = smem_1k(smem_raw);
-  unsigned char* As = sm;              // [2][kAtom]
-  unsigned char* Bs = sm + 2 * kAtom;  // [2][STAGE]
-  unsigned char* Ys = sm;              // [NA][kAtom], after the last chunk
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const uint32_t grow = (warp >> 2) * 64 * 128;
-  const int row0 = 16 * warp + (lane >> 2);
-  const int q2 = 2 * (lane & 3);
-  const int p0 = blockIdx.x * kTP;
-
-  float acc[NA][32];
-#pragma unroll
-  for (int a = 0; a < NA; ++a)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[a][i] = 0.0f;
-  auto load = [&](int t, int s) {
-    for (int i = threadIdx.x; i < kTP * 8; i += kThreads) {
-      const int r = i >> 3, v = i & 7;
-      const bool ok = p0 + r < np;
-      cp_async16(As + s * kAtom + sw(r, v),
-                 ok ? x + static_cast<size_t>(p0 + r) * C + t * kNC + v * 8
-                    : x,
-                 ok);
-    }
-    for (int i = threadIdx.x; i < kNC * (M / 8); i += kThreads) {
-      const int k = i / (M / 8), v = i % (M / 8);
-      cp_async16(Bs + s * STAGE + (v >> 3) * 8192 + sw(k, v & 7),
-                 w1 + static_cast<size_t>(t * kNC + k) * M + v * 8, true);
-    }
-    cp_commit();
-  };
-  load(0, 0);
-  for (int t = 0; t < T; ++t) {
-    if (t + 1 < T) {
-      load(t + 1, (t + 1) & 1);
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    proxy_fence();
-    __syncthreads();
-    const uint32_t a = saddr(As + (t & 1) * kAtom) + grow;
-    const uint32_t b = saddr(Bs + (t & 1) * STAGE);
-#pragma unroll
-    for (int n = 0; n < NA; ++n) pin(acc[n]);
-    wg_fence();
-#pragma unroll
-    for (int k = 0; k < kNC / 16; ++k)
-#pragma unroll
-      for (int n = 0; n < NA; ++n)
-        wgmma64<0, 1>(acc[n], sw128_desc(a + 32 * k),
-                      sw128_desc(b + n * 8192 + 2048 * k));
-    wg_commit_wait();
-#pragma unroll
-    for (int n = 0; n < NA; ++n) pin(acc[n]);
-    __syncthreads();  // before the next load rewrites this stage
-  }
-#pragma unroll
-  for (int n = 0; n < NA; ++n)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = 64 * n + 8 * j + q2;
-      if (col < M) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          put2(Ys, row0 + 8 * e, col,
-               fmaxf(acc[n][4 * j + 2 * e] + b1[col], 0.0f),
-               fmaxf(acc[n][4 * j + 2 * e + 1] + b1[col + 1], 0.0f));
-      }
-    }
-  __syncthreads();
-  store_tile<M>(y1, M, 0, Ys, p0, np);
-}
+// ---- 1: y1 = bf16(relu(x @ w1 + b1)): y1_kernel, bottleneck_common.cuh ---
 
 // ---- 2: y2, dy3, dc2 -----------------------------------------------------
 
-// The shared memory of both tile kernels, from the 1024-byte boundary: a
-// region that the 3x3's stages use (A [2][kAtom], B [2][atoms][64 rows x
-// 128 bytes]) and then the C chunks (a weight [2][atoms][64 rows x 128
-// bytes], a 64-channel tile [kAtom], two [kTP][kNC + kPad] bf16 tiles);
-// then an [atoms][kAtom] tile, the column sums [kWarps][max(M, kNC)] fp32
-// and the tile's coordinates.
-template <int M>
-__host__ __device__ constexpr size_t region_tile() {
-  constexpr size_t stage = atoms<M>() * 64 * 128;
-  constexpr size_t conv = 2 * kAtom + 2 * stage;
-  constexpr size_t chunks =
-      2 * stage + kAtom + 2 * kTP * (kNC + kPad) * sizeof(bf16);
-  return conv > chunks ? conv : chunks;
-}
-
+// The shared memory of both tile kernels, from the 1024-byte boundary: the
+// region of bottleneck_common.cuh's region_tile, then an [atoms][kAtom]
+// tile, the column sums [kWarps][max(M, kNC)] fp32 and the tile's
+// coordinates.
 template <int M>
 __host__ __device__ constexpr size_t smem_tile() {
   return 1024 + region_tile<M>() + atoms<M>() * kAtom +
@@ -412,13 +119,13 @@ __host__ __device__ constexpr size_t smem_tile() {
 }
 
 // One 128-pixel tile, two warpgroups of 64 pixel rows; every product is
-// wgmma from SW128 tiles. Shared memory (region_tile): the 3x3's stages,
-// then w3 [2][atoms][64 rows x 128 bytes], bf16(dy3) [kAtom], the x and dy
-// chunks and, after the last chunk, bf16(dc2) [atoms][kAtom]; then y2
-// [atoms][kAtom], the column sums and the tile's coordinates. M < 64 runs the same 64-wide products: the
-// columns past M hold whatever the unused shared memory held and are never
-// stored or summed (a column of a product depends only on its own column of
-// B), and the K steps stop at M.
+// wgmma from SW128 tiles. Shared memory (region_tile): the 3x3's stages
+// (tile_y2), then w3 [2][atoms][64 rows x 128 bytes], bf16(dy3) [kAtom],
+// the x and dy chunks and, after the last chunk, bf16(dc2) [atoms][kAtom];
+// then y2 [atoms][kAtom], the column sums and the tile's coordinates. M < 64
+// runs the same 64-wide products: the columns past M hold whatever the
+// unused shared memory held and are never stored or summed (a column of a
+// product depends only on its own column of B), and the K steps stop at M.
 template <int M>
 __global__ void __launch_bounds__(kThreads, M <= 64 ? 2 : 1)
     dc2_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
@@ -427,13 +134,11 @@ __global__ void __launch_bounds__(kThreads, M <= 64 ? 2 : 1)
                const float* __restrict__ b3, bf16* __restrict__ y2,
                bf16* __restrict__ d3, bf16* __restrict__ dc2,
                float* __restrict__ wsb, int np, int h, int w) {
-  constexpr int C = 4 * M, KC = k_chunk<M>(), NA = atoms<M>();
+  constexpr int C = 4 * M, NA = atoms<M>();
   constexpr int SB = 2 * M + C, RED = M > kNC ? M : kNC, LDN = kNC + kPad;
-  constexpr int T = 9 * M / KC, NCH = C / kNC, STAGE = NA * 64 * 128;
+  constexpr int NCH = C / kNC, STAGE = NA * 64 * 128;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* sm = smem_1k(smem_raw);
-  unsigned char* As = sm;                 // [2][kAtom]: shifted y1
-  unsigned char* Bs = sm + 2 * kAtom;     // [2][STAGE]: w2 rows, MN-major
   unsigned char* W3s = sm;                // [2][STAGE]: w3 rows, after the 3x3
   unsigned char* D3s = sm + 2 * STAGE;    // [kAtom]: bf16(dy3) of a chunk
   bf16* Xs = reinterpret_cast<bf16*>(D3s + kAtom);  // [kTP][LDN]
@@ -453,66 +158,8 @@ __global__ void __launch_bounds__(kThreads, M <= 64 ? 2 : 1)
   tile_coords(prow, pcol, p0, np, h, w);
   __syncthreads();
 
-  // -- y2 = bf16(relu(sum_k shift_k(y1) @ w2[k] + b2)), K = 9 M in chunks
-  float acc[NA][32];
-#pragma unroll
-  for (int a = 0; a < NA; ++a)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[a][i] = 0.0f;
-  auto load = [&](int t, int s) {
-    const int tap = t / (M / KC), ch0 = (t % (M / KC)) * KC;
-    load_shifted_sw<KC>(As + s * kAtom, y1, M, ch0, tap / 3 - 1, tap % 3 - 1,
-                        p0, prow, pcol, h, w);
-    const bf16* src = w2 + (static_cast<size_t>(tap) * M + ch0) * M;
-    unsigned char* dst = Bs + s * STAGE;
-    for (int i = threadIdx.x; i < KC * (M / 8); i += kThreads) {
-      const int k = i / (M / 8), v = i % (M / 8);
-      cp_async16(dst + (v >> 3) * 8192 + sw(k, v & 7),
-                 src + static_cast<size_t>(k) * M + v * 8, true);
-    }
-    cp_commit();
-  };
-  load(0, 0);
-  for (int t = 0; t < T; ++t) {
-    if (t + 1 < T) {
-      load(t + 1, (t + 1) & 1);
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    proxy_fence();
-    __syncthreads();
-    const uint32_t a = saddr(As + (t & 1) * kAtom) + grow;
-    const uint32_t b = saddr(Bs + (t & 1) * STAGE);
-#pragma unroll
-    for (int n = 0; n < NA; ++n) pin(acc[n]);
-    wg_fence();
-#pragma unroll
-    for (int k = 0; k < KC / 16; ++k)
-#pragma unroll
-      for (int n = 0; n < NA; ++n)
-        wgmma64<0, 1>(acc[n], sw128_desc(a + 32 * k),
-                      sw128_desc(b + n * 8192 + 2048 * k));
-    wg_commit_wait();
-#pragma unroll
-    for (int n = 0; n < NA; ++n) pin(acc[n]);
-    __syncthreads();  // before the next load rewrites this stage
-  }
-#pragma unroll
-  for (int n = 0; n < NA; ++n)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = 64 * n + 8 * j + q2;
-      if (col < M) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          put2(Y2s, row0 + 8 * e, col,
-               fmaxf(acc[n][4 * j + 2 * e] + b2[col], 0.0f),
-               fmaxf(acc[n][4 * j + 2 * e + 1] + b2[col + 1], 0.0f));
-      }
-    }
-  proxy_fence();
-  __syncthreads();  // y2 complete
+  // -- y2 = bf16(relu(sum_k shift_k(y1) @ w2[k] + b2)), into Y2s
+  tile_y2<M>(sm, Y2s, y1, w2, b2, p0, prow, pcol, h, w);
   store_tile<M>(y2, M, 0, Y2s, p0, np);
 
   // -- per 64-channel chunk of C: y3 = y2 @ w3[:, chunk], dy3 and its column
@@ -524,11 +171,7 @@ __global__ void __launch_bounds__(kThreads, M <= 64 ? 2 : 1)
 #pragma unroll
     for (int i = 0; i < 32; ++i) accd[a][i] = 0.0f;
   auto load_w3 = [&](int n, int s) {
-    for (int i = threadIdx.x; i < M * 8; i += kThreads) {
-      const int k = i >> 3, v = i & 7;
-      cp_async16(W3s + s * STAGE + sw(k, v),
-                 w3 + static_cast<size_t>(k) * C + n * kNC + v * 8, true);
-    }
+    load_w3_chunk<M>(W3s + s * STAGE, w3, n);
     cp_commit();
   };
   load_w3(0, 0);
@@ -546,18 +189,7 @@ __global__ void __launch_bounds__(kThreads, M <= 64 ? 2 : 1)
     __syncthreads();  // w3's chunk landed; x and dy may still be in flight
     const uint32_t w3c = saddr(W3s + (n & 1) * STAGE);
     float acc3[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc3[i] = 0.0f;
-    pin(acc3);
-    wg_fence();
-#pragma unroll
-    for (int k = 0; k < M / 16; ++k)
-      wgmma64<0, 1>(acc3,
-                    sw128_desc(saddr(Y2s) + (k >> 2) * kAtom + grow +
-                               32 * (k & 3)),
-                    sw128_desc(w3c + 2048 * k));
-    wg_commit_wait();
-    pin(acc3);
+    chunk_y3<M>(acc3, saddr(Y2s), w3c, grow);
     if (n + 1 < NCH)
       cp_wait<1>();
     else
@@ -999,15 +631,6 @@ __global__ void sum_rows(const float* __restrict__ a, float* __restrict__ oa,
     for (int g = 0; g < 32; ++g) t += part[g][threadIdx.x];
     dst[col] = t;
   }
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) cudaGetLastError();  // not left for the next check
-  return err;
 }
 
 template <int M>

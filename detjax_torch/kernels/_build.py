@@ -32,8 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()  # guards _name_locks
 _name_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
-# name -> {"seconds": build time (0.0 when found built), "log": nvcc output,
-#          "path": the shared library}
+# name -> {"seconds": build time (0.0 when found built), "log": nvcc output
+#          (kept beside the library), "path": the shared library}
 build_info: Dict[str, dict] = {}
 
 
@@ -67,7 +67,9 @@ def load_library(name: str, sources: Sequence[str],
             digest.update(p.read_bytes())
         out_dir = BUILD_ROOT / f"{name}-{digest.hexdigest()[:16]}"
         lib_path = out_dir / f"lib{name}.so"
-        info = {"seconds": 0.0, "log": "", "path": str(lib_path)}
+        log_path = out_dir / "nvcc.log"
+        info = {"seconds": 0.0, "path": str(lib_path),
+                "log": log_path.read_text() if log_path.is_file() else ""}
         if not lib_path.is_file():
             out_dir.mkdir(parents=True, exist_ok=True)
             tmp = out_dir / f".lib{name}.{os.getpid()}.so"
@@ -78,9 +80,10 @@ def load_library(name: str, sources: Sequence[str],
                 raise RuntimeError(
                     f"nvcc failed ({proc.returncode}) building {name}:\n"
                     f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-            os.replace(tmp, lib_path)
             info.update(seconds=time.perf_counter() - t0,
                         log=proc.stdout + proc.stderr)
+            log_path.write_text(info["log"])
+            os.replace(tmp, lib_path)
         lib = ctypes.CDLL(str(lib_path))
         _libs[name] = lib
         build_info[name] = info

@@ -4,32 +4,34 @@
 bottleneck.py::_bottleneck_fwd`` (body ``_fwd_kernel``) and, for its
 gradient, ``_bottleneck_bwd`` (body ``_bwd_kernel``) with the hand-written
 kernels in ``detjax_torch/csrc/bottleneck.cu`` and
-``detjax_torch/csrc/bottleneck_bwd.cu``. The forward computes a whole
-stride-1 ResNet identity block with its frozen BatchNorms folded into the
-convs: ``relu(conv3(relu(conv2(relu(conv1(x))))) + x)``, in bf16 with fp32
-accumulation, and keeps y1 and y2 out of device memory. One block takes two
-output rows of one image; y1 for those rows and their halo rows sits in
-shared memory with zeroed borders, so the 3x3's zero padding costs nothing.
-Both kernels take any width W. The forward cuts a row into 16-pixel tiles
-and masks a last, partial one (its pixels past W load as zeros, add nothing
-to a sum and are never stored). The backward recomputes y1 and y2 from x and
-returns dx and the six weight and bias gradients, rounding where
-``_bwd_kernel`` rounds, in five launches: three kernels over 128-pixel tiles
-write dx and every weight-gradient operand to transient bf16 scratch, a
-split-K kernel reduces the weight gradients over contiguous pixel ranges
-into one fp32 partial per part, and a last kernel sums the partials and the
-tiles' bias sums in a fixed order (the bits do not change between runs).
-:func:`bwd_plan` is the partition in Python.
+``detjax_torch/csrc/bottleneck_bwd.cu``, which share their tiles and
+products through ``csrc/bottleneck_common.cuh``. The forward computes a
+whole stride-1 ResNet identity block with its frozen BatchNorms folded into
+the convs: ``relu(conv3(relu(conv2(relu(conv1(x))))) + x)``, in bf16 with
+fp32 accumulation, rounding where ``_fwd_kernel`` rounds. Both cut the
+B H W pixels into flat 128-pixel tiles (a tile may straddle rows and
+images), so both take any width W. The forward is two launches: y1 to a
+transient bf16 scratch, then per tile the 3x3 over y1 read back with its
+halo (zero outside the image) into shared memory, and the second 1x1, the
+residual and the ReLU 64 channels at a time; y2 never reaches device
+memory. :func:`fwd_plan` is its partition in Python. The backward
+recomputes y1 and y2 from x and returns dx and the six weight and bias
+gradients, rounding where ``_bwd_kernel`` rounds, in five launches: three
+kernels over the same tiles write dx and every weight-gradient operand to
+transient bf16 scratch, a split-K kernel reduces the weight gradients over
+contiguous pixel ranges into one fp32 partial per part, and a last kernel
+sums the partials and the tiles' bias sums in a fixed order (the bits do
+not change between runs). :func:`bwd_plan` is its partition in Python.
+Every product of both is Hopper's ``wgmma`` from 128-byte-swizzled shared
+tiles.
 
 What bounds them on an H100: the forward is bound by bytes at the main
 path's shapes, reading x and writing the output once (210 MB for layer1 at
 B=8, 0.063 ms at 3.35 TB/s), with the tensor-core operations just below
 (28.5 GFLOP, 0.029 ms at 989 TFLOP/s). The backward at the training shapes
 (B=16) is bound by bytes at layer1 (x and dy read, dx written: 0.188 ms) and
-by operations at layer2 (three times the forward's: 0.173 ms). The forward
-uses ``nvcuda::wmma`` bf16 fragments with fp32 accumulators, the backward
-Hopper's ``wgmma``; both are far from those bounds; their times are in
-``PERF.md``.
+by operations at layer2 (three times the forward's: 0.173 ms). Both are far
+from those bounds; their times are in ``PERF.md``.
 
 Layout: NHWC, as detjax's kernels take it. The port's modules hold NCHW
 tensors in ``channels_last`` memory, so ``x.permute(0, 2, 3, 1)`` is
@@ -40,18 +42,19 @@ folded weights are small contiguous copies.
 Routing: :func:`bottleneck_identity` runs the autograd function
 ``_FusedBottleneck``. Its forward sends a CPU tensor to the plain twin
 :func:`bottleneck_identity_reference` and a CUDA tensor to the forward
-kernel (or raises); its backward sends CPU tensors to the plain twin
+kernels (or raises); its backward sends CPU tensors to the plain twin
 :func:`bottleneck_identity_backward_reference` and CUDA tensors to the
-backward kernel (or raises). Tests and ``chip_smoke.py`` call the twins
+backward kernels (or raises). Tests and ``chip_smoke.py`` call the twins
 directly on any device to compare whole paths
 (``Detector.bottleneck_backend="torch"`` differentiates through the forward
-twin by plain autograd). ``bottleneck_launches`` counts
-forward-kernel launches, ``bottleneck_bwd_launches`` calls of the fused
-backward on CUDA tensors and ``bottleneck_bwd_kernel_launches`` the CUDA
-kernels those calls launched, as the launcher counts them (one for each
-launch the CUDA runtime accepted; ``BWD_KERNELS`` a call), and nothing else;
-``bottleneck_bwd_grad_copies`` counts gradients that arrived in another
-layout or dtype than the kernel takes and were copied.
+twin by plain autograd). ``bottleneck_launches`` counts calls of the fused
+forward on CUDA tensors and ``bottleneck_kernel_launches`` the CUDA kernels
+they launched; ``bottleneck_bwd_launches`` and
+``bottleneck_bwd_kernel_launches`` count the same for the backward. The
+kernels are counted as the launchers count them (one for each launch the
+CUDA runtime accepted; ``FWD_KERNELS`` and ``BWD_KERNELS`` a call), and
+nothing else; ``bottleneck_bwd_grad_copies`` counts gradients that arrived
+in another layout or dtype than the kernel takes and were copied.
 """
 
 from __future__ import annotations
@@ -67,7 +70,8 @@ import torch.nn.functional as F
 # and layer2 (64, 128) and narrow test widths.
 WIDTHS = (16, 32, 64, 128)
 
-bottleneck_launches = 0
+bottleneck_launches = 0  # calls of the fused forward
+bottleneck_kernel_launches = 0  # CUDA kernels those calls launched
 bottleneck_bwd_launches = 0  # calls of the fused backward
 bottleneck_bwd_kernel_launches = 0  # CUDA kernels those calls launched
 bottleneck_bwd_grad_copies = 0
@@ -83,13 +87,18 @@ def _lib():
 
         lib = load_library("detjax_bottleneck", ["bottleneck.cu"])
         fn = lib.detjax_bottleneck_fwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
-        lib.detjax_bottleneck_smem_bytes.argtypes = [ctypes.c_int] * 2
-        lib.detjax_bottleneck_smem_bytes.restype = ctypes.c_int
-        lib.detjax_bottleneck_max_width.argtypes = [ctypes.c_int] * 2
-        lib.detjax_bottleneck_max_width.restype = ctypes.c_int
+        lib.detjax_bottleneck_fwd_geometry.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.detjax_bottleneck_fwd_geometry.restype = ctypes.c_int
+        for m in WIDTHS:  # the launcher's tiles are fwd_plan's
+            tile = _geometry(lib.detjax_bottleneck_fwd_geometry, m,
+                             FWD_GEOMETRY)["pixel_tile"]
+            if tile != PIXEL_TILE:
+                raise RuntimeError(f"the forward library's tile at M={m} is "
+                                   f"{tile} pixels, fwd_plan's {PIXEL_TILE}")
         _LIB = lib
     return _LIB
 
@@ -108,7 +117,8 @@ def _bwd_lib():
             ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         lib.detjax_bottleneck_bwd_geometry.restype = ctypes.c_int
         for m in WIDTHS:  # the launcher's partition is bwd_plan's
-            geom = _geometry(lib, m)
+            geom = _geometry(lib.detjax_bottleneck_bwd_geometry, m,
+                             BWD_GEOMETRY)
             want = {"pixel_tile": BWD_PIXEL_TILE,
                     "pixel_step": BWD_PIXEL_STEP,
                     "weight_tile": bwd_weight_tile(m),
@@ -120,20 +130,41 @@ def _bwd_lib():
     return _BWD_LIB
 
 
-def smem_bytes(w: int, m: int) -> int:
-    """Dynamic shared memory of one forward-kernel block at width ``w`` and
-    ``M = m``, as the launcher computes it (builds the library)."""
-    return int(_lib().detjax_bottleneck_smem_bytes(w, m))
+# Both directions cut the B H W pixels of a block, one image after another,
+# into flat tiles of PIXEL_TILE; the forward launches FWD_KERNELS a call.
+PIXEL_TILE = 128
+FWD_KERNELS = 2  # y1, then y2 / y3 / out
 
 
-def max_width(m: int, device: int = 0) -> int:
-    """The widest row the forward kernel takes at ``M = m`` on CUDA device
-    ``device``: the shared memory of a block must fit the card's limit
-    (builds the library)."""
-    w = int(_lib().detjax_bottleneck_max_width(m, device))
-    if w < 0:
-        raise RuntimeError(f"cudaDeviceGetAttribute failed: cudaError {-w}")
-    return w
+def fwd_plan(b: int, h: int, w: int, m: int) -> dict:
+    """How the forward cuts a [b, h, w, 4 m] block: pixel tiles of both
+    kernels (the backward's activation tiles), the kernels a call and the
+    bytes of the bf16 y1 scratch [B H W, M]. Pure arithmetic: the wrapper
+    launches with it and the CPU tests check it."""
+    npx = b * h * w
+    return {"pixel_tile": PIXEL_TILE, "tiles": -(-npx // PIXEL_TILE),
+            "kernels": FWD_KERNELS, "scratch_bytes": 2 * npx * m}
+
+
+# What the launchers' geometry calls report, in order
+FWD_GEOMETRY = ("pixel_tile", "smem_y1", "smem_tile")
+BWD_GEOMETRY = ("pixel_tile", "pixel_step", "weight_tile", "jobs", "smem_y1",
+                "smem_tile", "smem_wgrad")
+
+
+def _geometry(fn, m: int, keys) -> dict:
+    out = (ctypes.c_int * len(keys))()
+    err = fn(m, out)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed: cudaError {err} (M={m})")
+    return dict(zip(keys, out))
+
+
+def fwd_geometry(m: int) -> dict:
+    """The forward launcher's pixel tile at ``M = m`` and the dynamic
+    shared memory of its kernels, ``smem_y1`` and ``smem_tile``; neither
+    depends on W (builds the library)."""
+    return _geometry(_lib().detjax_bottleneck_fwd_geometry, m, FWD_GEOMETRY)
 
 
 # The backward's partition (csrc/bottleneck_bwd.cu; the launcher reports
@@ -143,7 +174,7 @@ def max_width(m: int, device: int = 0) -> int:
 # of BWD_PIXEL_TILE; the weight-gradient kernel cuts dw1 / dw2 (per tap) /
 # dw3 into square tiles of bwd_weight_tile(M) and reduces each over
 # contiguous pixel ranges ("parts") in steps of BWD_PIXEL_STEP.
-BWD_PIXEL_TILE = 128
+BWD_PIXEL_TILE = PIXEL_TILE
 BWD_PIXEL_STEP = 64
 BWD_KERNELS = 5  # y1, dy3/dc2, dc1/dx, weight gradients, ordered sums
 # weight-gradient blocks (jobs x parts) to aim at, per SM: 8, 16 and 32
@@ -200,23 +231,13 @@ def bwd_plan(b: int, h: int, w: int, m: int, sms: int = None) -> dict:
             "workspace_bytes": 4 * (parts * weight_floats + tiles * 6 * m)}
 
 
-def _geometry(lib, m: int) -> dict:
-    out = (ctypes.c_int * 7)()
-    err = lib.detjax_bottleneck_bwd_geometry(m, out)
-    if err != 0:
-        raise RuntimeError(f"bottleneck backward geometry failed: cudaError "
-                           f"{err} (M={m})")
-    keys = ("pixel_tile", "pixel_step", "weight_tile", "jobs", "smem_y1",
-            "smem_tile", "smem_wgrad")
-    return dict(zip(keys, out))
-
-
 def bwd_geometry(m: int) -> dict:
     """The launcher's own copy of the partition constants at ``M = m`` and
     the dynamic shared memory of its kernels: ``smem_y1``, ``smem_tile``
     (dc2_kernel and dc1_kernel each) and ``smem_wgrad`` (builds the
     library)."""
-    return _geometry(_bwd_lib(), m)
+    return _geometry(_bwd_lib().detjax_bottleneck_bwd_geometry, m,
+                     BWD_GEOMETRY)
 
 
 def bottleneck_identity_reference(x: torch.Tensor, w1: torch.Tensor,
@@ -347,7 +368,7 @@ def _check_kernel_args(x, w1, b1, w2, b2, w3, b3, dy=None
             raise ValueError(f"{name} must be contiguous (x and dy as NHWC)")
     for name, t in bf16:
         if t.data_ptr() % 32:
-            raise ValueError(f"{name} must be 32-byte aligned (wmma tiles)")
+            raise ValueError(f"{name} must be 32-byte aligned")
     if m not in WIDTHS:
         raise ValueError(f"M={m} is not one of the kernel's widths {WIDTHS}")
     return bsz, h, w, c, m
@@ -359,26 +380,30 @@ def _stream(dev: torch.device) -> Tuple[int, int]:
 
 
 def _launch(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
-    """Checks what the forward kernel takes, then launches it on the
-    current stream; raises on anything else."""
-    global bottleneck_launches
+    """Checks what the forward kernels take, then launches them on the
+    current stream with the y1 scratch from ``torch.empty`` (freed on
+    return; the caching allocator keeps it stream-ordered); raises on
+    anything else."""
+    global bottleneck_launches, bottleneck_kernel_launches
     bsz, h, w, c, m = _check_kernel_args(x, w1, b1, w2, b2, w3, b3)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     lib = _lib()
     index, stream = _stream(x.device)
+    plan = fwd_plan(bsz, h, w, m)
+    y1 = torch.empty(bsz * h * w, m, dtype=torch.bfloat16, device=x.device)
+    launched = ctypes.c_int(0)
     err = lib.detjax_bottleneck_fwd_launch(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
-        bsz, h, w, m, index, stream)
-    if err != 0:
-        widest = ", ".join(f"W <= {max_width(mm, index)} at M={mm}"
-                           for mm in WIDTHS)
-        raise RuntimeError(f"bottleneck kernel launch failed: cudaError {err} "
-                           f"(W={w}, M={m}: {smem_bytes(w, m)} bytes of "
-                           f"shared memory a block; the kernel takes "
-                           f"{widest})")
+        b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), y1.data_ptr(),
+        out.data_ptr(), bsz, h, w, m, index, stream, ctypes.byref(launched))
+    bottleneck_kernel_launches += launched.value
+    if err != 0 or launched.value != plan["kernels"]:
+        raise RuntimeError(
+            f"bottleneck kernel launch failed: cudaError {err} after "
+            f"{launched.value} of {plan['kernels']} kernels (B={bsz}, H={h}, "
+            f"W={w}, M={m}; plan {plan})")
     bottleneck_launches += 1
     return out
 

@@ -223,26 +223,35 @@ def _twin_without_tf32(args):
 
 @pytest.mark.parametrize("b,h,w,m", [
     (2, 8, 16, 16),  # small
-    (1, 7, 32, 32),  # B=1, H not a multiple of the 2-row tile
+    (1, 7, 32, 32),  # B=1, odd H: the last tile part-filled
     (1, 5, 48, 64),  # odd H at layer1's width
     (8, 160, 160, 64),  # layer1 of R50 at 640 px, eval batch 8
     (8, 80, 80, 128),  # layer2
-    (2, 5, 8, 16),  # W < 16: one masked tile a row
-    (1, 6, 24, 32),  # a masked tail tile
+    (2, 5, 8, 16),  # W < 16: a tile holds many rows
+    (1, 6, 24, 32),  # W not a multiple of 16
     (2, 7, 104, 128),  # layer2's width on a 608x832 canvas
+    (16, 160, 160, 64),  # layer1 at train batch 16
+    (16, 80, 80, 128),  # layer2 at train batch 16
+    (1, 2, 4096, 16),  # a 4096-px row: 32 tiles a row
+    (3, 11, 13, 32),  # 128-pixel tiles straddle rows and images
+    (2, 7, 20, 64),  # a tile holds the end of one image and the next's top
+    (1, 1, 3, 64),  # B H W = 3: one part-filled tile
 ])
 def test_bottleneck_kernel_matches_twin(cuda, b, h, w, m):
     """detjax's bars for kernel vs oracle (tests/test_kernels.py:175-177):
     within 0.05 x max(|twin|, 1), under 1 % of elements differing (the
-    kernel's fp32 sums run in another order than cuDNN's)."""
+    kernel's fp32 sums run in another order than cuDNN's). Two runs give
+    equal bits."""
     from detjax_torch.kernels import bottleneck as kb
 
     x, weights = _bottleneck_case(b * 131 + h + m, b, h, w, m, cuda)
     before = kb.bottleneck_launches
     got = kb.bottleneck_identity(x, *weights)
+    again = kb.bottleneck_identity(x, *weights)
     want = _twin_without_tf32([x, *weights])
     torch.cuda.synchronize()
-    assert kb.bottleneck_launches == before + 1
+    assert kb.bottleneck_launches == before + 2
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
     assert torch.isfinite(got.float()).all()
     err = (got.float() - want.float()).abs().max().item()
@@ -279,12 +288,70 @@ def test_bottleneck_wrapper_raises_instead_of_falling_back(cuda):
     before += 1
     with pytest.raises(ValueError, match="one device"):
         kb.bottleneck_identity(x, w[0].cpu(), *w[1:])
-    # a row too wide for one block's shared memory: the launcher refuses,
-    # naming the widest row it takes at each M
-    with pytest.raises(RuntimeError, match="shared memory.*W <= 816 at M=16"):
-        kb.bottleneck_identity(torch.zeros(1, 2, 4096, 64, device=cuda,
-                                           dtype=torch.bfloat16), *w)
     assert kb.bottleneck_launches == before
+    # a 4096-px row is cut into pixel tiles like any other, not refused:
+    # held to the twin, every kernel's shared memory within the card's
+    # limit whatever W
+    wx, ww = _bottleneck_case(1, 1, 2, 4096, 16, cuda)
+    geom = kb.fwd_geometry(16)
+    assert geom["pixel_tile"] == kb.fwd_plan(1, 2, 4096, 16)["pixel_tile"]
+    assert max(geom["smem_y1"], geom["smem_tile"]) <= 232448
+    got = kb.bottleneck_identity(wx, *ww)
+    want = _twin_without_tf32([wx, *ww])
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= 0.05 * max(
+        want.float().abs().max().item(), 1.0)
+    assert (got != want).float().mean().item() < 0.01
+    assert kb.bottleneck_launches == before + 1
+
+
+def test_bottleneck_fwd_launches_the_planned_kernels(cuda):
+    """One call of the fused forward counts one in bottleneck_launches and,
+    in bottleneck_kernel_launches, the CUDA kernels the launcher reports it
+    launched (one for each launch the runtime accepted): fwd_plan's two (y1,
+    then y2 / y3 / out), at a shape whose last tile is part-filled. The y1
+    scratch is freed when the call returns: allocated memory is back to its
+    value before the call, the output aside."""
+    from detjax_torch.kernels import bottleneck as kb
+
+    x, weights = _bottleneck_case(7, 2, 6, 40, 64, cuda)
+    plan = kb.fwd_plan(2, 6, 40, 64)
+    assert plan["kernels"] == kb.FWD_KERNELS == 2
+    kb.bottleneck_identity(x, *weights)  # builds and loads the library
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    calls, kernels = kb.bottleneck_launches, kb.bottleneck_kernel_launches
+    out = kb.bottleneck_identity(x, *weights)
+    torch.cuda.synchronize()
+    assert kb.bottleneck_launches == calls + 1
+    assert kb.bottleneck_kernel_launches - kernels == plan["kernels"]
+    held = torch.cuda.memory_allocated() - before
+    kept = out.untyped_storage().nbytes()
+    assert kept <= held < kept + 512  # the allocator's 512-byte blocks
+    assert plan["scratch_bytes"] > 0
+    del out
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+
+
+@pytest.mark.parametrize("b,h,w,m", [(16, 160, 160, 64), (16, 80, 80, 128)])
+def test_fused_forward_and_backward_agree_on_the_output_mask(cuda, b, h, w,
+                                                             m):
+    """The backward recomputes the forward's pre-activation (y2 @ w3 + b3)
+    + x with the same device code in the same order, so with dy = 1 its
+    db3, the sum of dy over the pixels where that pre-activation is
+    positive, equals for every channel the count of the forward's out > 0,
+    exactly (R50's fused shapes at train batch 16)."""
+    from detjax_torch.kernels import bottleneck as kb
+
+    x, weights = _bottleneck_case(b + h + m, b, h, w, m, cuda)
+    out = kb.bottleneck_identity(x, *weights)
+    dy = torch.ones_like(x)
+    db3 = kb.bottleneck_identity_backward(x, dy, *weights)[6]
+    count = (out > 0).reshape(-1, 4 * m).sum(0, dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert 0 < count.sum() < count.numel() * b * h * w  # masks differ
+    assert torch.equal(db3[0], count)
 
 
 def test_fused_detect_path_runs_the_kernel(cuda):
