@@ -14,9 +14,12 @@ kernel (``kernels/stem.py::max_pool_3x3s2``, which no model path calls).
 Builds every CUDA kernel of those paths from ``detjax_torch/csrc/`` (one
 nvcc per source, all started together; also, from ``smoke_prior/``, the
 fused forward as it stood at commit 2503cdf, one kernel on wmma, timed in
-turns against the current one and the unfused cuDNN block), holds each
-kernel against its plain PyTorch twin on the card, and checks that each
-path really launched its kernels. Prints JSON lines; the last line is
+turns against the current one and the unfused cuDNN block, and the NMS
+and matching kernels as they stood at commit be25ba5, timed in turns
+against the current ones; and the NMS kernel's instrumented build, which
+reports cycles by phase), holds each kernel
+against its plain PyTorch twin on the card, and checks that each path
+really launched its kernels. Prints JSON lines; the last line is
 ``{"ok": true, "device": {...}}`` and appears only when every phase
 passed. Exits non-zero without a CUDA device.
 
@@ -61,6 +64,63 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+_SPIN_CYCLES_PER_MS = []
+
+
+def spin_cycles_per_ms() -> float:
+    """Cycles of torch.cuda._sleep's spin kernel a ms on this card, timed
+    once with CUDA events."""
+    if not _SPIN_CYCLES_PER_MS:
+        cycles = 20_000_000
+        torch.cuda._sleep(cycles)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        _SPIN_CYCLES_PER_MS.append(cycles / start.elapsed_time(end))
+    return _SPIN_CYCLES_PER_MS[0]
+
+
+def device_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device ms per call of ``fn``: CUDA events around ``iters`` calls,
+    as cuda_ms, with the calls queued behind a spin kernel long enough for
+    the host to enqueue them all first, so that they run back to back and
+    the host's own time per call (allocation, checks, launches) is not in
+    the number; cuda_ms of a wrapper measures whichever of the two is
+    slower. When the host takes longer to enqueue the calls than the spin
+    lasts, the timing is taken again behind a longer spin, at most three
+    times, and then the phase fails."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn()
+    host_ms = (time.perf_counter() - t0) / warmup * 1e3
+    torch.cuda.synchronize()
+    spin_ms = 2.0 * host_ms * iters + 2.0
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms * spin_cycles_per_ms()))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        if enqueue_ms < spin_ms:
+            return start.elapsed_time(end) / iters
+        emit({"device_ms": "the host fell behind the spin; again, longer",
+              "spin_ms": spin_ms, "enqueue_ms": enqueue_ms})
+        spin_ms = 2.0 * enqueue_ms
+    raise SystemExit(f"device_ms: the host fell behind the spin three times "
+                     f"(last {enqueue_ms:.3f} ms to enqueue {iters} calls)")
+
+
 def hard_candidates(seed: int, b: int = 8, n: int = 1000, k: int = 24):
     """Seeded NMS inputs built to be hard: overlapping clusters, >= 20
     classes, exact score ties, pre-suppressed -1e10 entries, one image that
@@ -87,13 +147,13 @@ def hard_candidates(seed: int, b: int = 8, n: int = 1000, k: int = 24):
     return boxes, scores, labels
 
 
-def nms_bound_ms(b: int, n: int, max_det: int, steps: int) -> tuple:
+def nms_bound_ms(b: int, n: int, max_det: int, pairs: int) -> tuple:
     """Least time for the NMS at these shapes: bytes moved (inputs read
     once, outputs written once) over the memory rate, and the IoU work of
-    the ``steps`` suppression passes this data needs (14 fp32 operations
-    a candidate a pass) over the fp32 rate."""
+    ``pairs`` (keep, candidate) comparisons (14 fp32 operations each) over
+    the fp32 rate."""
     nbytes = b * n * (16 + 4 + 4) + b * max_det * (4 + 4)
-    ops = 14.0 * n * steps
+    ops = 14.0 * pairs
     t_bytes = nbytes / H100["bytes_per_s"] * 1e3
     t_ops = ops / H100["fp32_flops"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -140,9 +200,121 @@ def prior_fwd_call(x, wts):
     return call
 
 
+# Timing references of the NMS and matching kernels as they stood at commit
+# be25ba5 (one block per image with max_det block-wide argmaxes; one
+# thread per anchor scanning every GT slot), in smoke_prior/ beside this
+# script, through their own C interfaces; no code path of detjax_torch
+# calls them.
+PRIOR_NMS_MATCH = "be25ba5"
+
+
+def prior_nms_lib():
+    """The library of smoke_prior/nms_<PRIOR_NMS_MATCH>.cu."""
+    import ctypes
+
+    from detjax_torch.kernels._build import load_library
+
+    lib = load_library(f"detjax_nms_{PRIOR_NMS_MATCH}",
+                       [f"nms_{PRIOR_NMS_MATCH}.cu"], src_dir=PRIOR_DIR)
+    fn = lib.detjax_nms_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def prior_match_lib():
+    """The library of smoke_prior/matching_<PRIOR_NMS_MATCH>.cu."""
+    import ctypes
+
+    from detjax_torch.kernels._build import load_library
+
+    lib = load_library(f"detjax_match_{PRIOR_NMS_MATCH}",
+                       [f"matching_{PRIOR_NMS_MATCH}.cu"], src_dir=PRIOR_DIR)
+    fn = lib.detjax_match_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def nms_profile_lib():
+    """csrc/nms.cu built with -DDETJAX_NMS_PROFILE: the same kernel, with
+    clock reads at its barriers, through ``detjax_nms_profile_launch``;
+    no code path of detjax_torch loads it."""
+    import ctypes
+
+    from detjax_torch.kernels._build import load_library
+
+    lib = load_library("detjax_nms_profile", ["nms.cu"],
+                       flags=("-DDETJAX_NMS_PROFILE",))
+    fn = lib.detjax_nms_profile_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def prior_nms_call(boxes, scores, labels, thr, max_det, offset):
+    """A no-argument call of the prior NMS kernel on these inputs; it
+    returns its outputs, allocated once, outside the call."""
+    lib = prior_nms_lib()
+    b, n = scores.shape
+    keep_idx = torch.empty((b, max_det), dtype=torch.int32,
+                           device=boxes.device)
+    keep_scores = torch.empty((b, max_det), device=boxes.device)
+
+    def call():
+        err = lib.detjax_nms_launch(
+            boxes.data_ptr(), scores.data_ptr(), labels.data_ptr(),
+            keep_idx.data_ptr(), keep_scores.data_ptr(), b, n, max_det,
+            float(thr), float(offset), boxes.device.index or 0,
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise SystemExit(f"the NMS at {PRIOR_NMS_MATCH} failed to "
+                             f"launch: cudaError {err}")
+        return keep_idx, keep_scores
+    return call
+
+
+def prior_match_call(anchors, boxes, valid, labels):
+    """A no-argument call of the prior matching kernel on these inputs; it
+    returns its four outputs, allocated once, outside the call."""
+    lib = prior_match_lib()
+    b, g = valid.shape
+    a = anchors.shape[0]
+    dev = anchors.device
+    outs = (torch.empty((b, a), device=dev),
+            torch.empty((b, a), dtype=torch.int32, device=dev),
+            torch.empty((b, a, 4), device=dev),
+            torch.empty((b, a), dtype=torch.int32, device=dev))
+
+    def call():
+        err = lib.detjax_match_launch(
+            anchors.data_ptr(), boxes.data_ptr(), valid.data_ptr(),
+            labels.data_ptr(), *(t.data_ptr() for t in outs), b, a, g,
+            dev.index or 0, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise SystemExit(f"the matching at {PRIOR_NMS_MATCH} failed to "
+                             f"launch: cudaError {err}")
+        return outs
+    return call
+
+
+def in_turns(calls: dict, order, iters: int) -> dict:
+    """Device ms a call of each of ``calls`` (device_ms), timed in
+    ``order`` (e.g. prior, new, new, prior) in one call; the mean of each
+    name's turns, and the turns themselves."""
+    turns = [(c, device_ms(calls[c], iters=iters)) for c in order]
+    return {"ms": {c: float(np.mean([t for k, t in turns if k == c]))
+                   for c in calls}, "turns": turns}
+
+
 def ptxas_by_kernel(log: str, names) -> dict:
     """Registers, spill bytes and static shared memory of each instance of
-    the kernels ``names`` in an ``nvcc -Xptxas -v`` log, keyed "name<M>"."""
+    the kernels ``names`` in an ``nvcc -Xptxas -v`` log, keyed "name<M>"
+    or "name<T,A>" (templates over ints) or "name"."""
     found, current = {}, None
     for line in log.splitlines():
         entry = re.search(r"(?:Compiling entry function|Function properties "
@@ -150,9 +322,12 @@ def ptxas_by_kernel(log: str, names) -> dict:
         if entry:
             current = None
             for name in names:
-                m = re.search(rf"{name}ILi(\d+)E", entry.group(1))
+                m = re.search(rf"{name}(?:I((?:Li\d+E)+)E|E)",
+                              entry.group(1))
                 if m:
-                    current = found.setdefault(f"{name}<{m.group(1)}>", {})
+                    args = re.findall(r"Li(\d+)E", m.group(1) or "")
+                    key = f"{name}<{','.join(args)}>" if args else name
+                    current = found.setdefault(key, {})
             continue
         if current is None:
             continue
@@ -187,6 +362,12 @@ def phase_build() -> None:
                 ("maxpool_bwd", "maxpool_bwd.cu", ks._lib))}
     libs[f"detjax_bottleneck_fwd_{PRIOR_FWD}"] = (
         f"smoke_prior/bottleneck_fwd_{PRIOR_FWD}.cu", prior_fwd_lib)
+    libs[f"detjax_nms_{PRIOR_NMS_MATCH}"] = (
+        f"smoke_prior/nms_{PRIOR_NMS_MATCH}.cu", prior_nms_lib)
+    libs[f"detjax_match_{PRIOR_NMS_MATCH}"] = (
+        f"smoke_prior/matching_{PRIOR_NMS_MATCH}.cu", prior_match_lib)
+    libs["detjax_nms_profile"] = (
+        "detjax_torch/csrc/nms.cu -DDETJAX_NMS_PROFILE", nms_profile_lib)
     errors: dict = {}
 
     def build(name, fn):
@@ -215,41 +396,261 @@ def phase_build() -> None:
                         or "Compiling entry" in ln or "spill" in ln]})
 
 
-def phase_kernel(report: dict) -> None:
+# the CUDA kernels of one nms_cuda call
+NMS_KERNEL_NAMES = ("nms_kernel",)
+
+
+def sorted_rows(boxes, scores, labels):
+    """The same candidates in the main path's order: each row by a stable
+    descending sort of its scores, pre-suppressed entries last."""
+    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
+    return (boxes.gather(1, order[..., None].expand(-1, -1, 4)).contiguous(),
+            scores.gather(1, order).contiguous(),
+            labels.gather(1, order).contiguous())
+
+
+def rows_out_of_order(scores) -> int:
+    """Rows the NMS kernel sorts: a live candidate after a dead one, or
+    live scores rising."""
+    live = scores > -5e9
+    bad = live[:, 1:] & (~live[:, :-1] | (scores[:, :-1] < scores[:, 1:]))
+    return int(bad.any(dim=1).sum())
+
+
+# calls traced by traced_counts
+TRACED_CALLS = 10
+
+
+def traced_counts(fn, want: dict, what: str):
+    """Device ms a call of ``fn`` spends in each CUDA kernel, from
+    torch.profiler over TRACED_CALLS calls; the phase fails unless the
+    profiler's launches a call equal ``want`` (kernel -> launches a call,
+    the launcher's count), with no other kernel. None when the profiler
+    records no device time."""
+    traced = kernel_ms_by_name(fn, calls=TRACED_CALLS)
+    if traced is None:
+        return None
+    ms, per_call = traced
+    seen = {k: round(v * TRACED_CALLS) for k, v in per_call.items()}
+    if seen != {k: v * TRACED_CALLS for k, v in want.items()}:
+        raise SystemExit(f"torch.profiler saw {seen} records over "
+                         f"{TRACED_CALLS} calls of {what}, the launcher "
+                         f"counted {want} a call")
+    return ms
+
+
+# the phases the NMS kernel's instrumented build times, in clock64 cycles
+# of thread 0 between barriers, per row
+NMS_PHASES = ("order", "load", "a_against_keeps", "b_triangle", "c_keeps",
+              "c_outputs", "row", "rounds")
+
+
+def nms_phase_cycles(args) -> dict:
+    """Cycles a row of ``args`` spends in each phase of the NMS kernel,
+    from its instrumented build (nms_profile_lib; its keep-sets checked
+    against the twin's): the mean over rows with a live candidate, and the
+    max."""
+    import ctypes
+
     from detjax_torch.kernels import postprocess as pp
 
+    boxes, scores, labels, thr, max_det, offset = args
+    b, n = scores.shape
+    dev = boxes.device
+    keep_idx = torch.empty((b, max_det), dtype=torch.int32, device=dev)
+    keep_scores = torch.empty((b, max_det), device=dev)
+    scratch = torch.empty((pp.nms_scratch_bytes(b, max_det),),
+                          dtype=torch.uint8, device=dev)
+    cycles = torch.zeros((b, len(NMS_PHASES)), dtype=torch.int64, device=dev)
+    launched = ctypes.c_int(0)
+    for _ in range(2):  # the second run's clocks, after a warm-up
+        err = nms_profile_lib().detjax_nms_profile_launch(
+            boxes.data_ptr(), scores.data_ptr(), labels.data_ptr(),
+            keep_idx.data_ptr(), keep_scores.data_ptr(), scratch.data_ptr(),
+            b, n, max_det, float(thr), float(offset), cycles.data_ptr(),
+            dev.index or 0, torch.cuda.current_stream().cuda_stream,
+            ctypes.byref(launched))
+        if err != 0:
+            raise SystemExit(f"the instrumented NMS failed: cudaError {err}")
+    ri, rs = pp.nms_reference(*args)
+    if not (torch.equal(keep_idx, ri) and torch.equal(keep_scores, rs)):
+        raise SystemExit("the NMS kernel's instrumented build disagrees "
+                         "with the twin")
+    c = cycles.double()
+    walked = c[:, NMS_PHASES.index("rounds")] > 0
+    return {"mean": dict(zip(NMS_PHASES, c[walked].mean(0).tolist())),
+            "max": dict(zip(NMS_PHASES, c.max(0).values.tolist())),
+            "rows_walked": int(walked.sum())}
+
+
+def nms_pairs_needed(args, keep_idx) -> tuple:
+    """Candidates a row walks and the (keep, candidate) IoU pairs the
+    greedy sweep needs, for the NMS on ``args`` that kept ``keep_idx`` (the
+    twin's): a row's candidates in (score desc, index asc) order up to its
+    last keep (all its live ones when it kept fewer than max_det), each
+    compared with the keeps before it up to the first that suppresses
+    it."""
+    boxes, scores, labels, thr, max_det, offset = args
+    b = scores.shape[0]
+    dev = scores.device
+    kept = (keep_idx >= 0).sum(dim=1)
+    live = (scores > -5e9).sum(dim=1)
+    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
+    rank = torch.argsort(order, dim=1)
+    keeps = keep_idx.clamp(min=0).long()
+    ranks = rank.gather(1, keeps)  # [B, max_det]
+    last = ranks.gather(1, (kept - 1).clamp(min=0)[:, None])[:, 0]
+    walked = torch.where(kept == max_det, last + 1, live)
+    off = boxes + (labels.to(torch.float32) * offset)[..., None]
+
+    def area(x):
+        return ((x[..., 2] - x[..., 0]).clamp(min=0)
+                * (x[..., 3] - x[..., 1]).clamp(min=0))
+    pairs = 0
+    for r0 in range(0, b, 64):
+        rows = slice(r0, r0 + 64)
+        w = int(walked[rows].max())
+        if w == 0:
+            continue
+        cand = off[rows].gather(1, order[rows, :w, None].expand(-1, -1, 4))
+        kb = off[rows].gather(1, keeps[rows, :, None].expand(-1, -1, 4))
+        lt = torch.maximum(kb[:, :, None, :2], cand[:, None, :, :2])
+        wh = (torch.minimum(kb[:, :, None, 2:], cand[:, None, :, 2:])
+              - lt).clamp(min=0)
+        inter = wh[..., 0] * wh[..., 1]  # [R, max_det, w]
+        union = (area(kb)[:, :, None] + area(cand)[:, None, :]) - inter
+        q = torch.arange(w, device=dev)
+        before = ((torch.arange(max_det, device=dev)[None, :, None]
+                   < kept[rows, None, None])
+                  & (ranks[rows, :, None] < q[None, None, :]))
+        hits = before & (inter / union.clamp(min=1e-8) > thr)
+        removed = hits.any(dim=1)
+        first = hits.to(torch.uint8).argmax(dim=1)  # the first such keep
+        per_q = torch.where(removed, first + 1, before.sum(dim=1))
+        pairs += int((per_q * (q[None] < walked[rows, None])).sum())
+    return walked, pairs
+
+
+def nms_case(name: str, args, iters: int) -> dict:
+    """nms_cuda on ``args`` against its twin and the prior kernel
+    (keep-sets and scores bit-equal), timed in turns with the prior one
+    (prior, new, new, prior), its CUDA kernels counted by the launcher and
+    by torch.profiler (which must agree), its scratch, and its bound from
+    the pairs this data needs (beside PR 1's count: every candidate
+    against each of a row's steps)."""
+    from detjax_torch.kernels import postprocess as pp
+
+    boxes, scores, labels, thr, max_det, offset = args
+    b, n = scores.shape
+    c0, k0 = pp.nms_launches, pp.nms_kernel_launches
+    ki, ks = pp.nms_cuda(*args)
+    calls, kernels = pp.nms_launches - c0, pp.nms_kernel_launches - k0
+    ri, rs = pp.nms_reference(*args)
+    prior = prior_nms_call(*args)
+    pi, ps = prior()
+    torch.cuda.synchronize()
+    equal = {"keep_idx": torch.equal(ki, ri),
+             "keep_scores": torch.equal(ks, rs),
+             f"{PRIOR_NMS_MATCH}_keep_idx": torch.equal(pi, ri),
+             f"{PRIOR_NMS_MATCH}_keep_scores": torch.equal(ps, rs)}
+    if not all(equal.values()):
+        raise SystemExit(f"nms_cuda or the prior kernel disagrees with the "
+                         f"twin on {name}: {equal}")
+    if (calls, kernels) != (1, len(NMS_KERNEL_NAMES)):
+        raise SystemExit(f"nms_cuda counted {calls} calls and {kernels} "
+                         f"CUDA kernels for one call")
+    traced = traced_counts(lambda: pp.nms_cuda(*args),
+                           {k: 1 for k in NMS_KERNEL_NAMES}, "nms_cuda")
+    timed = in_turns({"new": lambda: pp.nms_cuda(*args),
+                      PRIOR_NMS_MATCH: prior},
+                     (PRIOR_NMS_MATCH, "new", "new", PRIOR_NMS_MATCH), iters)
+    call_ms = cuda_ms(lambda: pp.nms_cuda(*args), iters=iters)
+    kept = (ri >= 0).sum(dim=1)
+    live = (scores > -5e9).sum(dim=1)
+    walked, pairs = nms_pairs_needed(args, ri)
+    steps = int(torch.clamp(kept + 1, max=max_det).sum())
+    bound_ms, bound_by = nms_bound_ms(b, n, max_det, pairs)
+    bound_steps, bound_steps_by = nms_bound_ms(b, n, max_det, n * steps)
+    return {"case": name, "B": b, "N": n, "max_det": max_det,
+            "iou_threshold": thr, "bit_equal": equal,
+            "rows_out_of_order": rows_out_of_order(scores),
+            "live_per_row": {"min": int(live.min()), "max": int(live.max()),
+                             "mean": float(live.float().mean())},
+            "kept_per_row": {"min": int(kept.min()), "max": int(kept.max()),
+                             "sum": int(kept.sum())},
+            "kept": kept.tolist(),
+            "walked_per_row": {"min": int(walked.min()),
+                               "max": int(walked.max()),
+                               "mean": float(walked.float().mean())},
+            "ms": timed["ms"]["new"], "ms_by": "device_ms",
+            "prior_ms": timed["ms"][PRIOR_NMS_MATCH],
+            "timed_in_turns": timed["turns"], "call_ms": call_ms,
+            "kernels_a_call": kernels, "ms_by_kernel": traced,
+            "phase_cycles_per_row": nms_phase_cycles(args),
+            "max_abs_err": float((ks - rs).abs().max()),
+            "scratch_bytes": pp.nms_scratch_bytes(b, max_det),
+            "pairs_needed": pairs, "steps": steps,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms_steps": bound_steps, "bound_by_steps": bound_steps_by}
+
+
+def phase_kernel(report: dict) -> None:
+    """nms_cuda at B = 8, N = 1000, max_det = 100 on the hard candidate set
+    as it is (every row but the empty one out of order: the kernel sorts
+    them) and on the same rows sorted (the main path's case), each
+    bit-equal to its twin and timed in turns with the kernel at
+    PRIOR_NMS_MATCH; the kernel's registers and spills."""
+    from detjax_torch.kernels import postprocess as pp
+    from detjax_torch.kernels._build import build_info
+
+    ptxas = ptxas_by_kernel(build_info["detjax_nms"]["log"], NMS_KERNEL_NAMES)
+    spills = {k: v for k, v in ptxas.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    emit({"phase": "kernel_build", "kernel": "nms_cuda", "ptxas": ptxas,
+          "instances": "nms_kernel<512> for fewer than two rows an SM, "
+                       "else nms_kernel<256>",
+          "profile_build_ptxas": ptxas_by_kernel(
+              build_info["detjax_nms_profile"]["log"], NMS_KERNEL_NAMES)})
+    if sorted(ptxas) != ["nms_kernel<256>", "nms_kernel<512>"] or spills:
+        raise SystemExit(f"the NMS kernel spills or is missing from the "
+                         f"ptxas log: {ptxas}")
     b, n, max_det, thr, offset = 8, 1000, 100, 0.5, 642.0
     boxes, scores, labels = (torch.from_numpy(a).cuda()
                              for a in hard_candidates(0, b, n))
-
-    args = (boxes, scores, labels, thr, max_det, offset)
-    ki, ks = pp.nms_cuda(*args)
-    ri, rs = pp.nms_reference(*args)
-    torch.cuda.synchronize()
-    idx_equal = torch.equal(ki, ri)
-    scores_equal = torch.equal(ks, rs)
-    kept = (ki >= 0).sum(dim=1)
-    steps = int(torch.clamp(kept + 1, max=max_det).sum())
-    ms = cuda_ms(lambda: pp.nms_cuda(*args), iters=200, warmup=10)
-    plain_ms = cuda_ms(lambda: pp.nms_reference(*args), iters=10)
-    bound_ms, bound_by = nms_bound_ms(b, n, max_det, steps)
-    emit({"phase": "kernel", "kernel": "nms_cuda", "B": b, "N": n,
-          "max_det": max_det, "iou_threshold": thr,
-          "keep_idx_bit_equal": idx_equal, "keep_scores_equal": scores_equal,
-          "kept_per_image": kept.tolist(), "ms": ms, "plain_ms": plain_ms,
-          "bound_ms": bound_ms, "bound_by": bound_by})
-    if not (idx_equal and scores_equal):
-        raise SystemExit("nms_cuda disagrees with its plain twin")
-    if kept[-1].item() != 0 or kept[:-1].min().item() == 0:
+    rows = []
+    for name, cand in (("unsorted", (boxes, scores, labels)),
+                       ("sorted", sorted_rows(boxes, scores, labels))):
+        args = (*cand, thr, max_det, offset)
+        row = nms_case(name, args, iters=200)
+        row["plain_ms"] = cuda_ms(lambda: pp.nms_reference(*args), iters=10)
+        emit({"phase": "kernel", "kernel": "nms_cuda", **row})
+        rows.append(row)
+    unsorted, in_order = rows
+    if unsorted["rows_out_of_order"] != b - 1 or in_order["rows_out_of_order"]:
+        raise SystemExit("the hard candidate set lost its unsorted rows")
+    kept = unsorted["kept"]
+    if kept[-1] != 0 or min(kept[:-1]) == 0:
         raise SystemExit("hard candidate set lost its empty / live images")
     report["nms_cuda"] = {
         "name": "nms_cuda", "route": "cuda",
         "source": "detjax_torch/csrc/nms.cu",
         "replaces": "detjax/kernels/postprocess.py:102",
-        "launches": None, "match": idx_equal and scores_equal,
-        "max_abs_err": float((ks - rs).abs().max()),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}
+        "launches": None, "match": True,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": unsorted["ms"], "ms_by": "device_ms",
+        "plain_ms": unsorted["plain_ms"],
+        "bound_ms": unsorted["bound_ms"], "bound_by": unsorted["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes class-aware greedy "
+                        "NMS (torchvision is not installed)",
+        f"ms_at_{PRIOR_NMS_MATCH}": unsorted["prior_ms"],
+        "ms_sorted_rows": in_order["ms"],
+        f"ms_sorted_rows_at_{PRIOR_NMS_MATCH}": in_order["prior_ms"],
+        "bound_ms_steps": unsorted["bound_ms_steps"],
+        "kernels_a_call": unsorted["kernels_a_call"],
+        "per": "one call at B=8, N=1000, max_det=100 on hard_candidates "
+               "(unsorted rows); ms_sorted_rows on the same rows sorted",
+        "ptxas": ptxas}
 
 
 def decode_bound_ms(b: int, n: int, delta_bytes: int) -> tuple:
@@ -311,12 +712,15 @@ def phase_decode_kernel(report: dict) -> None:
                                                       img), iters=200,
                          warmup=10)
             timed = pp.decode_launches
+            dev_ms = device_ms(lambda: pp.decode_boxes_cuda(
+                deltas, anchors, std, img), iters=200)
             plain_ms = cuda_ms(lambda: pp.decode_boxes_reference(
                 deltas, anchors, std, img), iters=50)
             bound_ms, bound_by = decode_bound_ms(b, n, deltas.element_size())
             row = {"deltas": str(dtype).split(".")[-1], "clip": clip,
                    "bit_equal_nan_equal": equal, "max_abs_err_finite": err,
-                   **counts, "ms": ms, "plain_ms": plain_ms,
+                   **counts, "ms": ms, "device_ms": dev_ms,
+                   "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "launches_timed": timed}
             emit({"phase": "decode_kernel", "kernel": "decode_boxes_cuda",
@@ -336,7 +740,8 @@ def phase_decode_kernel(report: dict) -> None:
         "replaces": "detjax/kernels/postprocess.py:214",
         "launches": None, "match": True,
         "max_abs_err": max(c["max_abs_err_finite"] for c in cases),
-        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "ms": main["ms"], "ms_by": "cuda_ms",
+        "device_ms": main["device_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None,
         "library_note": "no single PyTorch call decodes boxes",
@@ -387,57 +792,143 @@ def hard_gt(seed: int, anchors: np.ndarray, b: int = 16, g: int = 100):
 MATCH_OPS_PER_PAIR = 16
 
 
-def match_bound_ms(b: int, a: int, g: int) -> tuple:
+def match_bound_ms(b: int, a: int, g: int, pairs: int) -> tuple:
     """Least time for matching at these shapes: anchors [A,4] f32 and GT
-    (box, valid, label) read once, the four outputs written once, over
-    the memory rate; the pairwise IoU work over the fp32 rate."""
+    (box, valid, label) read once, the four outputs written once, over the
+    memory rate; the IoU work of ``pairs`` (anchor, GT) pairs over the
+    fp32 rate."""
     nbytes = a * 16 + b * g * (16 + 1 + 4) + b * a * (4 + 4 + 16 + 4)
-    ops = float(MATCH_OPS_PER_PAIR) * b * a * g
+    ops = float(MATCH_OPS_PER_PAIR) * pairs
     t_bytes = nbytes / H100["bytes_per_s"] * 1e3
     t_ops = ops / H100["fp32_flops"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def match_listed_pairs(anchors, boxes, valid, per: int) -> int:
+    """(anchor, GT) pairs left after culling, which the kernel divides:
+    for each block of ``per`` consecutive anchors, its anchors times the
+    valid GTs its union box does not cull (every coordinate here is finite
+    and small). The other pairs' IoUs are known without one: -1 for an
+    invalid GT, exactly 0 for a culled one."""
+    a = anchors.shape[0]
+    nb = -(-a // per)
+    an = torch.cat([anchors, anchors[-1:].expand(nb * per - a, 4)])
+    an = an.view(nb, per, 4)
+    u = torch.stack([an[..., 0].amin(1), an[..., 1].amin(1),
+                     an[..., 2].amax(1), an[..., 3].amax(1)], -1)[None, :,
+                                                                 None]
+    g = boxes[:, None]  # [B, 1, G, 4] against [1, nb, 1, 4]
+    apart = ((torch.minimum(u[..., 2], g[..., 2])
+              <= torch.maximum(u[..., 0], g[..., 0]))
+             | (torch.minimum(u[..., 3], g[..., 3])
+                <= torch.maximum(u[..., 1], g[..., 1])))
+    listed = (valid[:, None] & ~apart).sum(-1)  # [B, nb]
+    counts = torch.full((nb,), per, device=anchors.device)
+    counts[-1] = a - (nb - 1) * per
+    return int((listed * counts).sum())
+
+
 def phase_match_kernel(report: dict) -> None:
-    """match_iou_cuda against its twin on the hard GT set, at the training
-    shape of retinanet_r50_640: B=16, its 76,725 anchors, G=100."""
+    """match_iou_cuda against its twin at the training shape of
+    retinanet_r50_640 (B=16, its 76,725 anchors, G=100) on two GT sets:
+    the hard set and the GT of the training batch (1-20 objects an image).
+    All four outputs bit-equal; timed in turns with the kernel at
+    PRIOR_NMS_MATCH; its CUDA kernels counted by the launcher and by
+    torch.profiler; its bound from the pairs left after culling, beside
+    the earlier counts (every pair; the pairs with a valid GT)."""
     from detjax_torch.kernels import matching as km
+    from detjax_torch.kernels._build import build_info
     from detjax_torch.modeling import anchor_config
     from detjax_torch.ops.anchors import anchors_for_shape
 
+    ptxas = ptxas_by_kernel(build_info["detjax_match"]["log"],
+                            ("match_kernel",))
+    spills = {k: v for k, v in ptxas.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    emit({"phase": "match_kernel_build", "ptxas": ptxas})
+    if len(ptxas) != 1 or spills:
+        raise SystemExit(f"the matching kernels spill or are missing from "
+                         f"the ptxas log: {ptxas}")
     cfg = smoke_config()
     anchors_np = anchors_for_shape(cfg.model.image_size, anchor_config(cfg))
     b, g = cfg.train.batch_size, cfg.train.max_gt
-    anchors, boxes, labels = (torch.from_numpy(x).cuda() for x in
-                              hard_gt(4, anchors_np, b, g))
-    valid = labels >= 0
-    args = (anchors, boxes, valid, labels)
-    got = km.match_iou_cuda(*args)
-    want = km.match_iou_reference(*args)
-    torch.cuda.synchronize()
-    names = ("max_iou", "argmax", "boxes", "labels")
-    equal = {n: torch.equal(x, y) for n, x, y in zip(names, got, want)}
-    max_iou = got[0]
-    edges = {"iou_1": int((max_iou == 1.0).sum()),
-             "iou_0.5": int((max_iou == 0.5).sum()),
-             "iou_within_1e-6_of_0.4": int(((max_iou - 0.4).abs()
-                                            < 1e-6).sum()),
-             "images_without_gt": int((max_iou == -1).all(dim=1).sum()),
-             "valid_gt_per_image": valid.sum(dim=1).tolist()}
+    _, hard_boxes, hard_labels = hard_gt(4, anchors_np, b, g)
+    batch = train_batch(cfg, seed=0)
+    anchors = torch.from_numpy(anchors_np).cuda()
     a = anchors.shape[0]
-    ms = cuda_ms(lambda: km.match_iou_cuda(*args), iters=100, warmup=5)
-    plain_ms = cuda_ms(lambda: km.match_iou_reference(*args), iters=5,
-                       warmup=1)
-    bound_ms, bound_by = match_bound_ms(b, a, g)
-    emit({"phase": "match_kernel", "kernel": "match_iou_cuda", "B": b,
-          "A": a, "G": g, "bit_equal": equal, "edges": edges, "ms": ms,
-          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-          "library_ms": None,
-          "library_note": "no single PyTorch call computes it; "
-                          "torchvision's box_iou is not installed and "
-                          "would still need an argmax and gathers"})
-    if not all(equal.values()):
-        raise SystemExit(f"match_iou_cuda disagrees with its twin: {equal}")
+    names = ("max_iou", "argmax", "boxes", "labels")
+    rows = []
+    for case, (boxes_np, labels_np) in (
+            ("hard_gt", (hard_boxes, hard_labels)),
+            ("train_batch", (batch["gt_boxes"], batch["gt_labels"]))):
+        boxes = torch.from_numpy(np.ascontiguousarray(
+            boxes_np, np.float32)).cuda()
+        labels = torch.from_numpy(np.ascontiguousarray(
+            labels_np, np.int32)).cuda()
+        valid = labels >= 0
+        args = (anchors, boxes, valid, labels)
+        c0, k0 = km.match_launches, km.match_kernel_launches
+        got = km.match_iou_cuda(*args)
+        calls, kernels = km.match_launches - c0, km.match_kernel_launches - k0
+        want = km.match_iou_reference(*args)
+        prior = prior_match_call(*args)
+        prior_got = prior()
+        torch.cuda.synchronize()
+        equal = {n: torch.equal(x, y) for n, x, y in zip(names, got, want)}
+        equal.update({f"{PRIOR_NMS_MATCH}_{n}": torch.equal(x, y)
+                      for n, x, y in zip(names, prior_got, want)})
+        if not all(equal.values()):
+            raise SystemExit(f"match_iou_cuda or the prior kernel disagrees "
+                             f"with its twin on {case}: {equal}")
+        if (calls, kernels) != (1, 1):
+            raise SystemExit(f"match_iou_cuda counted {calls} calls and "
+                             f"{kernels} CUDA kernels for one call")
+        traced = traced_counts(lambda: km.match_iou_cuda(*args),
+                               {"match_kernel": kernels}, "match_iou_cuda")
+        max_iou = got[0]
+        edges = {"iou_1": int((max_iou == 1.0).sum()),
+                 "iou_0.5": int((max_iou == 0.5).sum()),
+                 "iou_within_1e-6_of_0.4": int(((max_iou - 0.4).abs()
+                                                < 1e-6).sum()),
+                 "images_without_gt": int((max_iou == -1).all(dim=1).sum()),
+                 "valid_gt_per_image": valid.sum(dim=1).tolist()}
+        timed = in_turns({"new": lambda: km.match_iou_cuda(*args),
+                          PRIOR_NMS_MATCH: prior},
+                         (PRIOR_NMS_MATCH, "new", "new", PRIOR_NMS_MATCH),
+                         iters=100)
+        call_ms = cuda_ms(lambda: km.match_iou_cuda(*args), iters=100)
+        plain_ms = cuda_ms(lambda: km.match_iou_reference(*args), iters=5,
+                           warmup=1)
+        valid_pairs = a * int(valid.sum())
+        divided = match_listed_pairs(anchors, boxes, valid,
+                                     km.ANCHORS_PER_BLOCK)
+        bound_ms, bound_by = match_bound_ms(b, a, g, divided)
+        bound_valid, bound_valid_by = match_bound_ms(b, a, g, valid_pairs)
+        bound_all, bound_all_by = match_bound_ms(b, a, g, b * a * g)
+        row = {"case": case, "B": b, "A": a, "G": g, "bit_equal": equal,
+               "edges": edges, "ms": timed["ms"]["new"],
+               "ms_by": "device_ms",
+               "prior_ms": timed["ms"][PRIOR_NMS_MATCH],
+               "timed_in_turns": timed["turns"], "call_ms": call_ms,
+               "anchors_per_block": km.ANCHORS_PER_BLOCK,
+               "kernels_a_call": kernels,
+               "ms_by_kernel": traced, "plain_ms": plain_ms,
+               "pairs_all": b * a * g, "pairs_valid": valid_pairs,
+               "pairs_divided": divided,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_ms_valid_pairs": bound_valid,
+               "bound_by_valid_pairs": bound_valid_by,
+               "bound_ms_all_pairs": bound_all,
+               "bound_by_all_pairs": bound_all_by,
+               "max_abs_err": float((got[0] - want[0]).abs().max()),
+               "library_ms": None}
+        emit({"phase": "match_kernel", "kernel": "match_iou_cuda", **row,
+              "library_note": "no single PyTorch call computes it; "
+                              "torchvision's box_iou is not installed and "
+                              "would still need an argmax and gathers"})
+        rows.append(row)
+    hard, train = rows
+    edges = hard["edges"]
     if not (edges["iou_1"] and edges["iou_0.5"]
             and edges["images_without_gt"] == 1):
         raise SystemExit(f"the hard GT set lost its edges: {edges}")
@@ -446,9 +937,20 @@ def phase_match_kernel(report: dict) -> None:
         "source": "detjax_torch/csrc/matching.cu",
         "replaces": "detjax/kernels/matching.py:88",
         "launches": None, "match": True,
-        "max_abs_err": float((got[0] - want[0]).abs().max()),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": hard["ms"], "ms_by": "device_ms", "plain_ms": hard["plain_ms"],
+        "bound_ms": hard["bound_ms"], "bound_by": hard["bound_by"],
+        "library_ms": None,
+        f"ms_at_{PRIOR_NMS_MATCH}": hard["prior_ms"],
+        "bound_ms_valid_pairs": hard["bound_ms_valid_pairs"],
+        "bound_ms_all_pairs": hard["bound_ms_all_pairs"],
+        "ms_train_batch_gt": train["ms"],
+        f"ms_train_batch_gt_at_{PRIOR_NMS_MATCH}": train["prior_ms"],
+        "bound_ms_train_batch_gt": train["bound_ms"],
+        "kernels_a_call": hard["kernels_a_call"],
+        "per": "one call at B=16, A=76,725, G=100 on hard_gt; "
+               "ms_train_batch_gt on train_batch(cfg, 0)'s GT",
+        "ptxas": ptxas}
 
 
 # The identity bottlenecks that fuse in R50 at 640 px, eval batch 8:
@@ -627,7 +1129,7 @@ def phase_bottleneck_kernel(report: dict) -> None:
         "replaces": "detjax/kernels/bottleneck.py:131",
         "launches": None, "match": True,
         "max_abs_err": max(r["max_abs_err"] for g in rows for r in rows[g]),
-        "ms": total["eval_bs8"]["ms"],
+        "ms": total["eval_bs8"]["ms"], "ms_by": "cuda_ms",
         "plain_ms": total["eval_bs8"]["plain_ms"],
         "bound_ms": total["eval_bs8"]["bound_ms"],
         "bound_by": "/".join(sorted({r["bound_by"] for r in per_shape})),
@@ -671,22 +1173,51 @@ def bottleneck_bwd_bound_ms(b: int, h: int, w: int, m: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_ms_by_name(fn, calls: int = 3):
-    """Device ms a call of ``fn`` spends in each CUDA kernel, and how many
-    times a call launches each, from torch.profiler over ``calls`` calls;
-    None when the profiler cannot trace the card or records no device
-    time."""
+# host wait inside a profiler window before the calls' first launch and
+# after their last kernel's end, and the spin kernels that open the window
+PROFILER_PAD_S = 0.05
+PROFILER_WARMUP_LAUNCHES = 4
+
+
+def profile_calls(fn, calls: int,
+                  warmup_launches: int = PROFILER_WARMUP_LAUNCHES):
+    """torch.profiler (CUDA activity) over ``calls`` calls of ``fn``, after
+    one call outside it; None when the profiler cannot trace the card. The
+    window opens with ``warmup_launches`` spin kernels, waited for: the
+    profiler can miss the kernels of a window's first two launches while
+    it finishes enabling itself (the first launch then takes about 0.5
+    ms). It is open PROFILER_PAD_S before the calls' first launch and
+    after their last kernel has finished: the profiler places a window's
+    records on the host's clock with an error of milliseconds and drops
+    those it places outside the window (smoke_prior/profiler_window.py
+    shows both)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(warmup_launches):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(PROFILER_PAD_S)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILER_PAD_S)
     except (AssertionError, RuntimeError) as exc:
         emit({"profiler": "no device trace", "error": repr(exc)})
+        return None
+    return prof
+
+
+def kernel_ms_by_name(fn, calls: int = 3):
+    """Device ms a call of ``fn`` spends in each CUDA kernel, and how many
+    times a call launches each, from torch.profiler over ``calls`` calls
+    (profile_calls); None when the profiler cannot trace the card or
+    records no device time."""
+    prof = profile_calls(fn, calls)
+    if prof is None:
         return None
     ms, launches = {}, {}
     for e in prof.key_averages():
@@ -694,6 +1225,8 @@ def kernel_ms_by_name(fn, calls: int = 3):
         if t > 0:  # "void (anonymous namespace)::y1_kernel<64>(...)"
             name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
             name = re.split(r"[<(]", name)[0]
+            if "spin_kernel" in name:  # the window's warm-up launches
+                continue
             ms[name] = ms.get(name, 0.0) + t / calls / 1e3
             launches[name] = launches.get(name, 0) + e.count / calls
     return (ms, launches) if ms else None
@@ -870,7 +1403,7 @@ def phase_bottleneck_bwd_kernel(report: dict) -> None:
                            for e in r["outputs"].values()),
         "max_abs_err_note": "dx at an element whose ReLU mask flips "
                             "between the kernel's and cuDNN's fp32 sums",
-        "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "ms": total["ms"], "ms_by": "cuda_ms", "plain_ms": total["plain_ms"],
         "bound_ms": total["bound_ms"],
         "bound_by": "/".join(sorted({r["bound_by"] for r in per_shape})),
         "library_ms": None,
@@ -987,10 +1520,10 @@ def phase_main(report: dict, state: dict) -> None:
     detjax_torch.detect_u8(model, canvases, cfg)  # warm-up
     torch.cuda.synchronize()
 
-    pp.nms_launches = 0
+    pp.nms_launches = pp.nms_kernel_launches = 0
     det = detjax_torch.detect_u8(model, canvases, cfg)
     torch.cuda.synchronize()
-    launches = pp.nms_launches
+    launches, nms_kernels = pp.nms_launches, pp.nms_kernel_launches
     twin = detjax_torch.detect_u8(model, canvases, cfg, nms_backend="torch")
     torch.cuda.synchronize()
 
@@ -1020,7 +1553,8 @@ def phase_main(report: dict, state: dict) -> None:
             box32, anchors, cls, cfg.model.box_std, cfg.model.image_size,
             e.score_threshold, e.pre_nms_top_k, e.exact_candidates, True),
             iters=20)
-        nms_ms = cuda_ms(lambda: pp.nms_cuda(*nms_args), iters=200)
+    nms = nms_case("main", nms_args, iters=200)
+    emit({"phase": "main_nms", "kernel": "nms_cuda", **nms})
 
     batch_ms = host_ms(model, cfg, canvases)
     latency_cfg = detjax_torch.get_config(
@@ -1040,24 +1574,30 @@ def phase_main(report: dict, state: dict) -> None:
           "live_pairs_per_image": live_pairs.tolist(),
           "live_candidates_per_image": live_cands.tolist(),
           "num_valid": det.num_valid.tolist(),
-          "nms_launches": launches,
+          "nms_launches": launches, "nms_cuda_kernels": nms_kernels,
           "identical_to_twin_route": identical,
           "tolerance": "keep-sets, scores and boxes bit-equal",
           "card": state["card"],
           "ms_per_batch": batch_ms, "img_per_s": b / batch_ms * 1e3,
           "latency_preset_ms_bs1": latency_ms,
           "forward_ms": fwd_ms, "postprocess_ms": post_ms,
-          "select_ms": select_ms, "nms_kernel_ms": nms_ms})
+          "select_ms": select_ms, "nms_kernel_ms": nms["ms"],
+          f"nms_kernel_ms_at_{PRIOR_NMS_MATCH}": nms["prior_ms"]})
     if not (finite and shapes_ok):
         raise SystemExit("detect_u8 returned non-finite or misshapen output")
-    if launches < 1:
-        raise SystemExit("the main path never launched the NMS kernel")
+    if launches != 1 or nms_kernels != len(NMS_KERNEL_NAMES):
+        raise SystemExit(f"the main path made {launches} NMS calls "
+                         f"({nms_kernels} CUDA kernels) a batch, expected 1 "
+                         f"({len(NMS_KERNEL_NAMES)})")
     if not identical:
         raise SystemExit("detect_u8 through the kernel differs from the "
                          "same call through the plain twin")
     if int(live_cands.min()) == 0 or int(det.num_valid.min()) == 0:
         raise SystemExit("no live candidates: the NMS ran over sentinels")
     report["nms_cuda"]["launches"] = launches
+    report["nms_cuda"]["main_path_candidates"] = {
+        k: nms[k] for k in ("ms", "prior_ms", "bound_ms", "bound_by",
+                            "bound_ms_steps", "rows_out_of_order")}
     state.update(model=model, cfg=cfg, main={
         "ms_per_batch": batch_ms, "img_per_s": b / batch_ms * 1e3,
         "forward_ms": fwd_ms})
@@ -1099,10 +1639,11 @@ def phase_eval_branch(report: dict, state: dict) -> None:
 
     branch("auto")  # warm-up
     torch.cuda.synchronize()
-    pp.decode_launches = pp.nms_launches = 0
+    pp.decode_launches = pp.nms_launches = pp.nms_kernel_launches = 0
     det = branch("auto")
     torch.cuda.synchronize()
-    launches = {"decode": pp.decode_launches, "nms": pp.nms_launches}
+    launches = {"decode": pp.decode_launches, "nms": pp.nms_launches,
+                "nms_cuda_kernels": pp.nms_kernel_launches}
     twin = branch("torch")
     torch.cuda.synchronize()
     identical = same_detections(det, twin)
@@ -1128,7 +1669,8 @@ def phase_eval_branch(report: dict, state: dict) -> None:
         nms_args = (top_boxes.reshape(*rows.shape, 4), rows,
                     torch.zeros_like(rows, dtype=torch.int32),
                     e.nms_iou_threshold, 100, 0.0)
-        nms_ms = cuda_ms(lambda: pp.nms_cuda(*nms_args), iters=50)
+        nms = nms_case("eval_branch_640_rows", nms_args, iters=50)
+        emit({"phase": "eval_branch_nms", "kernel": "nms_cuda", **nms})
         fused_ms = cuda_ms(lambda: fused_detect_postprocess(
             box32, anchors, cls32, m.box_std, m.image_size,
             e.score_threshold, e.nms_iou_threshold, e.pre_nms_top_k,
@@ -1156,14 +1698,17 @@ def phase_eval_branch(report: dict, state: dict) -> None:
           "twin_branch_ms_per_batch": twin_ms,
           "decode_clip_ms": decode_ms,
           "batched_detect_postprocess_ms": post_ms,
-          "nms_kernel_ms_640_rows": nms_ms,
+          "nms_kernel_ms_640_rows": nms["ms"],
+          f"nms_kernel_ms_640_rows_at_{PRIOR_NMS_MATCH}": nms["prior_ms"],
+          "nms_bound_ms_640_rows": nms["bound_ms"],
           "fused_detect_postprocess_ms": fused_ms,
           "fused_pairs_found_in_branch": [found, total],
           "card": state["card"]})
     if not (finite and shapes_ok):
         raise SystemExit("the eval branch returned non-finite or misshapen "
                          "detections")
-    if launches != {"decode": 1, "nms": 1}:
+    if launches != {"decode": 1, "nms": 1,
+                    "nms_cuda_kernels": len(NMS_KERNEL_NAMES)}:
         raise SystemExit(f"expected 1 decode and 1 NMS launch a batch, got "
                          f"{launches}")
     if not identical:
@@ -1172,6 +1717,11 @@ def phase_eval_branch(report: dict, state: dict) -> None:
     if int(det.num_valid.min()) == 0:
         raise SystemExit("the eval branch kept no detection")
     report["decode_boxes_cuda"]["launches"] = launches["decode"]
+    report["nms_cuda"]["eval_branch_640_rows"] = {
+        k: nms[k] for k in ("ms", "prior_ms", "bound_ms", "bound_by",
+                            "bound_ms_steps", "pairs_needed", "live_per_row",
+                            "kept_per_row", "walked_per_row",
+                            "scratch_bytes")}
 
 
 # A kept pair of the twin route is "clear" when its margin (see
@@ -1637,7 +2187,7 @@ def phase_train(report: dict, state: dict) -> None:
     warmup, timed = 2, 6
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    km.match_launches = 0
+    km.match_launches = km.match_kernel_launches = 0
     steps = []
     for _ in range(warmup):
         steps.append(detjax_torch.train_step(train, batch)[1])
@@ -1657,6 +2207,7 @@ def phase_train(report: dict, state: dict) -> None:
     steps.append(detjax_torch.train_step(train, batch, record=record)[1])
     torch.cuda.synchronize()
     launches = km.match_launches
+    match_kernels = km.match_kernel_launches
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     order = ["start", "forward", "loss", "backward", "update"]
     split = {f"{b_}_ms": events[a_].elapsed_time(events[b_])
@@ -1674,6 +2225,7 @@ def phase_train(report: dict, state: dict) -> None:
           "optimizer": cfg.train.optimizer, "lr": cfg.train.learning_rate,
           "output_scales": scales, "setup_s": setup_s,
           "steps_in_window": len(steps), "match_launches": launches,
+          "match_cuda_kernels": match_kernels,
           "ms_per_step": step_ms, "img_per_s": b / step_ms * 1e3,
           "split_one_step": split, "peak_memory_gib": peak_gb,
           "card": state["card"]})
@@ -1681,9 +2233,10 @@ def phase_train(report: dict, state: dict) -> None:
         raise SystemExit("a training metric is not finite")
     if min(m["num_pos"] for m in per_step) <= 0:
         raise SystemExit("a training step had no positive anchor")
-    if launches != len(steps):
-        raise SystemExit(f"match kernel launched {launches} times in "
-                         f"{len(steps)} steps")
+    if launches != len(steps) or match_kernels != launches:
+        raise SystemExit(f"match kernel launched {launches} times "
+                         f"({match_kernels} CUDA kernels) in {len(steps)} "
+                         f"steps")
     report["match_iou_cuda"]["launches"] = launches
     state["train"] = {"ms_per_step": step_ms, "img_per_s": b / step_ms * 1e3,
                       "split_one_step": split, "peak_memory_gib": peak_gb}
@@ -2065,7 +2618,7 @@ def phase_maxpool_bwd_kernel(report: dict) -> None:
         "max_abs_err": max(r["max_abs_err_twin"] for r in rows),
         "max_abs_err_note": "against its twin, post-ReLU z; against ATen's "
                             "backward see aten_max_abs_err",
-        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "ms": main["ms"], "ms_by": "cuda_ms", "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["aten_bwd_ms"],
         "library_note": "torch.ops.aten.max_pool2d_with_indices_backward "

@@ -51,17 +51,19 @@ def nvcc() -> str:
 
 
 def load_library(name: str, sources: Sequence[str],
-                 src_dir: Path = CSRC) -> ctypes.CDLL:
+                 src_dir: Path = CSRC, flags: Sequence[str] = ()
+                 ) -> ctypes.CDLL:
     """Compile ``sources`` (file names in ``src_dir``, by default
-    ``csrc/``) into ``lib<name>.so`` unless that exact build exists, then
-    load it once per process."""
+    ``csrc/``), with nvcc ``flags`` beside NVCC_FLAGS, into
+    ``lib<name>.so`` unless that exact build exists, then load it once per
+    process."""
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())
     with name_lock:
         if name in _libs:
             return _libs[name]
         paths = [Path(src_dir) / s for s in sources]
-        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(" ".join((*NVCC_FLAGS, *flags)).encode())
         for p in sorted(set(paths) | set(CSRC.glob("*.cuh"))):
             digest.update(p.name.encode())
             digest.update(p.read_bytes())
@@ -73,7 +75,8 @@ def load_library(name: str, sources: Sequence[str],
         if not lib_path.is_file():
             out_dir.mkdir(parents=True, exist_ok=True)
             tmp = out_dir / f".lib{name}.{os.getpid()}.so"
-            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
+            cmd = [nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+                   *map(str, paths)]
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:

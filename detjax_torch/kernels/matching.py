@@ -2,17 +2,26 @@
 
 ``match_iou_cuda`` replaces the TPU kernel ``detjax/kernels/matching.py::
 match_iou_pallas`` (body ``_match_kernel``) with the hand-written kernel
-in ``detjax_torch/csrc/matching.cu``: one thread per anchor, the image's
-GTs in shared memory, a strict-``>`` scan over G in ascending order. It
-never stores the ``[B, A, G]`` IoU tensor.
+in ``detjax_torch/csrc/matching.cu``. It never stores the ``[B, A, G]``
+IoU tensor. A block of 128 consecutive anchors (one strip of one level)
+of one image builds its anchors' union box and lists the valid GTs that
+can overlap it; each thread divides only against the listed GTs and merges
+with (0, the first dropped valid GT) and (-1, the first invalid one),
+which is the full scan's result bit for bit: a dropped GT has IoU exactly 0
+against every anchor of the block.
 
-What bounds it on an H100: operations, about 15 fp32 operations and one
-IEEE division per (anchor, GT) pair; the bytes (anchors, GTs, four
-``[B, A]`` outputs) are a third of that time at the training shape.
+What bounds it on an H100: its floor is bytes once the culling leaves few
+pairs (the training batches hold 1-20 objects padded to 100 slots): the
+four ``[B, A]`` outputs are 28 bytes an anchor. Above that floor, each
+block's fixed latency (union box, GT list, barriers) holds it. The scan
+over all G slots with an IEEE division each, which the previous design
+ran, was issue-bound.
 
 Routing: a CPU tensor goes to the plain twin :func:`match_iou_reference`;
 a CUDA tensor goes to the kernel or raises. ``match_launches`` counts
-kernel launches, and nothing else.
+calls that launched the kernel, and nothing else;
+``match_kernel_launches`` the CUDA kernels they launched, as the C
+launcher reports them (1 a call).
 """
 
 from __future__ import annotations
@@ -24,11 +33,15 @@ import torch
 
 from detjax_torch.ops.boxes import box_iou
 
-# Dynamic shared memory: 28 bytes a GT (box, area, label, valid flag),
-# within the 227 KB a Hopper block may use.
-MAX_GT = (227 * 1024) // 28
+# Dynamic shared memory: 24 bytes a listed GT (box, area, index), within
+# the 227 KB a Hopper block may use (1 KB kept for static shared memory).
+MAX_GT = (227 * 1024 - 1024) // 24
+# Anchors a block of the kernel (one a thread, one image a block): their
+# union box culls the GTs (``csrc/matching.cu``'s ``kThreads``).
+ANCHORS_PER_BLOCK = 128
 
 match_launches = 0
+match_kernel_launches = 0  # CUDA kernels those calls launched
 
 _LIB = None
 
@@ -41,7 +54,7 @@ def _lib():
         lib = load_library("detjax_match", ["matching.cu"])
         fn = lib.detjax_match_launch
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -86,7 +99,7 @@ def match_iou_cuda(anchors: torch.Tensor, gt_boxes: torch.Tensor,
     with none), its GT index (the lowest among equal IoUs), and that GT's
     box and label whatever the thresholds.
     """
-    global match_launches
+    global match_launches, match_kernel_launches
     if anchors.dim() != 2 or anchors.shape[-1] != 4:
         raise ValueError(f"anchors must be [A, 4], got {tuple(anchors.shape)}")
     if gt_boxes.dim() != 3 or gt_boxes.shape[-1] != 4:
@@ -138,10 +151,13 @@ def match_iou_cuda(anchors: torch.Tensor, gt_boxes: torch.Tensor,
     lib = _lib()
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(index).cuda_stream
+    launched = ctypes.c_int(0)
     err = lib.detjax_match_launch(
         anchors.data_ptr(), gt_boxes.data_ptr(), gt_valid.data_ptr(),
         gt_labels.data_ptr(), max_iou.data_ptr(), argmax.data_ptr(),
-        boxes.data_ptr(), labels.data_ptr(), b, a, g, index, stream)
+        boxes.data_ptr(), labels.data_ptr(), b, a, g, index, stream,
+        ctypes.byref(launched))
+    match_kernel_launches += launched.value
     if err != 0:
         raise RuntimeError(f"matching kernel launch failed: cudaError {err}")
     match_launches += 1

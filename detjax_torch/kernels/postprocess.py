@@ -3,8 +3,19 @@ wrappers and their plain twins.
 
 ``nms_cuda`` replaces the TPU kernel ``detjax/kernels/postprocess.py::
 nms_pallas`` (body ``_nms_kernel``) with the hand-written kernel in
-``detjax_torch/csrc/nms.cu``: one block per image, candidates in shared
-memory, one block-wide (score, index) argmax per kept box.
+``detjax_torch/csrc/nms.cu``. The greedy loop equals one sweep over the
+live candidates in (score desc, index asc) order, so one block per row
+checks the row's order in parallel (sorting, in shared memory, only a row
+out of order: the port's callers pass sorted rows), then walks its live
+prefix 64 candidates a round: each candidate against the keeps so far,
+the round's own IoU > thr bits in one 64-bit word a row, and the round's
+keeps as the one fixed point of "open minus what the keeps remove",
+found in a few warp-wide OR-reductions; it stops at ``max_det`` keeps, so
+it compares only the pairs the greedy loop needs. Each decision is the twin's
+``RN(inter / union) > thr`` taken without the division (against thr's
+upper midpoint in fp64, exactly). What bounds it on an H100 is latency:
+one launch, and a row's rounds in order. Scratch: none up to 512 keeps
+a row (:func:`nms_scratch_bytes`).
 
 ``decode_boxes_cuda`` replaces ``decode_boxes_pallas`` (body
 ``_decode_kernel``) with ``detjax_torch/csrc/decode.cu``: one thread per
@@ -12,16 +23,11 @@ memory, one block-wide (score, index) argmax per kept box.
 by the clip. It is bound by bytes (deltas and anchors read once, boxes
 written once: 6.2 us at R50-640, B=8), less than a launch costs.
 
-What bounds it on an H100: ``max_det`` sequential block-wide reductions,
-each with two barriers, on only B blocks (8 of the card's 132 SMs on the
-main path). It is latency-bound, not byte-bound: the candidate set is
-about 200 KB at B=8, N=1000. A later design would build the IoU > thr
-bitmask matrix in parallel and keep only one serial sweep over it.
-
 Routing: a CPU tensor goes to the plain twin (:func:`nms_reference`,
 :func:`decode_boxes_reference`); a CUDA tensor goes to the kernel or raises.
-``nms_launches`` and ``decode_launches`` count kernel launches, and nothing
-else.
+``nms_launches`` and ``decode_launches`` count calls that launched their
+kernels, and nothing else; ``nms_kernel_launches`` counts the CUDA kernels
+those NMS calls launched, as the C launcher reports them (1 a call).
 """
 
 from __future__ import annotations
@@ -34,11 +40,13 @@ import torch
 from detjax_torch.ops.boxes import DEFAULT_BOX_STD, clip_boxes, decode_boxes
 from detjax_torch.ops.nms import _greedy_suppress
 
-# Dynamic shared memory: 6 fp32 values a candidate, within the 227 KB a
-# Hopper block may use (1 KB kept for the kernel's static shared memory).
-MAX_CANDIDATES = (227 * 1024 - 1024) // 24
+# The kernel sorts an unsorted row as 64-bit keys in shared memory, padded
+# to a power of two: 16384 keys are 128 KB of the 227 KB a Hopper block may
+# use, beside about 13 KB of its own.
+MAX_CANDIDATES = 16384
 
 nms_launches = 0
+nms_kernel_launches = 0  # CUDA kernels those calls launched
 decode_launches = 0
 
 _LIB = None
@@ -52,11 +60,32 @@ def _lib():
 
         lib = load_library("detjax_nms", ["nms.cu"])
         fn = lib.detjax_nms_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
+        size = lib.detjax_nms_scratch_bytes
+        size.argtypes = [ctypes.c_int, ctypes.c_int]
+        size.restype = ctypes.c_longlong
+        for shape in ((1, 1), (8, 100), (640, 100), (2, 300), (3, 2000)):
+            if size(*shape) != nms_scratch_bytes(*shape):
+                raise RuntimeError(f"nms.cu and nms_scratch_bytes disagree "
+                                   f"on the scratch of {shape}")
         _LIB = lib
     return _LIB
+
+
+# keeps a row whose boxes the kernel holds in shared memory
+NMS_KEPT_IN_SHARED = 512
+
+
+def nms_scratch_bytes(b: int, max_det: int) -> int:
+    """Bytes of scratch a call of :func:`nms_cuda` takes for B rows: the
+    boxes of the keeps past the first NMS_KEPT_IN_SHARED of a row, 4 fp32
+    each (none at the port's max_det of 100);
+    ``csrc/nms.cu::detjax_nms_scratch_bytes``, which the library is held
+    to when it loads."""
+    return 16 * b * max(max_det - NMS_KEPT_IN_SHARED, 0)
 
 
 def nms_reference(boxes: torch.Tensor, scores: torch.Tensor,
@@ -80,7 +109,7 @@ def nms_cuda(boxes: torch.Tensor, scores: torch.Tensor, labels: torch.Tensor,
     [B, max_det] int32 into N, -1 pad; keep_scores [B, max_det] f32,
     0 pad)`` in descending score order, ties by the lower index.
     """
-    global nms_launches
+    global nms_launches, nms_kernel_launches
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be [B, N, 4], got {tuple(boxes.shape)}")
     if scores.shape != boxes.shape[:2] or labels.shape != boxes.shape[:2]:
@@ -115,20 +144,23 @@ def nms_cuda(boxes: torch.Tensor, scores: torch.Tensor, labels: torch.Tensor,
         return (torch.full((b, max_det), -1, dtype=torch.int32,
                            device=boxes.device),
                 torch.zeros((b, max_det), device=boxes.device))
-    # the kernel writes every slot: keeps, then -1 / 0 padding
-    keep_idx = torch.empty((b, max_det), dtype=torch.int32,
-                           device=boxes.device)
-    keep_scores = torch.empty((b, max_det), dtype=torch.float32,
-                              device=boxes.device)
+    dev = boxes.device
+    # the sweep writes every slot: keeps, then -1 / 0 padding
+    keep_idx = torch.empty((b, max_det), dtype=torch.int32, device=dev)
+    keep_scores = torch.empty((b, max_det), dtype=torch.float32, device=dev)
+    scratch = torch.empty((nms_scratch_bytes(b, max_det),),
+                          dtype=torch.uint8, device=dev)
     lib = _lib()
-    dev = boxes.device.index if boxes.device.index is not None \
-        else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(index).cuda_stream
+    launched = ctypes.c_int(0)
     err = lib.detjax_nms_launch(
         boxes.data_ptr(), scores.data_ptr(), labels.data_ptr(),
-        keep_idx.data_ptr(), keep_scores.data_ptr(), b, n, max_det,
-        float(iou_threshold), float(class_offset), dev, stream)
-    if err != 0:
+        keep_idx.data_ptr(), keep_scores.data_ptr(), scratch.data_ptr(), b,
+        n, max_det, float(iou_threshold), float(class_offset), index, stream,
+        ctypes.byref(launched))
+    nms_kernel_launches += launched.value
+    if err != 0 or launched.value != 1:
         raise RuntimeError(f"NMS kernel launch failed: cudaError {err}")
     nms_launches += 1
     return keep_idx, keep_scores

@@ -49,12 +49,70 @@ def test_nms_kernel_bit_equal_to_twin(cuda, b, n, max_det):
     boxes, scores, labels = (torch.from_numpy(a).to(cuda)
                              for a in _case(b * 7 + n, b, n))
     scores[-1, : n // 2] = -1e10  # the last image runs out early
-    before = pp.nms_launches
+    before = (pp.nms_launches, pp.nms_kernel_launches)
     ki, ks = pp.nms_cuda(boxes, scores, labels, 0.5, max_det, 642.0)
     ri, rs = pp.nms_reference(boxes, scores, labels, 0.5, max_det, 642.0)
     torch.cuda.synchronize()
-    assert pp.nms_launches == before + 1
+    assert (pp.nms_launches, pp.nms_kernel_launches) == (before[0] + 1,
+                                                         before[1] + 1)
     assert torch.equal(ki, ri) and torch.equal(ks, rs)
+
+
+def _sorted_rows(boxes, scores, labels):
+    """Each row in the port's callers' order: a stable descending sort of
+    its scores, pre-suppressed entries last."""
+    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
+    return (boxes.gather(1, order[..., None].expand(-1, -1, 4)).contiguous(),
+            scores.gather(1, order).contiguous(),
+            labels.gather(1, order).contiguous())
+
+
+@pytest.mark.parametrize("case", ["serving_sorted", "eval_rows",
+                                  "many_keeps"])
+def test_nms_kernel_sorted_rows_bit_equal_to_twin(cuda, case):
+    """Rows already in (score desc, index asc) order, which the kernel
+    does not sort: the serving shape (8, 1000, 100); 640 rows of 1000 like
+    the eval branch's (image, class) rows, whose live prefixes are mostly
+    short (0-40) with a few long ones, labels 0 and no class offset; and
+    rows of small boxes apart from each other with max_det 1500, whose
+    keeps past the first 512 go to the global scratch."""
+    max_det = 100
+    if case == "serving_sorted":
+        b, n, offset = 8, 1000, 642.0
+        boxes, scores, labels = (torch.from_numpy(a).to(cuda)
+                                 for a in _case(11, b, n))
+    elif case == "many_keeps":
+        b, n, offset, max_det = 2, 3000, 0.0, 1500
+        rng = np.random.default_rng(13)
+        c = rng.uniform(0, 2000, (b, n, 2))
+        boxes = torch.from_numpy(np.concatenate(
+            [c - 3, c + 3], -1).astype(np.float32)).to(cuda)
+        scores = torch.from_numpy(rng.uniform(0, 1, (b, n)).astype(
+            np.float32)).to(cuda)
+        labels = torch.zeros((b, n), dtype=torch.int32, device=cuda)
+    else:
+        b, n, offset = 640, 1000, 0.0
+        boxes, scores, _ = (torch.from_numpy(a).to(cuda)
+                            for a in _case(12, b, n, presuppress=0.0))
+        rng = np.random.default_rng(12)
+        live = rng.integers(0, 41, b)
+        live[rng.choice(b, 8, replace=False)] = rng.integers(200, n + 1, 8)
+        live[:3] = (0, 1, n)
+        dead = torch.arange(n, device=cuda)[None] >= torch.from_numpy(
+            live).to(cuda)[:, None]
+        scores = torch.where(dead, -1e10, scores)
+        labels = torch.zeros((b, n), dtype=torch.int32, device=cuda)
+    boxes, scores, labels = _sorted_rows(boxes, scores, labels)
+    before = (pp.nms_launches, pp.nms_kernel_launches)
+    ki, ks = pp.nms_cuda(boxes, scores, labels, 0.5, max_det, offset)
+    ri, rs = pp.nms_reference(boxes, scores, labels, 0.5, max_det, offset)
+    torch.cuda.synchronize()
+    assert (pp.nms_launches, pp.nms_kernel_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert torch.equal(ki, ri) and torch.equal(ks, rs)
+    assert (ki >= 0).sum() > 0
+    if case == "many_keeps":
+        assert (ki >= 0).sum(dim=1).min() > pp.NMS_KEPT_IN_SHARED
 
 
 def test_nms_kernel_empty_image(cuda):
@@ -139,17 +197,86 @@ def test_match_kernel_bit_equal_to_twin(cuda, b, a, g):
     anchors, boxes, labels = (torch.from_numpy(x).to(cuda)
                               for x in _match_case(b * 31 + g, b, a, g))
     valid = labels >= 0
-    before = km.match_launches
+    before = (km.match_launches, km.match_kernel_launches)
     got = km.match_iou_cuda(anchors, boxes, valid, labels)
     want = km.match_iou_reference(anchors, boxes, valid, labels)
     torch.cuda.synchronize()
-    assert km.match_launches == before + 1
+    assert (km.match_launches, km.match_kernel_launches) == (before[0] + 1,
+                                                             before[1] + 1)
     for name, x, y in zip(("max_iou", "argmax", "boxes", "labels"), got,
                           want):
         assert x.dtype == y.dtype and x.shape == y.shape, name
         assert torch.equal(x, y), name
     if b > 1:
         assert (got[0][-1] == -1).all() and (got[1][-1] == 0).all()
+
+
+def _r50_640_anchors():
+    import detjax_torch
+    from detjax_torch.modeling import anchor_config
+    from detjax_torch.ops.anchors import anchors_for_shape
+
+    return anchors_for_shape((640, 640), anchor_config(
+        detjax_torch.get_config("retinanet_r50_640")))
+
+
+def _block_union(anchors, k):
+    """The union box of the matching kernel's k-th block of anchors."""
+    from detjax_torch.kernels import matching as km
+
+    per = km.ANCHORS_PER_BLOCK
+    a = anchors[k * per:(k + 1) * per]
+    return np.array([a[:, 0].min(), a[:, 1].min(), a[:, 2].max(),
+                     a[:, 3].max()], np.float32)
+
+
+@pytest.mark.parametrize("case", ["train_like", "padding_only",
+                                  "touching_union"])
+def test_match_kernel_culling_cases_bit_equal_to_twin(cuda, case):
+    """The culling design on the training shape's 76,725 anchors, G=100:
+    training-like GT (1-20 valid, the rest padding), images whose GT is
+    only padding, and GTs whose edge touches a block's union box exactly
+    (dropped there, IoU 0 against each of its anchors) or an anchor's edge
+    inside it (listed, inter exactly 0)."""
+    from detjax_torch.kernels import matching as km
+
+    anchors = _r50_640_anchors()
+    b, g = 16, 100
+    rng = np.random.default_rng(21)
+    c = rng.uniform(0, 640, (b, g, 2))
+    wh = rng.uniform(8, 320, (b, g, 2))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    n_valid = rng.integers(1, 21, b)
+    labels = np.where(np.arange(g)[None] < n_valid[:, None],
+                      rng.integers(0, 80, (b, g)), -1).astype(np.int32)
+    boxes[labels < 0] = 0.0  # pad_annotations' padding
+    if case == "padding_only":
+        labels[::3] = -1
+    elif case == "touching_union":
+        per = km.ANCHORS_PER_BLOCK
+        for i in range(b):
+            k = (7 * i + 3) % (len(anchors) // per)
+            u = _block_union(anchors, k)
+            boxes[i, 0] = [u[2], u[1], u[2] + 40.0, u[3]]  # right of it
+            boxes[i, 1] = [u[0] - 30.0, u[1], u[0], u[3]]  # left of it
+            boxes[i, 2] = [u[0], u[3], u[2], u[3] + 25.0]  # below it
+            an = anchors[k * per + 17]
+            boxes[i, 3] = [an[2], an[1], an[2] + 16.0, an[3]]  # an anchor's
+            labels[i, :4] = rng.integers(0, 80, 4)
+    args = [torch.from_numpy(x).to(cuda) for x in (anchors, boxes)]
+    labels_t = torch.from_numpy(labels).to(cuda)
+    args += [labels_t >= 0, labels_t]
+    before = (km.match_launches, km.match_kernel_launches)
+    got = km.match_iou_cuda(*args)
+    want = km.match_iou_reference(*args)
+    torch.cuda.synchronize()
+    assert (km.match_launches, km.match_kernel_launches) == (before[0] + 1,
+                                                             before[1] + 1)
+    for name, x, y in zip(("max_iou", "argmax", "boxes", "labels"), got,
+                          want):
+        assert torch.equal(x, y), name
+    if case == "padding_only":
+        assert (got[0][::3] == -1).all() and (got[1][::3] == 0).all()
 
 
 def test_match_wrapper_raises_instead_of_falling_back(cuda):
