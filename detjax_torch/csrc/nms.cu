@@ -15,7 +15,20 @@
 //          order with its live candidates first (the port's callers pass
 //          rows from a stable descending sort) and counts the live prefix
 //          L; only a row out of order is sorted, as 64-bit (score, index)
-//          keys in shared memory with a bitonic network.
+//          keys in shared memory with a bitonic network. A row of more
+//          than kSelect = 16384 candidates that is out of order takes the
+//          kernel's large instance: a block-wide radix select (8-bit
+//          digits of the key, high to low, a shared histogram a pass,
+//          stopping at the first digit whose bin holds exactly the keys
+//          still needed) finds the next batch of the order, the smallest
+//          keys at or above a lower bound (1024 of them, doubling at
+//          each refill up to kSelect), gathers them into shared memory
+//          and sorts them there; the rounds walk them, and only when
+//          that batch runs out before max_det keeps does the next select
+//          start above the batch's last key. The keys are unique (the
+//          index is in the low word), so a batch holds exactly the next
+//          keys of the order. No global scratch, no library sort, one
+//          launch.
 //   rounds the sweep then walks the live prefix 64 candidates at a time,
 //          and stops as soon as max_det are kept. Per round: (a) each of
 //          the round's candidates against every keep so far, all threads
@@ -64,6 +77,15 @@ typedef unsigned long long u64;
 constexpr float kNegInf = -1e10f;
 constexpr int kKeptInShared = 512;  // keeps whose boxes (a) reads from shared
 constexpr int kTile = 64;  // candidates a round: one 64-bit word
+// Keys sorted in shared memory at once: a row of up to kSelect candidates
+// is sorted whole, a longer one kSelect at a time (the large instance).
+constexpr int kSelect = 16384;
+// The large instance's first batch; each refill doubles it, up to kSelect.
+// The rounds usually reach max_det within the first few hundred of the
+// order, so a small first batch spares sorting thousands of keys.
+constexpr int kFirstBatch = 1024;
+constexpr int kBins = 256;  // the radix select's digit: 8 bits
+constexpr int kUnroll = 8;  // row elements a thread loads at once
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ bool is_live(float s) {
@@ -95,6 +117,139 @@ __device__ __forceinline__ bool overlaps(float4 p, float ap, float4 q,
   return x > bound || (x == bound && odd);
 }
 
+// Sorts keys[0, pow2) ascending with a bitonic network, all threads.
+template <int kThreads>
+__device__ __forceinline__ void bitonic_sort(u64* keys, int pow2, int tid) {
+  for (int k = 2; k <= pow2; k <<= 1) {
+    for (int d = k >> 1; d > 0; d >>= 1) {
+      for (int t = tid; t < pow2 / 2; t += kThreads) {
+        const int i = ((t & ~(d - 1)) << 1) | (t & (d - 1));
+        const u64 a = keys[i], b = keys[i + d];
+        if ((a > b) == ((i & k) == 0)) {
+          keys[i] = b;
+          keys[i + d] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The large instance's batch: the `need` smallest live keys of the row that
+// are >= lo, sorted into keys[0, need) (the rest of the sort's power of two
+// padded with ~0). `hist` is kBins + 4 ints of shared memory after the
+// keys. A radix select over the key's 8-bit digits, high to low: each pass
+// counts, in a shared histogram (a warp's lanes of one digit add once; a
+// warp none of whose keys counts skips), the digit of every live key >= lo
+// whose higher digits equal the prefix found so far; the bin that holds
+// the need-th key extends the prefix. It stops at the first bin that holds
+// exactly the keys still needed (at the last digit, the bin of one key),
+// so every live key from lo to the prefix's largest completion is taken.
+template <int kThreads>
+__device__ void select_batch(const float* __restrict__ s, int n, u64 lo,
+                             int need, u64* keys, int* hist, int tid) {
+  const int lane = tid & 31, warp = tid >> 5;
+  u64 prefix = 0, hi = ~0ull;
+  for (int shift = 56;; shift -= 8) {
+    for (int i = tid; i < kBins; i += kThreads) hist[i] = 0;
+    __syncthreads();
+    for (int j0 = warp * 32 * kUnroll; j0 < n; j0 += kThreads * kUnroll) {
+      float sv[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int j = j0 + 32 * u + lane;
+        sv[u] = j < n ? s[j] : kNegInf;
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        int bin = kBins;  // no count
+        if (is_live(sv[u])) {
+          const u64 key = sort_key(sv[u], j0 + 32 * u + lane);
+          if (key >= lo && (shift == 56 || (key >> (shift + 8)) == prefix))
+            bin = static_cast<int>((key >> shift) & (kBins - 1));
+        }
+        if (!__any_sync(kFull, bin != kBins)) continue;  // none counts
+        const unsigned peers = __match_any_sync(kFull, bin);
+        if (bin != kBins && lane == __ffs(peers) - 1)
+          atomicAdd(&hist[bin], __popc(peers));
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {  // the bin of the need-th key: lane l holds 8l..8l+7
+      int c[8], sum = 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        c[i] = hist[8 * lane + i];
+        sum += c[i];
+      }
+      int incl = sum;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += v;
+      }
+      const int src = __ffs(__ballot_sync(kFull, incl >= need)) - 1;
+      if (lane == src) {
+        int before = incl - sum, pick = -1, cnt = 0;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (pick < 0) {
+            if (before + c[i] >= need) {
+              pick = 8 * lane + i;
+              cnt = c[i];
+            } else {
+              before += c[i];
+            }
+          }
+        }
+        hist[kBins] = pick;
+        hist[kBins + 1] = need - before;
+        hist[kBins + 2] = cnt;
+      }
+    }
+    __syncthreads();
+    prefix = (prefix << 8) | static_cast<u64>(hist[kBins]);
+    need = hist[kBins + 1];
+    if (hist[kBins + 2] == need) {  // the whole bin: done
+      hi = shift == 0 ? prefix : (prefix << shift) | ((1ull << shift) - 1);
+      break;
+    }
+  }
+  // gather the keys in [lo, hi], in no order, then sort them
+  if (tid == 0) hist[kBins + 3] = 0;
+  __syncthreads();
+  for (int j0 = warp * 32 * kUnroll; j0 < n; j0 += kThreads * kUnroll) {
+    float sv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = j0 + 32 * u + lane;
+      sv[u] = j < n ? s[j] : kNegInf;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      u64 key = 0;
+      bool take = false;
+      if (is_live(sv[u])) {
+        key = sort_key(sv[u], j0 + 32 * u + lane);
+        take = key >= lo && key <= hi;
+      }
+      const unsigned ballot = __ballot_sync(kFull, take);
+      int base = 0;
+      if (lane == 0 && ballot) {
+        base = atomicAdd(&hist[kBins + 3], __popc(ballot));
+      }
+      base = __shfl_sync(kFull, base, 0);
+      if (take) keys[base + __popc(ballot & ((1u << lane) - 1))] = key;
+    }
+  }
+  __syncthreads();
+  const int got = hist[kBins + 3];
+  int pow2 = 1;
+  while (pow2 < got) pow2 <<= 1;
+  for (int j = got + tid; j < pow2; j += kThreads) keys[j] = ~0ull;
+  __syncthreads();
+  bitonic_sort<kThreads>(keys, pow2, tid);
+}
+
 // Built with -DDETJAX_NMS_PROFILE (chip_smoke.py builds that library
 // beside the port's), thread 0 of each row reads clock64 at the barriers
 // and writes the row's cycles by phase to g_phase_cycles [R, kPhases]:
@@ -109,8 +264,10 @@ constexpr bool kProfile = false;
 #endif
 
 // A block of 256 threads is for many rows: five such blocks an SM (at
-// most 51 registers a thread) hold 660 rows at once.
-template <int kThreads>
+// most 51 registers a thread) hold 660 rows at once. kLarge: rows of more
+// than kSelect candidates (512 threads, one block an SM: its keys take
+// 128 KB of shared memory).
+template <int kThreads, bool kLarge>
 __global__ void __launch_bounds__(kThreads, kThreads == 256 ? 5 : 1)
     nms_kernel(const float4* __restrict__ boxes,  // [R, N] xyxy
                const float* __restrict__ scores,  // [R, N]
@@ -120,7 +277,9 @@ __global__ void __launch_bounds__(kThreads, kThreads == 256 ? 5 : 1)
                float4* __restrict__ kept_boxes,   // scratch, see below
                int n, int pow2, int max_det, double mid, int odd,
                float class_offset) {
-  extern __shared__ u64 keys[];  // [pow2], used when the row is unsorted
+  // [pow2], used when the row is unsorted; the large instance: [kSelect]
+  // keys, then its select's histogram
+  extern __shared__ u64 keys[];
   __shared__ float4 cbox[kTile];  // the round's candidates
   __shared__ float carea[kTile];
   __shared__ float cscore[kTile];
@@ -171,158 +330,171 @@ __global__ void __launch_bounds__(kThreads, kThreads == 256 ? 5 : 1)
   if (lane == 0) atomicAdd(&s_live, live);
   const bool unsorted = __syncthreads_or(bad);
   const int count = s_live;
-  if (unsorted) {
+  if (!kLarge && unsorted) {
     for (int j = tid; j < pow2; j += kThreads)
       keys[j] = j < n && is_live(s[j]) ? sort_key(s[j], j) : ~0ull;
     __syncthreads();
-    for (int k = 2; k <= pow2; k <<= 1) {
-      for (int d = k >> 1; d > 0; d >>= 1) {
-        for (int t = tid; t < pow2 / 2; t += kThreads) {
-          const int i = ((t & ~(d - 1)) << 1) | (t & (d - 1));
-          const u64 a = keys[i], b = keys[i + d];
-          if ((a > b) == ((i & k) == 0)) {
-            keys[i] = b;
-            keys[i + d] = a;
-          }
-        }
-        __syncthreads();
-      }
-    }
+    bitonic_sort<kThreads>(keys, pow2, tid);
   }
   mark(0);
 
   int k = 0;  // keeps so far, the same in every thread
-  for (int r0 = 0; r0 < count && k < max_det; r0 += kTile) {
-    const int ncols = min(kTile, count - r0);
-    // the round's candidates, offset by class, in sorted order
-    for (int c = tid; c < kTile; c += kThreads) {
-      if (c < ncols) {
-        const int j = unsorted
-                          ? static_cast<int>(keys[r0 + c] & 0xffffffffu)
-                          : r0 + c;
-        const float4 b = rboxes[j];
-        const float off = static_cast<float>(rlabels[j]) * class_offset;
-        const float4 ob =
-            make_float4(b.x + off, b.y + off, b.z + off, b.w + off);
-        cbox[c] = ob;
-        carea[c] = box_area(ob);
-        cscore[c] = s[j];
-        cidx[c] = j;
+  // the candidates the rounds walk: the live prefix, or (large instance,
+  // unsorted row) the batch of the order that select_batch sorted
+  int batch = count;
+  [[maybe_unused]] int walked = 0;  // candidates of earlier batches
+  [[maybe_unused]] u64 lo = 0;      // the next batch's keys are >= lo
+  [[maybe_unused]] int cap = kFirstBatch;  // the next batch's size
+  for (;;) {
+    if constexpr (kLarge) {
+      if (unsorted) {
+        batch = min(cap, count - walked);
+        cap = min(2 * cap, kSelect);
+        select_batch<kThreads>(s, n, lo, batch, keys,
+                               reinterpret_cast<int*>(keys + kSelect), tid);
+        mark(0);
       }
-      removed[c] = c >= ncols;
-      blk[c] = 0;
     }
-    __syncthreads();
-    mark(1);
-
-    // (a) each candidate against every keep so far; the threads of a
-    // candidate split the keeps
-    if (k > 0) {
-      constexpr int kSplit = kThreads / kTile;
-      const int c = tid % kTile;
-      if (c < ncols) {
-        const float4 q = cbox[c];
-        const float aq = carea[c];
-        bool hit = false;
-        const int ks = min(k, kKeptInShared);
-        for (int t0 = tid / kTile; t0 < ks && !hit; t0 += 4 * kSplit) {
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int t = t0 + u * kSplit;
-            if (t < ks) hit |= overlaps(kbox[t], karea[t], q, aq, mid, odd);
-          }
+    for (int r0 = 0; r0 < batch && k < max_det; r0 += kTile) {
+      const int ncols = min(kTile, batch - r0);
+      // the round's candidates, offset by class, in sorted order
+      for (int c = tid; c < kTile; c += kThreads) {
+        if (c < ncols) {
+          const int j = unsorted
+                            ? static_cast<int>(keys[r0 + c] & 0xffffffffu)
+                            : r0 + c;
+          const float4 b = rboxes[j];
+          const float off = static_cast<float>(rlabels[j]) * class_offset;
+          const float4 ob =
+              make_float4(b.x + off, b.y + off, b.z + off, b.w + off);
+          cbox[c] = ob;
+          carea[c] = box_area(ob);
+          cscore[c] = s[j];
+          cidx[c] = j;
         }
-        // keeps past the shared copy, from the global scratch
-        for (int t = kKeptInShared + tid / kTile; t < k && !hit;
-             t += kSplit) {
-          const float4 p = kextra[t - kKeptInShared];
-          hit = overlaps(p, box_area(p), q, aq, mid, odd);
-        }
-        if (hit) removed[c] = 1;
+        removed[c] = c >= ncols;
+        blk[c] = 0;
       }
       __syncthreads();
-    }
-    mark(2);
+      mark(1);
 
-    // (b) the round's triangle: row p's bits for the columns q > p, a
-    // thread kChunk columns of one row (the same columns across a warp),
-    // OR-ed into the row's word; rows (a) removed are never kept, and skip
-    {
-      constexpr int kChunk = kTile * kTile / kThreads;
-      const int p = tid % kTile;
-      const int q0 = tid / kTile * kChunk;
-      if (q0 + kChunk - 1 > p && q0 < ncols && !removed[p]) {
-        const float4 b = cbox[p];
-        const float a = carea[p];
-        u64 bits = 0;
-#pragma unroll 8
-        for (int c = 0; c < kChunk; ++c) {
-          const int q = q0 + c;
-          if (overlaps(b, a, cbox[q], carea[q], mid, odd)) bits |= 1ull << q;
+      // (a) each candidate against every keep so far; the threads of a
+      // candidate split the keeps
+      if (k > 0) {
+        constexpr int kSplit = kThreads / kTile;
+        const int c = tid % kTile;
+        if (c < ncols) {
+          const float4 q = cbox[c];
+          const float aq = carea[c];
+          bool hit = false;
+          const int ks = min(k, kKeptInShared);
+          for (int t0 = tid / kTile; t0 < ks && !hit; t0 += 4 * kSplit) {
+  #pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int t = t0 + u * kSplit;
+              if (t < ks) hit |= overlaps(kbox[t], karea[t], q, aq, mid, odd);
+            }
+          }
+          // keeps past the shared copy, from the global scratch
+          for (int t = kKeptInShared + tid / kTile; t < k && !hit;
+               t += kSplit) {
+            const float4 p = kextra[t - kKeptInShared];
+            hit = overlaps(p, box_area(p), q, aq, mid, odd);
+          }
+          if (hit) removed[c] = 1;
         }
-        const u64 cols = ncols == kTile ? ~0ull : (1ull << ncols) - 1;
-        bits &= cols & ~((2ull << p) - 1);
-        if (bits) atomicOr(&blk[p], bits);
+        __syncthreads();
       }
-    }
-    __syncthreads();
-    mark(3);
+      mark(2);
 
-    // (c) the keeps, by warp 0. With O the round's open candidates and
-    // row(q) the bits q removes (all after q), the greedy keep set is the
-    // one fixed point of K = O \ OR of row(q), q in K: a candidate's
-    // membership follows from its predecessors'. From K = O the iteration
-    // reaches it in the depth of the round's removal chains plus one
-    // steps, each an OR-reduction across the lanes (every lane holds the
-    // rows of candidates lane and lane + 32). The first max_det - k of K
-    // are kept, in order.
-    if (warp == 0) {
-      const u64 open =
-          ~((static_cast<u64>(__ballot_sync(kFull, removed[32 + lane]))
-             << 32) |
-            __ballot_sync(kFull, removed[lane]));
-      const u64 row_a = blk[lane], row_b = blk[lane + 32];
-      u64 keep = open;
-      for (int it = 0; it <= kTile; ++it) {
-        const u64 v = (((keep >> lane) & 1) ? row_a : 0ull) |
-                      (((keep >> (lane + 32)) & 1) ? row_b : 0ull);
-        const u64 gone =
-            (static_cast<u64>(__reduce_or_sync(
-                 kFull, static_cast<unsigned>(v >> 32)))
-             << 32) |
-            __reduce_or_sync(kFull, static_cast<unsigned>(v));
-        const u64 next = open & ~gone;
-        if (next == keep) break;
-        keep = next;
-      }
-      // the first max_det - k keeps, in order; each lane its two
-      const int budget = max_det - k;
-      const int rank_a = __popcll(keep & ((1ull << lane) - 1));
-      const int rank_b = __popcll(keep & ((1ull << (lane + 32)) - 1));
-      if (((keep >> lane) & 1) && rank_a < budget) kept[rank_a] = lane;
-      if (((keep >> (lane + 32)) & 1) && rank_b < budget) {
-        kept[rank_b] = lane + 32;
-      }
-      const int nkept = min(__popcll(keep), budget);
-      __syncwarp();  // kept[] written
-      mark(4);
-      for (int t = lane; t < nkept; t += 32) {
-        const int p = kept[t];
-        out_idx[k + t] = cidx[p];
-        out_scores[k + t] = cscore[p];
-        if (k + t < kKeptInShared) {
-          kbox[k + t] = cbox[p];
-          karea[k + t] = carea[p];
-        } else {
-          kextra[k + t - kKeptInShared] = cbox[p];
+      // (b) the round's triangle: row p's bits for the columns q > p, a
+      // thread kChunk columns of one row (the same columns across a warp),
+      // OR-ed into the row's word; rows (a) removed are never kept, and skip
+      {
+        constexpr int kChunk = kTile * kTile / kThreads;
+        const int p = tid % kTile;
+        const int q0 = tid / kTile * kChunk;
+        if (q0 + kChunk - 1 > p && q0 < ncols && !removed[p]) {
+          const float4 b = cbox[p];
+          const float a = carea[p];
+          u64 bits = 0;
+  #pragma unroll 8
+          for (int c = 0; c < kChunk; ++c) {
+            const int q = q0 + c;
+            if (overlaps(b, a, cbox[q], carea[q], mid, odd)) bits |= 1ull << q;
+          }
+          const u64 cols = ncols == kTile ? ~0ull : (1ull << ncols) - 1;
+          bits &= cols & ~((2ull << p) - 1);
+          if (bits) atomicOr(&blk[p], bits);
         }
       }
-      if (lane == 0) s_nkept = k + nkept;
+      __syncthreads();
+      mark(3);
+
+      // (c) the keeps, by warp 0. With O the round's open candidates and
+      // row(q) the bits q removes (all after q), the greedy keep set is the
+      // one fixed point of K = O \ OR of row(q), q in K: a candidate's
+      // membership follows from its predecessors'. From K = O the iteration
+      // reaches it in the depth of the round's removal chains plus one
+      // steps, each an OR-reduction across the lanes (every lane holds the
+      // rows of candidates lane and lane + 32). The first max_det - k of K
+      // are kept, in order.
+      if (warp == 0) {
+        const u64 open =
+            ~((static_cast<u64>(__ballot_sync(kFull, removed[32 + lane]))
+               << 32) |
+              __ballot_sync(kFull, removed[lane]));
+        const u64 row_a = blk[lane], row_b = blk[lane + 32];
+        u64 keep = open;
+        for (int it = 0; it <= kTile; ++it) {
+          const u64 v = (((keep >> lane) & 1) ? row_a : 0ull) |
+                        (((keep >> (lane + 32)) & 1) ? row_b : 0ull);
+          const u64 gone =
+              (static_cast<u64>(__reduce_or_sync(
+                   kFull, static_cast<unsigned>(v >> 32)))
+               << 32) |
+              __reduce_or_sync(kFull, static_cast<unsigned>(v));
+          const u64 next = open & ~gone;
+          if (next == keep) break;
+          keep = next;
+        }
+        // the first max_det - k keeps, in order; each lane its two
+        const int budget = max_det - k;
+        const int rank_a = __popcll(keep & ((1ull << lane) - 1));
+        const int rank_b = __popcll(keep & ((1ull << (lane + 32)) - 1));
+        if (((keep >> lane) & 1) && rank_a < budget) kept[rank_a] = lane;
+        if (((keep >> (lane + 32)) & 1) && rank_b < budget) {
+          kept[rank_b] = lane + 32;
+        }
+        const int nkept = min(__popcll(keep), budget);
+        __syncwarp();  // kept[] written
+        mark(4);
+        for (int t = lane; t < nkept; t += 32) {
+          const int p = kept[t];
+          out_idx[k + t] = cidx[p];
+          out_scores[k + t] = cscore[p];
+          if (k + t < kKeptInShared) {
+            kbox[k + t] = cbox[p];
+            karea[k + t] = carea[p];
+          } else {
+            kextra[k + t - kKeptInShared] = cbox[p];
+          }
+        }
+        if (lane == 0) s_nkept = k + nkept;
+      }
+      __syncthreads();  // the keeps, and their boxes, seen by every thread
+      k = s_nkept;
+      mark(5);
+      if (kProfile) ++cyc[7];
     }
-    __syncthreads();  // the keeps, and their boxes, seen by every thread
-    k = s_nkept;
-    mark(5);
-    if (kProfile) ++cyc[7];
+    if constexpr (kLarge) {
+      walked += batch;
+      if (unsorted && k < max_det && walked < count) {
+        lo = keys[batch - 1] + 1;  // above the batch's last key
+        continue;
+      }
+    }
+    break;
   }
   for (int i = k + tid; i < max_det; i += kThreads) {
     out_idx[i] = -1;
@@ -356,13 +528,15 @@ extern "C" long long detjax_nms_scratch_bytes(int batch, int max_det) {
 
 namespace {
 
-template <int kThreads>
+template <int kThreads, bool kLarge>
 cudaError_t launch(const float* boxes, const float* scores, const int* labels,
                    int* keep_idx, float* keep_scores, void* scratch,
                    int batch, int n, int pow2, int max_det, double mid,
                    int odd, float class_offset, cudaStream_t stream) {
-  auto kernel = nms_kernel<kThreads>;
-  const size_t smem = sizeof(u64) * pow2;
+  auto kernel = nms_kernel<kThreads, kLarge>;
+  const size_t smem =
+      kLarge ? sizeof(u64) * kSelect + sizeof(int) * (kBins + 4)
+             : sizeof(u64) * pow2;
   if (smem > 8 * 1024) {  // beside about 13 KB of static shared memory
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -383,10 +557,10 @@ cudaError_t launch(const float* boxes, const float* scores, const int* labels,
 // (uninitialised, from the caller) holds detjax_nms_scratch_bytes bytes,
 // 16-byte aligned. A block has 512 threads when there are few rows (each
 // row's latency is the call's: more threads a round) and 256 from two rows
-// an SM on (five blocks an SM, every row in one wave). The caller
-// guarantees batch >= 1, n >= 1, max_det >= 1, contiguous buffers,
-// 16-byte-aligned boxes, and n <= 16384 (the order's 8 * pow2(n) bytes of
-// dynamic shared memory).
+// an SM on (five blocks an SM, every row in one wave); rows of more than
+// kSelect candidates take the large instance, 512 threads. The caller
+// guarantees batch >= 1, 1 <= n < 2^31, max_det >= 1, contiguous buffers
+// and 16-byte-aligned boxes.
 extern "C" int detjax_nms_launch(const float* boxes, const float* scores,
                                  const int* labels, int* keep_idx,
                                  float* keep_scores, void* scratch,
@@ -405,19 +579,25 @@ extern "C" int detjax_nms_launch(const float* boxes, const float* scores,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   int pow2 = 1;
-  while (pow2 < n) pow2 <<= 1;
+  while (pow2 < n && pow2 < kSelect) pow2 <<= 1;
   unsigned bits;
   std::memcpy(&bits, &iou_threshold, sizeof bits);
   const double mid = upper_midpoint(iou_threshold);
   const int odd = static_cast<int>(bits & 1u);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = batch >= 2 * sm_count[device]
-            ? launch<256>(boxes, scores, labels, keep_idx, keep_scores,
-                          scratch, batch, n, pow2, max_det, mid, odd,
-                          class_offset, s)
-            : launch<512>(boxes, scores, labels, keep_idx, keep_scores,
-                          scratch, batch, n, pow2, max_det, mid, odd,
-                          class_offset, s);
+  if (n > kSelect) {
+    err = launch<512, true>(boxes, scores, labels, keep_idx, keep_scores,
+                            scratch, batch, n, pow2, max_det, mid, odd,
+                            class_offset, s);
+  } else {
+    err = batch >= 2 * sm_count[device]
+              ? launch<256, false>(boxes, scores, labels, keep_idx,
+                                   keep_scores, scratch, batch, n, pow2,
+                                   max_det, mid, odd, class_offset, s)
+              : launch<512, false>(boxes, scores, labels, keep_idx,
+                                   keep_scores, scratch, batch, n, pow2,
+                                   max_det, mid, odd, class_offset, s);
+  }
   if (err == cudaSuccess) ++*launched;
   return static_cast<int>(err);
 }

@@ -8,7 +8,11 @@ of one image builds its anchors' union box and lists the valid GTs that
 can overlap it; each thread divides only against the listed GTs and merges
 with (0, the first dropped valid GT) and (-1, the first invalid one),
 which is the full scan's result bit for bit: a dropped GT has IoU exactly 0
-against every anchor of the block.
+against every anchor of the block. Past ``ONE_LIST_GT`` slots the list
+does not fit in shared memory: the kernel's chunked instance lists and
+scans ``GT_CHUNK`` slots at a time, in order, carrying each thread's
+(best, index) from chunk to chunk, which is the one list's scan bit for
+bit.
 
 What bounds it on an H100: its floor is bytes once the culling leaves few
 pairs (the training batches hold 1-20 objects padded to 100 slots): the
@@ -34,8 +38,11 @@ import torch
 from detjax_torch.ops.boxes import box_iou
 
 # Dynamic shared memory: 24 bytes a listed GT (box, area, index), within
-# the 227 KB a Hopper block may use (1 KB kept for static shared memory).
-MAX_GT = (227 * 1024 - 1024) // 24
+# the 227 KB a Hopper block may use (1 KB kept for static shared memory):
+# up to ONE_LIST_GT slots the kernel lists them all at once, past it
+# GT_CHUNK at a time (``csrc/matching.cu``'s ``kMaxListed`` and ``kChunk``).
+ONE_LIST_GT = (227 * 1024 - 1024) // 24
+GT_CHUNK = 4096
 # Anchors a block of the kernel (one a thread, one image a block): their
 # union box culls the GTs (``csrc/matching.cu``'s ``kThreads``).
 ANCHORS_PER_BLOCK = 128
@@ -137,9 +144,6 @@ def match_iou_cuda(anchors: torch.Tensor, gt_boxes: torch.Tensor,
     if anchors.data_ptr() % 16 or gt_boxes.data_ptr() % 16:
         raise ValueError("anchors and gt_boxes must be 16-byte aligned "
                          "(read as float4)")
-    if g > MAX_GT:
-        raise ValueError(f"G={g} GT slots exceed the kernel's shared-memory "
-                         f"limit of {MAX_GT} per image")
     a = anchors.shape[0]
     dev = anchors.device
     max_iou = torch.empty((b, a), dtype=torch.float32, device=dev)

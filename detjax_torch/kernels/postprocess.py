@@ -6,8 +6,12 @@ nms_pallas`` (body ``_nms_kernel``) with the hand-written kernel in
 ``detjax_torch/csrc/nms.cu``. The greedy loop equals one sweep over the
 live candidates in (score desc, index asc) order, so one block per row
 checks the row's order in parallel (sorting, in shared memory, only a row
-out of order: the port's callers pass sorted rows), then walks its live
-prefix 64 candidates a round: each candidate against the keeps so far,
+out of order: the port's callers pass sorted rows; a row of more than
+``SHARED_SORT_CANDIDATES`` that is out of order is radix-selected into
+shared memory a batch of its order at a time, 1,024 keys first and twice
+as many at each refill up to 16,384, and sorted there, the next batch only
+when the rounds run out of one before ``max_det`` keeps), then walks its
+live prefix 64 candidates a round: each candidate against the keeps so far,
 the round's own IoU > thr bits in one 64-bit word a row, and the round's
 keeps as the one fixed point of "open minus what the keeps remove",
 found in a few warp-wide OR-reductions; it stops at ``max_det`` keeps, so
@@ -42,8 +46,10 @@ from detjax_torch.ops.nms import _greedy_suppress
 
 # The kernel sorts an unsorted row as 64-bit keys in shared memory, padded
 # to a power of two: 16384 keys are 128 KB of the 227 KB a Hopper block may
-# use, beside about 13 KB of its own.
-MAX_CANDIDATES = 16384
+# use, beside about 13 KB of its own. A longer row takes the kernel's large
+# instance, which selects and sorts that many keys at a time
+# (``csrc/nms.cu``'s ``kSelect``): the split point between the two.
+SHARED_SORT_CANDIDATES = 16384
 
 nms_launches = 0
 nms_kernel_launches = 0  # CUDA kernels those calls launched
@@ -137,9 +143,8 @@ def nms_cuda(boxes: torch.Tensor, scores: torch.Tensor, labels: torch.Tensor,
     if boxes.data_ptr() % 16:
         raise ValueError("boxes must be 16-byte aligned (read as float4)")
     b, n = scores.shape
-    if n > MAX_CANDIDATES:
-        raise ValueError(f"N={n} candidates exceed the kernel's shared-memory "
-                         f"limit of {MAX_CANDIDATES} per image")
+    if n >= 2**31:
+        raise ValueError(f"N={n} candidates: keep indices are int32")
     if b == 0 or n == 0 or max_det == 0:
         return (torch.full((b, max_det), -1, dtype=torch.int32,
                            device=boxes.device),

@@ -16,9 +16,14 @@ scan order (row, then column) that equals it, detjax's rule:
 ATen's ``F.max_pool2d`` backward differs on exactly those inputs (it sends
 an all--inf border window to its first in-bounds pixel, a NaN window to its
 last NaN, and sums a pixel's windows in the reverse order, so fp32 sums
-round differently), so the twin routes by hand. What bounds the kernel on an H100: bytes (z and dp
-read once, dz written once: 471.9 MB, 0.141 ms at 3.35 TB/s, at the R50-640
-training stem [16, 64, 320, 320] bf16).
+round differently), so the twin routes by hand. What bounds the kernel on
+an H100: bytes (z and dp read once, dz written once: 471.9 MB, 0.141 ms at
+3.35 TB/s, at the R50-640 training stem [16, 64, 320, 320] bf16). The
+kernel's strip instance takes bf16 with C a multiple of 64 and 16-byte
+aligned buffers (the stem): a block stages its strip of z and dp in shared
+memory by 16-byte ``cp.async`` and routes 8 channels a thread on bf16
+pairs; fp32, other C and unaligned views take the gather instance (one
+thread a 2x2 dz block).
 
 As in detjax, :func:`max_pool_3x3s2` is wired into nothing: the port's
 ``ResNet.forward`` keeps ATen's pool, as detjax's keeps XLA's
@@ -32,7 +37,8 @@ are copied once and counted in ``maxpool_bwd_copies``.
 
 Routing: a CPU tensor goes to the twin :func:`maxpool_bwd_reference`; a
 CUDA tensor goes to the kernel or raises. ``maxpool_bwd_launches`` counts
-kernel launches, and nothing else.
+kernel launches, and nothing else; ``maxpool_bwd_strip_launches`` those of
+them that ran the strip instance.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 maxpool_bwd_launches = 0
+maxpool_bwd_strip_launches = 0
 maxpool_bwd_copies = 0
 
 _LIB = None
@@ -57,9 +64,12 @@ def _lib():
 
         lib = load_library("detjax_maxpool_bwd", ["maxpool_bwd.cu"])
         fn = lib.detjax_maxpool_bwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        which = lib.detjax_maxpool_bwd_instance
+        which.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+        which.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -115,7 +125,8 @@ def maxpool_bwd_cuda(z: torch.Tensor, dp: torch.Tensor) -> torch.Tensor:
     """The 3x3/s2/pad-1 max-pool's backward: z [B, C, 2H, 2W] and dp
     [B, C, H, W], bf16 or fp32 (one dtype). Returns dz, z's shape in dp's
     dtype, channels-last."""
-    global maxpool_bwd_launches, maxpool_bwd_copies
+    global maxpool_bwd_launches, maxpool_bwd_strip_launches
+    global maxpool_bwd_copies
     _check(z, dp)
     if z.device.type == "cpu":
         return maxpool_bwd_reference(z, dp)
@@ -141,15 +152,18 @@ def maxpool_bwd_cuda(z: torch.Tensor, dp: torch.Tensor) -> torch.Tensor:
     dev = z.device.index if z.device.index is not None \
         else torch.cuda.current_device()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().detjax_maxpool_bwd_launch(
-        z_cl.data_ptr(), dp_cl.data_ptr(), dz.data_ptr(), b, h, w, c,
-        int(z.dtype == torch.bfloat16), int(z_cl.data_ptr() % 4 == 0
-                                            and dp_cl.data_ptr() % 4 == 0),
+    bf16 = int(z.dtype == torch.bfloat16)
+    lib = _lib()
+    strip = lib.detjax_maxpool_bwd_instance(
+        z_cl.data_ptr(), dp_cl.data_ptr(), dz.data_ptr(), b, c, bf16)
+    err = lib.detjax_maxpool_bwd_launch(
+        z_cl.data_ptr(), dp_cl.data_ptr(), dz.data_ptr(), b, h, w, c, bf16,
         dev, stream)
     if err != 0:
         raise RuntimeError(f"max-pool backward kernel launch failed: "
                            f"cudaError {err}")
     maxpool_bwd_launches += 1
+    maxpool_bwd_strip_launches += strip
     return dz
 
 

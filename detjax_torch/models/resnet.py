@@ -102,8 +102,15 @@ def fold_frozen_bn(conv_weight: torch.Tensor, bn: FrozenBatchNorm2d
 
     ``conv_weight`` is the port's OIHW weight. Returns the fused kernel's
     layout: ``w'`` as [I, O] for a 1x1 conv and [3, 3, I, O] (HWIO) for a
-    3x3, contiguous bf16, and ``b'`` [1, O] fp32."""
-    s = (bn.weight / torch.sqrt(bn.running_var + bn.eps)).to(torch.float32)
+    3x3, contiguous bf16, and ``b'`` [1, O] fp32.
+
+    The square root is taken in fp64 and rounded once to fp32, which is
+    the correctly rounded fp32 square root (numpy's and XLA's) on every
+    backend: a CPU build of torch may return an fp32 ``sqrt`` an ulp off
+    it, which moves ``s`` and the folded bias off detjax's."""
+    v = (bn.running_var + bn.eps).to(torch.float32)
+    s = (bn.weight / torch.sqrt(v.double()).to(torch.float32)).to(
+        torch.float32)
     hwio = conv_weight.to(torch.float32).permute(2, 3, 1, 0)
     w_eff = (hwio * s).to(torch.bfloat16)
     if w_eff.shape[:2] == (1, 1):

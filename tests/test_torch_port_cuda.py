@@ -43,7 +43,7 @@ def _case(seed, b, n, k=24, presuppress=0.1, ties=True):
     (3, 1, 5),  # one candidate, more slots than candidates
     (2, 37, 100),  # fewer candidates than threads and than max_det
     (2, 5000, 300),  # > 48 KB of dynamic shared memory
-    (1, pp.MAX_CANDIDATES, 100),  # the kernel's limit
+    (1, pp.SHARED_SORT_CANDIDATES, 100),  # the longest row sorted whole
 ])
 def test_nms_kernel_bit_equal_to_twin(cuda, b, n, max_det):
     boxes, scores, labels = (torch.from_numpy(a).to(cuda)
@@ -133,11 +133,60 @@ def test_nms_wrapper_raises_instead_of_falling_back(cuda):
         pp.nms_cuda(boxes, scores.t().contiguous().t(), labels)
     with pytest.raises(ValueError, match="one device"):
         pp.nms_cuda(boxes, scores.cpu(), labels)
-    big = pp.MAX_CANDIDATES + 1
-    with pytest.raises(ValueError, match="shared-memory"):
-        pp.nms_cuda(torch.zeros(1, big, 4, device=cuda),
-                    torch.zeros(1, big, device=cuda),
-                    torch.zeros(1, big, dtype=torch.int32, device=cuda))
+    # a row past the split point is taken by the kernel, not refused
+    big = pp.SHARED_SORT_CANDIDATES + 1
+    boxes, scores, labels = (torch.from_numpy(a).to(cuda)
+                             for a in _case(5, 1, big))
+    before = pp.nms_launches
+    ki, ks = pp.nms_cuda(boxes, scores, labels)
+    ri, rs = pp.nms_reference(boxes, scores, labels)
+    assert pp.nms_launches == before + 1
+    assert torch.equal(ki, ri) and torch.equal(ks, rs)
+
+
+@pytest.mark.parametrize("n", [pp.SHARED_SORT_CANDIDATES + 1, 76725])
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+def test_nms_kernel_long_rows_bit_equal_to_twin(cuda, n, order):
+    """Rows past the split point, B = 8: sorted rows walk as they are; rows
+    out of order take the large instance's radix select, a batch of their
+    order at a time. One launch a call, bit-equal to the twin, with an
+    image that runs out before max_det and one with no live candidate."""
+    boxes, scores, labels = (torch.from_numpy(a).to(cuda)
+                             for a in _case(n % 1000, 8, n))
+    scores[-2, 60:] = -1e10
+    scores[-1] = -1e10
+    if order == "sorted":
+        boxes, scores, labels = _sorted_rows(boxes, scores, labels)
+    before = (pp.nms_launches, pp.nms_kernel_launches)
+    ki, ks = pp.nms_cuda(boxes, scores, labels, 0.5, 100, 642.0)
+    ri, rs = pp.nms_reference(boxes, scores, labels, 0.5, 100, 642.0)
+    torch.cuda.synchronize()
+    assert (pp.nms_launches, pp.nms_kernel_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert torch.equal(ki, ri) and torch.equal(ks, rs)
+    kept = (ki >= 0).sum(dim=1)
+    assert kept[0] == 100 and 0 < kept[-2] < 100 and kept[-1] == 0
+
+
+def test_nms_kernel_long_rows_refill(cuda):
+    """Unsorted rows of 40,000 candidates of one class in three piles keep
+    a handful, so the kernel selects batch after batch (1,024 keys, then
+    twice as many each time up to 16,384), each above the last one's key,
+    until the row runs out; bit-equal to the twin."""
+    rng = np.random.default_rng(3)
+    b, n = 2, 40000
+    c = rng.uniform(0, 640, (b, 3, 2))
+    c = np.take_along_axis(c, rng.integers(0, 3, (b, n, 1)), 1)
+    c = c + rng.normal(0, 3, (b, n, 2))
+    boxes = torch.from_numpy(np.concatenate([c - 20, c + 20], -1).astype(
+        np.float32)).to(cuda)
+    scores = torch.from_numpy(np.round(rng.uniform(0, 1, (b, n)), 3).astype(
+        np.float32)).to(cuda)
+    labels = torch.zeros((b, n), dtype=torch.int32, device=cuda)
+    ki, ks = pp.nms_cuda(boxes, scores, labels, 0.5, 100, 0.0)
+    ri, rs = pp.nms_reference(boxes, scores, labels, 0.5, 100, 0.0)
+    assert torch.equal(ki, ri) and torch.equal(ks, rs)
+    assert 0 < int((ri >= 0).sum(dim=1).max()) < 100
 
 
 def test_detect_path_runs_the_kernel(cuda):
@@ -277,6 +326,30 @@ def test_match_kernel_culling_cases_bit_equal_to_twin(cuda, case):
         assert torch.equal(x, y), name
     if case == "padding_only":
         assert (got[0][::3] == -1).all() and (got[1][::3] == 0).all()
+
+
+@pytest.mark.parametrize("g", [9642, 9643, 20000])
+def test_match_kernel_many_gt_slots_bit_equal_to_twin(cuda, g):
+    """G up to 9,642 lists the GTs in shared memory at once; past it the
+    chunked instance lists and scans them 4,096 at a time. Both bit-equal
+    to the twin (run 2,048 anchors at a time) on the R50-640 anchors, with
+    duplicates, padding and an image without a valid GT; one launch."""
+    from detjax_torch.kernels import matching as km
+
+    anchors = torch.from_numpy(_r50_640_anchors()).to(cuda)
+    _, boxes, labels = (torch.from_numpy(x).to(cuda)
+                        for x in _match_case(g, 2, 8, g))
+    valid = labels >= 0
+    before = (km.match_launches, km.match_kernel_launches)
+    got = km.match_iou_cuda(anchors, boxes, valid, labels)
+    assert (km.match_launches, km.match_kernel_launches) == (before[0] + 1,
+                                                             before[1] + 1)
+    for a0 in range(0, anchors.shape[0], 2048):
+        want = km.match_iou_reference(anchors[a0:a0 + 2048], boxes, valid,
+                                      labels)
+        for name, x, y in zip(("max_iou", "argmax", "boxes", "labels"), got,
+                              want):
+            assert torch.equal(x[:, a0:a0 + 2048], y), (name, a0)
 
 
 def test_match_wrapper_raises_instead_of_falling_back(cuda):
@@ -908,6 +981,64 @@ def test_max_pool_3x3s2_backward_runs_the_kernel_once(cuda):
     step = 2.0 ** (torch.floor(torch.log2(aten.grad.float().abs()
                                           .clamp(min=1e-30))) - 7)
     assert bool(((leaf.grad.float() - aten.grad.float()).abs() <= step).all())
+
+
+# the stem max-pool's z at the two training stems: (B, 2H, 2W, C)
+STEM_SHAPES = [(16, 320, 320, 64), (8, 512, 512, 64)]
+
+
+@pytest.mark.parametrize("shape", STEM_SHAPES)
+@pytest.mark.parametrize("hard", [False, True], ids=["relu", "hard"])
+def test_maxpool_bwd_strip_instance_at_the_stem_shapes(cuda, shape, hard):
+    """The strip instance at the stem's shapes, bf16: bit-equal to the twin
+    on post-ReLU z and on the hard z (ties, -inf windows, NaN), two runs
+    equal, one strip launch a call."""
+    from detjax_torch.kernels import stem as ks
+
+    z, dp = _pool_case(sum(shape) + hard, *shape, cuda, torch.bfloat16,
+                       hard=hard)
+    before = ks.maxpool_bwd_launches, ks.maxpool_bwd_strip_launches
+    got = ks.maxpool_bwd_cuda(z, dp)
+    again = ks.maxpool_bwd_cuda(z, dp)
+    assert (ks.maxpool_bwd_launches - before[0],
+            ks.maxpool_bwd_strip_launches - before[1]) == (2, 2)
+    assert _same_bits(got, ks.maxpool_bwd_reference(z, dp))
+    assert _same_bits(got, again)
+
+
+@pytest.mark.parametrize("case", ["fp32_640", "odd_c", "c_96",
+                                  "unaligned_view", "c_128"])
+def test_maxpool_bwd_instances_beside_the_strip(cuda, case):
+    """What the strip instance does not take runs the gather instance, and
+    stays bit-equal: fp32 at the 640 stem, odd C, C not a multiple of 64,
+    a bf16 view 16 bytes off an aligned start whose C is 64; C = 128 runs
+    the strip instance as two channel blocks."""
+    from detjax_torch.kernels import stem as ks
+
+    shape, dtype, instance = {
+        "fp32_640": ((16, 320, 320, 64), torch.float32, "gather"),
+        "odd_c": ((2, 64, 96, 3), torch.bfloat16, "gather"),
+        "c_96": ((2, 64, 96, 96), torch.bfloat16, "gather"),
+        "unaligned_view": ((2, 64, 96, 64), torch.bfloat16, "gather"),
+        "c_128": ((2, 64, 96, 128), torch.bfloat16, "strip"),
+    }[case]
+    z, dp = _pool_case(len(case), *shape, cuda, dtype)
+    if case == "unaligned_view":
+        b, hz, wz, c = shape
+        zs = torch.empty(z.numel() + 4, dtype=z.dtype, device=cuda)[4:]
+        ds = torch.empty(dp.numel() + 4, dtype=dp.dtype, device=cuda)[4:]
+        zu = zs.view(b, hz, wz, c).copy_(z.permute(0, 2, 3, 1))
+        du = ds.view(b, hz // 2, wz // 2, c).copy_(dp.permute(0, 2, 3, 1))
+        zu, du = zu.permute(0, 3, 1, 2), du.permute(0, 3, 1, 2)
+        assert zu.data_ptr() % 16 == 8
+        want = ks.maxpool_bwd_reference(z, dp)
+        z, dp = zu, du
+    else:
+        want = ks.maxpool_bwd_reference(z, dp)
+    before = ks.maxpool_bwd_strip_launches
+    got = ks.maxpool_bwd_cuda(z, dp)
+    assert ks.maxpool_bwd_strip_launches - before == (instance == "strip")
+    assert _same_bits(got, want)
 
 
 def test_maxpool_bwd_wrapper_raises_instead_of_falling_back(cuda):

@@ -152,8 +152,17 @@ def _nms_row(off, s, thr, max_det):
     order, live, was_sorted = _order(s)
     out_i = np.full(max_det, -1, np.int32)
     out_s = np.zeros(max_det, np.float32)
-    kept_boxes = off[:0]
-    k, rounds = 0, 0
+    _, _, rounds = _walk(off, s, order, thr, max_det, out_i, out_s,
+                         off[:0], 0)
+    return out_i, out_s, was_sorted, rounds
+
+
+def _walk(off, s, order, thr, max_det, out_i, out_s, kept_boxes, k):
+    """The rounds over the candidates ``order`` (in the sweep's order),
+    after ``k`` keeps whose boxes are ``kept_boxes``: the keeps go into
+    out_i / out_s from slot k; returns (kept_boxes, k, rounds walked)."""
+    live = len(order)
+    rounds = 0
     for r0 in range(0, live, ROUND):
         if k >= max_det:
             break
@@ -210,7 +219,7 @@ def _nms_row(off, s, thr, max_det):
             out_s[k + t] = s[int(cidx[p])]
         kept_boxes = torch.cat([kept_boxes, cols[kept]])
         k += len(kept)
-    return out_i, out_s, was_sorted, rounds
+    return kept_boxes, k, rounds
 
 
 def nms_emulated(boxes, scores, labels, thr, max_det, offset):
@@ -426,7 +435,152 @@ def test_nms_scratch_bytes():
     assert pp.nms_scratch_bytes(8, 100) == 0
     assert pp.nms_scratch_bytes(640, 512) == 0
     assert pp.nms_scratch_bytes(2, 600) == 2 * 88 * 16
-    assert pp.MAX_CANDIDATES * 8 <= 128 * 1024
+    assert pp.SHARED_SORT_CANDIDATES * 8 <= 128 * 1024
+
+
+# -- NMS rows past the split point (the large instance) ------------------------
+
+
+def _select_batch(keys, lo, need):
+    """select_batch: the ``need`` smallest live keys >= lo, by a radix
+    select over 8-bit digits, high to low, stopping at the first digit
+    whose bin holds exactly the keys still needed; then the gathered keys
+    through the bitonic network. Returns (sorted batch, passes)."""
+    keys = keys[keys != ~np.uint64(0)]
+    above = keys[keys >= np.uint64(lo)]
+    prefix, passes = 0, 0
+    for shift in range(56, -8, -8):
+        passes += 1
+        cand = above
+        if shift != 56:
+            cand = cand[(cand >> np.uint64(shift + 8)) == np.uint64(prefix)]
+        hist = np.bincount(((cand >> np.uint64(shift)) & np.uint64(255))
+                           .astype(np.int64), minlength=256)
+        cum = np.cumsum(hist)
+        pick = int(np.searchsorted(cum, need))  # the first bin reaching it
+        before = int(cum[pick] - hist[pick])
+        prefix = (prefix << 8) | pick
+        need -= before
+        if hist[pick] == need:
+            hi = (prefix << shift) | ((1 << shift) - 1)
+            break
+    take = above[above <= np.uint64(hi)]
+    p2 = 1
+    while p2 < len(take):
+        p2 <<= 1
+    padded = np.full(p2, ~np.uint64(0))
+    padded[:len(take)] = take
+    return _bitonic(padded)[:len(take)], passes
+
+
+def _nms_row_long(off, s, thr, max_det, split, first):
+    """One block's row in the kernel's large instance, whose shared memory
+    sorts ``split`` keys (16,384 in the kernel): a row in order walks as it
+    is; a row out of order walks batch after batch of its order, ``first``
+    keys (1,024 in the kernel), then twice as many at each refill up to
+    ``split``, each selected above the last one's key, until max_det keeps
+    or the live candidates run out. Returns (keep_idx, keep_scores,
+    batches, select passes)."""
+    out_i = np.full(max_det, -1, np.int32)
+    out_s = np.zeros(max_det, np.float32)
+    live = int(_is_live(s).sum())
+    if _in_order(s):
+        _walk(off, s, np.arange(live), thr, max_det, out_i, out_s,
+              off[:0], 0)
+        return out_i, out_s, 0, 0
+    keys = _sort_keys(s)
+    kept_boxes, k, walked, lo, batches, passes = off[:0], 0, 0, 0, 0, 0
+    cap = first
+    while k < max_det and walked < live:
+        batch, p = _select_batch(keys, lo, min(cap, live - walked))
+        cap = min(2 * cap, split)
+        batches += 1
+        passes += p
+        order = (batch & np.uint64(0xFFFFFFFF)).astype(np.int64)
+        kept_boxes, k, _ = _walk(off, s, order, thr, max_det, out_i, out_s,
+                                 kept_boxes, k)
+        walked += len(batch)
+        lo = int(batch[-1]) + 1
+    return out_i, out_s, batches, passes
+
+
+LONG_CASES = [
+    # (kind, B, N, max_det, split, first): the stand-in split and first
+    # batch are far below N, so rows take many batches
+    ("unsorted", 2, 300, 100, 64, 16),
+    ("ties", 2, 260, 100, 64, 16),
+    ("presuppressed", 2, 300, 100, 32, 8),
+    ("clustered", 2, 400, 100, 64, 16),  # few keeps: every batch walked
+    ("runs_out", 2, 300, 100, 64, 16),
+    ("sorted", 2, 300, 100, 64, 16),  # in order: no select
+    ("unsorted", 2, 20000, 100, 16384, 1024),  # the kernel's own sizes
+]
+
+
+@pytest.mark.parametrize("kind,b,n,max_det,split,first", LONG_CASES)
+def test_nms_long_rows_bit_equal_to_twin_and_pallas(kind, b, n, max_det,
+                                                    split, first):
+    """Rows longer than the large instance sorts at once: the emulated
+    radix select with its refills keeps exactly what the twin and detjax's
+    ``nms_pallas`` in interpret mode keep, bit for bit, on rows out of
+    order with ties (-0 and +0 among them), pre-suppressed entries, and
+    rows whose first batches run out before max_det."""
+    boxes, scores, labels = _nms_case(kind, b, n, seed=n + split)
+    if kind != "sorted":
+        rng = np.random.default_rng(n)
+        perm = np.stack([rng.permutation(n) for _ in range(b)])
+        boxes = np.take_along_axis(boxes, perm[..., None], 1)
+        scores = np.take_along_axis(scores, perm, 1)
+        labels = np.take_along_axis(labels, perm, 1)
+    if kind == "ties":
+        scores[:, 7] = -0.0
+        scores[:, 3] = 0.0
+    off = (torch.from_numpy(boxes)
+           + (torch.from_numpy(labels).to(torch.float32)
+              * _f32(OFFSET))[..., None])
+    rows = [_nms_row_long(off[r], scores[r], 0.5, max_det, split, first)
+            for r in range(b)]
+    got_i = np.stack([r[0] for r in rows])
+    got_s = np.stack([r[1] for r in rows])
+    ref_i, ref_s = pp.nms_reference(torch.from_numpy(boxes),
+                                    torch.from_numpy(scores),
+                                    torch.from_numpy(labels), 0.5, max_det,
+                                    OFFSET)
+    pal_i, pal_s = nms_pallas(jnp.asarray(boxes), jnp.asarray(scores),
+                              jnp.asarray(labels), 0.5, max_det, OFFSET,
+                              interpret=True)
+    for want_i, want_s in ((ref_i.numpy(), ref_s.numpy()),
+                           (np.asarray(pal_i), np.asarray(pal_s))):
+        np.testing.assert_array_equal(got_i, want_i)
+        np.testing.assert_array_equal(got_s, want_s)
+    batches = [r[2] for r in rows]
+    if kind == "sorted":
+        assert batches == [0] * b
+    else:
+        assert min(batches) >= 1
+    if kind in ("clustered", "runs_out"):
+        assert max(batches) >= 2  # refilled
+
+
+def test_nms_select_takes_the_next_keys_of_the_order():
+    """The radix select's batch is the next ``need`` keys of a full sort
+    above the bound, for bounds inside tie blocks, and stops early at a
+    digit whose bin holds exactly the keys needed (fewer than 8 passes)."""
+    rng = np.random.default_rng(5)
+    s = np.round(rng.uniform(-1, 1, 5000), 2).astype(np.float32)
+    s[rng.uniform(size=5000) < 0.1] = NEG_INF
+    s[::97] = -0.0
+    keys = _sort_keys(s)
+    full = np.sort(keys[keys != ~np.uint64(0)])
+    passes_seen = set()
+    for start, need in ((0, 1), (0, 64), (0, 1000), (17, 300), (1000, 4500),
+                        (4000, 500)):
+        need = min(need, len(full) - start)
+        lo = 0 if start == 0 else int(full[start - 1]) + 1
+        batch, passes = _select_batch(keys, lo, need)
+        np.testing.assert_array_equal(batch, full[start:start + need])
+        passes_seen.add(passes)
+    assert min(passes_seen) < 8 and max(passes_seen) <= 8
 
 
 # -- matching -----------------------------------------------------------------
@@ -620,3 +774,119 @@ def test_match_culling_keeps_non_finite_coordinates_listed():
     assert (listed[:, :256] == valid.sum(axis=1)[:, None]).all()
     assert (listed[:2] >= 1).all()  # the non-finite GTs, in every block
     assert (listed[2] == 0).any()  # the corner GTs, dropped elsewhere
+
+
+def _chunked_scan(an, g, valid, cull, union, chunk):
+    """The chunked instance's scan for one block and image: the GT slots
+    ``chunk`` at a time, in order; each chunk's listed GTs (culled against
+    the block's union box) scanned with strict '>', carrying (best, index)
+    from chunk to chunk; then the merge with (0, the first dropped valid
+    GT) and (-1, the first invalid one). Returns (best, index, listed)."""
+    zero = torch.zeros((), dtype=torch.float32)
+    best = torch.full((an.shape[0],), -math.inf)
+    bi = torch.zeros((an.shape[0],), dtype=torch.int64)
+    dropped = invalid = None
+    listed_total = 0
+    for s0 in range(0, g.shape[0], chunk):
+        gs, vs = g[s0:s0 + chunk], valid[s0:s0 + chunk]
+        tame = (gs.abs() <= TAME).all(dim=1)
+        apart = cull & tame & (
+            (torch.minimum(union[2], gs[:, 2])
+             <= torch.maximum(union[0], gs[:, 0]))
+            | (torch.minimum(union[3], gs[:, 3])
+               <= torch.maximum(union[1], gs[:, 1])))
+        listed = torch.nonzero(vs & ~apart)[:, 0]
+        d = torch.nonzero(vs & apart)[:, 0]
+        inv = torch.nonzero(~vs)[:, 0]
+        if dropped is None and len(d):
+            dropped = s0 + int(d[0])
+        if invalid is None and len(inv):
+            invalid = s0 + int(inv[0])
+        listed_total += len(listed)
+        if not len(listed):
+            continue
+        lb = gs[listed]
+        iw = torch.maximum(torch.minimum(an[:, None, 2], lb[None, :, 2])
+                           - torch.maximum(an[:, None, 0], lb[None, :, 0]),
+                           zero)
+        ih = torch.maximum(torch.minimum(an[:, None, 3], lb[None, :, 3])
+                           - torch.maximum(an[:, None, 1], lb[None, :, 1]),
+                           zero)
+        inter = iw * ih
+        iou = inter / torch.clamp(_area(an)[:, None] + _area(lb)[None, :]
+                                  - inter, min=1e-8)
+        iou = torch.where(iou.isnan(), -math.inf, iou)
+        cbest = iou.max(dim=1).values
+        first = (iou == cbest[:, None]).to(torch.int8).argmax(dim=1)
+        take = cbest > best  # strict: an earlier chunk keeps its ties
+        best = torch.where(take, cbest, best)
+        bi = torch.where(take, s0 + listed[first], bi)
+    if dropped is not None:
+        take = (0.0 > best) | ((0.0 == best) & (dropped < bi))
+        best = torch.where(take, 0.0, best)
+        bi = torch.where(take, dropped, bi)
+    if invalid is not None:
+        take = (-1.0 > best) | ((-1.0 == best) & (invalid < bi))
+        best = torch.where(take, -1.0, best)
+        bi = torch.where(take, invalid, bi)
+    return best, bi, listed_total
+
+
+def match_chunked_emulated(anchors, gt_boxes, gt_valid, chunk, per=128):
+    """The chunked instance over every block of ``per`` anchors: (max_iou,
+    argmax, GTs listed a block)."""
+    b = gt_valid.shape[0]
+    a = len(anchors)
+    best = np.zeros((b, a), np.float32)
+    idx = np.zeros((b, a), np.int64)
+    listed = []
+    for lo in range(0, a, per):
+        an = torch.from_numpy(anchors[lo:lo + per])
+        union = (an[:, 0].min(), an[:, 1].min(), an[:, 2].max(),
+                 an[:, 3].max())
+        cull = bool((an.abs() <= TAME).all())
+        for img in range(b):
+            m, i, n = _chunked_scan(an, torch.from_numpy(gt_boxes[img]),
+                                    torch.from_numpy(gt_valid[img]), cull,
+                                    union, chunk)
+            best[img, lo:lo + per] = m.numpy()
+            idx[img, lo:lo + per] = i.numpy()
+            listed.append(n)
+    return best, idx, listed
+
+
+@pytest.mark.parametrize("case", MATCH_CASES)
+@pytest.mark.parametrize("g,chunk", [(12, 5), (300, 64), (300, 300)])
+def test_match_chunked_merge_equals_the_full_scan(case, g, chunk):
+    """The chunked instance's merge (GT slots ``chunk`` at a time, each
+    chunk culled and scanned, (max, first argmax) carried in GT order)
+    equals the one-list scan and the twin's full [B, A, G] scan bit for
+    bit, with ties split across chunks (duplicates ``chunk`` slots apart)
+    and chunks that list nothing."""
+    boxes, labels = _match_case(case)
+    if g > boxes.shape[1]:
+        rng = np.random.default_rng(g)
+        reps = -(-g // boxes.shape[1])
+        boxes = np.tile(boxes, (1, reps, 1))[:, :g].copy()
+        labels = np.tile(labels, (1, reps))[:, :g].copy()
+        labels[:, rng.uniform(size=g) < 0.5] = -1  # padding between them
+    valid = labels >= 0
+    best, idx, listed = match_chunked_emulated(ANCHORS, boxes, valid, chunk)
+    want = km.match_iou_reference(torch.from_numpy(ANCHORS),
+                                  torch.from_numpy(boxes),
+                                  torch.from_numpy(valid),
+                                  torch.from_numpy(labels))
+    np.testing.assert_array_equal(best, want[0].numpy())
+    np.testing.assert_array_equal(idx, want[1].numpy())
+    one = match_emulated(ANCHORS, boxes, valid, labels, threads=128)
+    np.testing.assert_array_equal(best, one[0])
+    np.testing.assert_array_equal(idx, one[1])
+    assert min(listed) < max(listed)
+
+
+def test_match_gt_chunk_constants():
+    """The wrapper's constants are the kernel's: one list up to 9,642 GT
+    slots (24 bytes each within 227 KB less 1 KB), 4,096 a chunk past
+    it (96 KB)."""
+    assert km.ONE_LIST_GT == 9642
+    assert km.GT_CHUNK * 24 == 96 * 1024
