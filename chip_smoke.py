@@ -7,10 +7,17 @@ batch 8, bf16, seeded random weights), its full-anchor-set eval branch
 the fused block's kernels; also on a 608x832 canvas), and its training
 path (the same model, train batch 16, bf16 autocast over fp32 parameters,
 Adam, clip 0.1, synthetic scenes; then with "on", and retinanet_r50_1024
-with "on") through the entry points a user calls, and the R50 stem (conv1
--> bn1 -> ReLU -> 3x3/s2 max-pool) forward and backward at the 640 and 1024
-training shapes, with ATen's pool backward and with the max-pool backward
-kernel (``kernels/stem.py::max_pool_3x3s2``, which no model path calls).
+with "on") through the entry points a user calls; then its data pipeline
+and evaluation over 256 synthetic scenes written as JPEGs with a COCO
+JSON: the native library on the card's host (``data``),
+``detjax_torch.evaluate`` through the NMS kernel and through its twin
+(``evaluate``), the protocol evaluator at retinanet_r50_1024 with "off"
+and "on" (``evaluate_protocol``), and training fed by the threaded
+iterator through ``device_prefetch`` (``train_data``); and the R50 stem
+(conv1 -> bn1 -> ReLU -> 3x3/s2 max-pool) forward and backward at the 640
+and 1024 training shapes, with ATen's pool backward and with the max-pool
+backward kernel (``kernels/stem.py::max_pool_3x3s2``, which no model path
+calls).
 Builds every CUDA kernel of those paths from ``detjax_torch/csrc/`` (one
 nvcc per source, all started together; also, from ``smoke_prior/``, the
 fused forward as it stood at commit 2503cdf, one kernel on wmma, timed in
@@ -31,6 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import json
 import re
 import subprocess
@@ -3010,6 +3018,492 @@ def phase_stem(report: dict, state: dict) -> None:
     stem_cell("retinanet_r50_1024", state, full=False)
 
 
+# ---- the data pipeline and evaluation ----
+
+EVAL_SET_SIZE = 256
+# COCO val2017's most common source shapes, (H, W), in turn
+COCO_VAL_SHAPES = ((480, 640), (640, 480), (427, 640), (640, 427),
+                   (375, 500), (500, 375))
+
+
+def write_eval_set(root: Path) -> Path:
+    """EVAL_SET_SIZE scenes of the port's SyntheticDetectionDataset written
+    into ``root`` as JPEGs (PIL, quality 95) with a COCO instances JSON: 80
+    classes (category ids 1-80), COCO_VAL_SHAPES in turn, 1-12 objects an
+    image with sides from 1/32 to 1/3 of the image's (COCO-small objects
+    at these sizes), 10 % of them crowd. Returns the JSON's path."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from detjax_torch.data import COCO_CLASSES
+    from detjax_torch.data.synthetic import SyntheticDetectionDataset
+
+    ds = SyntheticDetectionDataset(
+        num_images=EVAL_SET_SIZE, num_classes=80, max_objects=12, seed=12,
+        size_range=(1 / 32, 1 / 3), crowd_prob=0.1,
+        image_sizes=COCO_VAL_SHAPES)
+
+    def one(i):
+        rec = ds[i]
+        name = f"{i:012d}.jpg"
+        Image.fromarray(rec["image"]).save(root / name, quality=95)
+        h, w = rec["size"]
+        anns = [{"image_id": i, "category_id": int(lab) + 1,
+                 "bbox": [float(x1), float(y1), float(x2 - x1),
+                          float(y2 - y1)],
+                 "area": float((x2 - x1) * (y2 - y1)),
+                 "iscrowd": int(crowd)}
+                for (x1, y1, x2, y2), lab, crowd in zip(
+                    rec["boxes"], rec["labels"], rec["iscrowd"])]
+        return {"id": i, "file_name": name, "height": h, "width": w}, anns
+
+    with ThreadPoolExecutor(8) as pool:
+        rows = list(pool.map(one, range(EVAL_SET_SIZE)))
+    anns = [a for _, image_anns in rows for a in image_anns]
+    for k, a in enumerate(anns):
+        a["id"] = k + 1
+    path = root / "instances_synthetic.json"
+    path.write_text(json.dumps({
+        "images": [img for img, _ in rows], "annotations": anns,
+        "categories": [{"id": k + 1, "name": n}
+                       for k, n in enumerate(COCO_CLASSES)]}))
+    return path
+
+
+def eval_set(state: dict):
+    from detjax_torch.data import CocoDataset
+
+    return CocoDataset(state["eval_set"]["ann"], state["eval_set"]["root"])
+
+
+def phase_data(state: dict) -> None:
+    """Write the synthetic JPEG set with its COCO JSON, read it back
+    through CocoDataset, and report the native layer on the card's host:
+    whether the library and the JPEG decoder built, the decode route of
+    every image, and whether native decode and resize equal PIL's on the
+    set (the resize at each image's 640 letterbox and protocol sizes).
+    Fails when the native library did not build (a missing libjpeg is
+    reported, as detjax falls back to PIL for it)."""
+    import tempfile
+
+    import PIL
+    from PIL import Image
+
+    from detjax_torch import native
+    from detjax_torch.data.transforms import protocol_scale
+
+    tmp = tempfile.TemporaryDirectory(prefix="detjax_eval_set_")
+    root = Path(tmp.name)
+    t0 = time.perf_counter()
+    ann = write_eval_set(root)
+    write_s = time.perf_counter() - t0
+    state["eval_set"] = {"tmp": tmp, "ann": str(ann), "root": str(root)}
+    native_built, jpeg_native = native.available(), native.jpeg_available()
+    if not native_built:
+        raise SystemExit(f"the native library did not build on the card's "
+                         f"host: {native.build_errors}")
+    ds = eval_set(state)
+    before = dict(native.decode_routes)
+    t0 = time.perf_counter()
+    images = [ds.load_image(i) for i in range(len(ds))]
+    decode_ms = (time.perf_counter() - t0) / len(ds) * 1e3
+    routes = {k: native.decode_routes[k] - before[k] for k in before}
+    t0 = time.perf_counter()
+    pil = []
+    for info in ds.images:
+        with Image.open(root / info["file_name"]) as im:
+            pil.append(np.asarray(im.convert("RGB"), np.uint8))
+    pil_decode_ms = (time.perf_counter() - t0) / len(ds) * 1e3
+    decode_equal = sum(np.array_equal(a, b) for a, b in zip(images, pil))
+    resize_equal, resize_cases, native_s, pil_s = 0, 0, 0.0, 0.0
+    for img in images:
+        h, w = img.shape[:2]
+        for scale in (min(640 / h, 640 / w), protocol_scale(h, w)):
+            nh, nw = max(1, int(round(h * scale))), max(1, int(round(w * scale)))
+            t0 = time.perf_counter()
+            a = native.resize_bilinear(img, nh, nw)
+            t1 = time.perf_counter()
+            b = np.asarray(Image.fromarray(img).resize((nw, nh),
+                                                       Image.BILINEAR))
+            pil_s += time.perf_counter() - t1
+            native_s += t1 - t0
+            resize_equal += bool(np.array_equal(a, b))
+            resize_cases += 1
+    n_gt = sum(len(ds.load_annotations(i["id"])["labels"])
+               for i in ds.images)
+    emit({"phase": "data", "images": len(ds), "source_shapes":
+          [list(s) for s in COCO_VAL_SHAPES], "classes": ds.num_classes,
+          "annotations": n_gt, "write_s": write_s,
+          "native_built": native_built, "jpeg_native": jpeg_native,
+          "build_errors": native.build_errors, "decode_routes": routes,
+          "decode_ms_per_image": decode_ms,
+          "pil_decode_ms_per_image": pil_decode_ms,
+          "native_decode_equal_to_pil": f"{decode_equal}/{len(images)}",
+          "native_resize_equal_to_pil": f"{resize_equal}/{resize_cases}",
+          "resize_ms_per_image": {"native": native_s / len(images) * 1e3,
+                                  "pil": pil_s / len(images) * 1e3},
+          "pil_version": PIL.__version__, "card": state["card"]})
+    if routes["native"] + routes["pil"] != len(ds):
+        raise SystemExit(f"decode routes {routes} do not cover the "
+                         f"{len(ds)} images")
+
+
+def busy_and_idle(prof, wall_ms: float) -> dict:
+    """Device ms of the CUDA kernels and of the copies in a torch.profiler
+    window, and the share of ``wall_ms`` in which no kernel ran (kernels
+    on one stream; copies on the side stream overlap them)."""
+    kernels = copies = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0.0) / 1e3
+        if t <= 0 or "spin_kernel" in e.key:
+            continue
+        if e.key.startswith(("Memcpy", "Memset")):
+            copies += t
+        else:
+            kernels += t
+    return {"wall_ms": wall_ms, "kernel_busy_ms": kernels,
+            "copy_ms": copies, "idle_share": 1 - kernels / wall_ms}
+
+
+def profiled_wall(fn):
+    """torch.profiler over one call of ``fn`` (profile_calls) and that
+    call's host-clock ms, synchronized; None when the profiler cannot
+    trace the card."""
+    wall = []
+
+    def timed():
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+
+    prof = profile_calls(timed, 1)
+    return None if prof is None else busy_and_idle(prof, wall[-1])
+
+
+def jittered_detections(gts: dict, seed: int) -> dict:
+    """Detections made from the ground truth: 85 % of the boxes jittered
+    by 5 % of their side, with random scores, and two false positives an
+    image, so that AP is far from 0 and from 1."""
+    rng = np.random.default_rng(seed)
+    dets = {}
+    for img_id, g in gts.items():
+        hit = rng.uniform(size=len(g.labels)) < 0.85
+        boxes = g.boxes[hit]
+        side = np.maximum(boxes[:, 2:] - boxes[:, :2], 1.0)
+        boxes = boxes + rng.normal(0, 0.05, boxes.shape) * np.tile(side, 2)
+        fp = rng.uniform(0, 400, (2, 2))
+        fp = np.concatenate([fp, fp + rng.uniform(10, 200, (2, 2))], 1)
+        dets[img_id] = {
+            "boxes": np.concatenate([boxes, fp]).astype(np.float32),
+            "scores": rng.uniform(0.05, 1, len(boxes) + 2).astype(np.float32),
+            "labels": np.concatenate([g.labels[hit], rng.integers(0, 80, 2)
+                                      ]).astype(np.int32)}
+    return dets
+
+
+def both_cores(gts: dict, dets: dict) -> dict:
+    """COCO stats from the numpy core and the native core on the same
+    ground truth and detections, with each one's host ms."""
+    import os
+
+    from detjax_torch.evaluation.coco_map import evaluate_detections
+
+    out, old = {}, os.environ.get("DETJAX_NATIVE")
+    try:
+        for name, flag in (("native", "1"), ("numpy", "0")):
+            os.environ["DETJAX_NATIVE"] = flag
+            t0 = time.perf_counter()
+            res = evaluate_detections(gts, dets, list(range(80)))
+            out[name] = (res, (time.perf_counter() - t0) * 1e3)
+    finally:
+        if old is None:
+            os.environ.pop("DETJAX_NATIVE", None)
+        else:
+            os.environ["DETJAX_NATIVE"] = old
+    return out
+
+
+def phase_evaluate(report: dict, state: dict) -> None:
+    """detjax_torch.evaluate at retinanet_r50_640 (eval batch 8, bf16,
+    full width) on phase_main's desaturated model over the JPEG set: the
+    NMS kernel's route against the twin's (detect_fn with
+    nms_backend="torch"), all 12 stats and every per-class AP equal; one
+    NMS launch per eval batch; the numpy and native COCO cores equal on
+    the route's detections and on detections jittered from the GT. Times
+    the whole call (host decode included), the host alone (decode +
+    letterbox a batch), the device's busy time and idle share over a call
+    (torch.profiler), and the same detect on one pre-loaded batch. Also
+    holds every image's detections bit-equal between the routes."""
+    import detjax_torch
+    from detjax_torch.data import make_eval_iterator
+    from detjax_torch.evaluation import evaluator
+    from detjax_torch.kernels import postprocess as pp
+
+    model, cfg = state["model"], state["cfg"]
+    ds = eval_set(state)
+    b = cfg.eval.batch_size
+    n_batches = -(-len(ds) // b)
+
+    t0 = time.perf_counter()
+    host_batches = list(make_eval_iterator(ds, cfg))
+    host_ms_per_batch = (time.perf_counter() - t0) / len(host_batches) * 1e3
+
+    torch.cuda.synchronize()
+    pp.nms_launches = pp.nms_kernel_launches = 0
+    t0 = time.perf_counter()
+    got = detjax_torch.evaluate(model, ds, cfg)
+    eval_s = time.perf_counter() - t0
+    launches, nms_kernels = pp.nms_launches, pp.nms_kernel_launches
+
+    def twin(m, x):
+        return detjax_torch.detect(m, x, cfg, nms_backend="torch")
+
+    pp.nms_launches = 0
+    t0 = time.perf_counter()
+    want = evaluator.run_coco_eval(model, ds, cfg, detect_fn=twin)
+    twin_s = time.perf_counter() - t0
+    twin_launches = pp.nms_launches
+
+    busy = profiled_wall(lambda: detjax_torch.evaluate(model, ds, cfg))
+    gts = evaluator.ground_truths(ds)
+    dets = {i: {"boxes": bx, "scores": s, "labels": lab}
+            for i, bx, s, lab in evaluator.iter_detections(model, ds, cfg)}
+    twin_dets = {i: (bx, s, lab) for i, bx, s, lab in
+                 evaluator.iter_detections(model, ds, cfg, detect_fn=twin)}
+    same_dets = sorted(dets) == sorted(twin_dets) and all(
+        np.array_equal(d[k], twin_dets[i][j]) for i, d in dets.items()
+        for j, k in enumerate(("boxes", "scores", "labels")))
+    cores = both_cores(gts, dets)
+    jittered = both_cores(gts, jittered_detections(gts, seed=0))
+    batch_ms = host_ms(model, cfg, host_batches[0]["images"])
+
+    def same(pair):
+        return (pair["native"][0].stats == pair["numpy"][0].stats
+                and pair["native"][0].per_class_ap
+                == pair["numpy"][0].per_class_ap)
+
+    equal = (got.stats == want.stats and got.per_class_ap == want.per_class_ap
+             and same_dets)
+    kept = sum(len(d["labels"]) for d in dets.values())
+    emit({"phase": "evaluate", "preset": cfg.model.name,
+          "dtype": cfg.model.dtype, "eval_batch": b, "images": len(ds),
+          "eval_batches": n_batches, "host_workers": cfg.data.host_workers,
+          "prefetch": cfg.data.prefetch,
+          "stats": got.stats, "stats_twin_route": want.stats,
+          "stats_and_per_class_ap_equal": equal,
+          "detections_bit_equal": same_dets, "kept_detections": kept,
+          "nms_launches": launches, "nms_cuda_kernels": nms_kernels,
+          "nms_launches_twin_route": twin_launches,
+          "evaluate_s": eval_s, "img_per_s": len(ds) / eval_s,
+          "twin_route_img_per_s": len(ds) / twin_s,
+          "host_decode_letterbox_ms_per_batch": host_ms_per_batch,
+          "device_over_one_call": busy,
+          "detect_u8_ms_preloaded_batch": batch_ms,
+          "img_per_s_preloaded_batch": b / batch_ms * 1e3,
+          "cores_equal_on_route_detections": same(cores),
+          "cores_ms": {k: v[1] for k, v in cores.items()},
+          "cores_equal_on_jittered_gt": same(jittered),
+          "jittered_gt_stats": jittered["native"][0].stats,
+          "card": state["card"]})
+    if not equal:
+        raise SystemExit("evaluate through the NMS kernel and through its "
+                         "twin give different stats or detections")
+    if launches != n_batches or nms_kernels != n_batches or twin_launches:
+        raise SystemExit(f"evaluate made {launches} NMS launches "
+                         f"({nms_kernels} CUDA kernels) over {n_batches} "
+                         f"eval batches; the twin route {twin_launches}")
+    if not (same(cores) and same(jittered)):
+        raise SystemExit("the numpy and native COCO cores disagree")
+    if not 0.2 < jittered["native"][0].stats["AP"] < 0.9 or kept == 0:
+        raise SystemExit("the core check is degenerate: AP "
+                         f"{jittered['native'][0].stats['AP']}, {kept} kept")
+    report["nms_cuda"]["evaluate_launches"] = launches
+
+
+def phase_evaluate_protocol(state: dict) -> None:
+    """run_coco_eval_protocol over the JPEG set with retinanet_r50_1024's
+    config (eval_scale_minmax (608, 1024), eval batch 4) on the main
+    model's weights, once with fused_backbone="off" and once "on": the
+    buckets equal bucket_by_canvas of the set's sizes, 5 fused-block calls
+    a batch with "on" (none with "off"); img/s and stats of each (a
+    warm-up pass first, as each canvas is new to cuDNN), and the host's ms
+    a batch inside detect_u8 (the rest of a batch's wall is loading and
+    scoring)."""
+    import detjax_torch
+    from detjax_torch.evaluation.protocol import (
+        bucket_by_canvas,
+        image_sizes,
+        run_coco_eval_protocol,
+    )
+    from detjax_torch.kernels import bottleneck as kb
+
+    ds = eval_set(state)
+    rows = {}
+    for fused in ("off", "on"):
+        cfg = detjax_torch.get_config("retinanet_r50_1024", **{
+            "model.prior_prob": PRIOR_PROB, "model.fused_backbone": fused})
+        want = bucket_by_canvas(image_sizes(ds), *cfg.data.eval_scale_minmax)
+        want_batches = {hw: -(-len(ix) // cfg.eval.batch_size)
+                        for hw, ix in want.items()}
+        if fused == "off":
+            model = state["model"]
+        else:
+            model = detjax_torch.build_model(cfg, seed=0)
+            model.load_state_dict(state["model"].state_dict())
+        seen: dict = {}
+        dispatch_s: list = []
+
+        def detect_fn_for(bcfg, seen=seen, dispatch_s=dispatch_s):
+            hw = tuple(bcfg.model.image_size)
+
+            def run(m, x):
+                seen[hw] = seen.get(hw, 0) + 1
+                t0 = time.perf_counter()
+                det = detjax_torch.detect_u8(m, x, bcfg)
+                dispatch_s.append(time.perf_counter() - t0)
+                return det
+            return run
+
+        run_coco_eval_protocol(model, ds, cfg)  # warm-up
+        torch.cuda.synchronize()
+        kb.bottleneck_launches = 0
+        t0 = time.perf_counter()
+        res = run_coco_eval_protocol(model, ds, cfg,
+                                     detect_fn_for=detect_fn_for)
+        secs = time.perf_counter() - t0
+        calls = kb.bottleneck_launches
+        n_batches = sum(seen.values())
+        rows[fused] = {"img_per_s": len(ds) / secs, "evaluate_s": secs,
+                       "batches": n_batches, "fused_calls": calls,
+                       "host_ms_in_detect_u8_per_batch":
+                           sum(dispatch_s) / n_batches * 1e3,
+                       "stats": res.stats}
+        if seen != want_batches:
+            raise SystemExit(f"protocol buckets {seen} differ from "
+                             f"bucket_by_canvas's {want_batches}")
+        expect = 5 * n_batches if fused == "on" else 0
+        if calls != expect:
+            raise SystemExit(f'fused_backbone="{fused}": {calls} fused '
+                             f"calls over {n_batches} batches, expected "
+                             f"{expect}")
+        if fused == "on":
+            del model
+            torch.cuda.empty_cache()
+    emit({"phase": "evaluate_protocol", "preset": cfg.model.name,
+          "eval_batch": cfg.eval.batch_size,
+          "eval_scale_minmax": list(cfg.data.eval_scale_minmax),
+          "buckets": {f"{h}x{w}": len(ix) for (h, w), ix in sorted(
+              want.items())},
+          "off": rows["off"], "on": rows["on"], "card": state["card"]})
+
+
+def phase_train_data(report: dict, state: dict) -> None:
+    """retinanet_r50_640 training (bs 16, bf16, "off") fed by
+    make_train_iterator over the JPEG set (random crop on, as the preset
+    has it; 8 host threads, prefetch 2) through device_prefetch: the first
+    batch byte-equal to a second iterator's with the same seed;
+    iter_from(3) equal to the fourth batch; 2 warm-up and 10 timed steps,
+    one matching launch a step. Reports ms a step beside the fixed-batch
+    train phase's, the host's ms a batch alone, one batch's H2D copy from
+    pinned memory (CUDA events), and the device's idle share over three
+    data-fed steps (torch.profiler); then 10 steps fed one batch again
+    and again through device_prefetch, without the loader threads."""
+    import detjax_torch
+    from detjax_torch.data import device_prefetch, make_train_iterator
+    from detjax_torch.kernels import matching as km
+
+    train = detjax_torch.make_train_state("retinanet_r50_640", seed=0)
+    cfg = train.cfg
+    ds = eval_set(state)
+    it = make_train_iterator(ds, cfg)
+    stream = iter(it)
+    first = [next(stream) for _ in range(4)]
+    stream.close()
+    again = iter(make_train_iterator(ds, cfg))
+    same_first = all(np.array_equal(first[0][k], v)
+                     for k, v in next(again).items())
+    again.close()
+    resumed = it.iter_from(3)
+    same_resume = all(np.array_equal(first[3][k], v)
+                      for k, v in next(resumed).items())
+    resumed.close()
+
+    host = iter(make_train_iterator(ds, cfg))
+    next(host)
+    t0 = time.perf_counter()
+    for _ in range(8):
+        next(host)
+    host_ms_per_batch = (time.perf_counter() - t0) / 8 * 1e3
+    host.close()
+
+    pin_ms = []
+    for _ in range(3):  # the first allocates; then the cache serves
+        t0 = time.perf_counter()
+        pinned = {k: torch.from_numpy(v).pin_memory()
+                  for k, v in first[0].items()}
+        pin_ms.append((time.perf_counter() - t0) * 1e3)
+    h2d_ms = cuda_ms(lambda: [t.to("cuda", non_blocking=True)
+                              for t in pinned.values()], iters=10)
+    batch_mib = sum(v.nbytes for v in first[0].values()) / 2**20
+
+    scales = desaturate_(train.model, first[0]["images"][:4], cfg)
+    fed = device_prefetch(iter(make_train_iterator(ds, cfg)), "cuda")
+    torch.cuda.synchronize()
+    km.match_launches = km.match_kernel_launches = 0
+    steps = [detjax_torch.train_step(train, next(fed))[1] for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        steps.append(detjax_torch.train_step(train, next(fed))[1])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 10 * 1e3
+    launches, match_kernels = km.match_launches, km.match_kernel_launches
+    busy = profiled_wall(lambda: [detjax_torch.train_step(train, next(fed))
+                                  for _ in range(3)])
+    if busy is not None:
+        busy["wall_ms_per_step"] = busy["wall_ms"] / 3
+    fed.close()
+    # the same steps fed one batch again and again through device_prefetch:
+    # pinning and the side-stream copy without the loader threads
+    same = device_prefetch(itertools.repeat(first[0], 12), "cuda")
+    for _ in range(2):
+        detjax_torch.train_step(train, next(same))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        detjax_torch.train_step(train, next(same))
+    torch.cuda.synchronize()
+    same_batch_ms = (time.perf_counter() - t0) / 10 * 1e3
+    losses = [float(m["loss"]) for m in steps]
+    emit({"phase": "train_data", "preset": cfg.model.name,
+          "batch": cfg.train.batch_size, "dtype": cfg.model.dtype,
+          "random_crop": cfg.data.random_crop,
+          "host_workers": cfg.data.host_workers,
+          "prefetch": cfg.data.prefetch, "output_scales": scales,
+          "first_batch_equal_across_iterators": same_first,
+          "iter_from_3_equals_fourth_batch": same_resume,
+          "ms_per_step": step_ms,
+          "fixed_batch_ms_per_step": state["train"]["ms_per_step"],
+          "same_batch_through_device_prefetch_ms_per_step": same_batch_ms,
+          "host_ms_per_batch": host_ms_per_batch,
+          "batch_mib": batch_mib, "pin_ms": pin_ms, "h2d_ms": h2d_ms,
+          "device_over_three_steps": busy, "match_launches": launches,
+          "match_cuda_kernels": match_kernels, "losses": losses,
+          "card": state["card"]})
+    if not (same_first and same_resume):
+        raise SystemExit("the train stream is not deterministic in its seed")
+    if launches != len(steps) or match_kernels != launches:
+        raise SystemExit(f"match kernel launched {launches} times "
+                         f"({match_kernels} CUDA kernels) in {len(steps)} "
+                         f"data-fed steps")
+    if not np.isfinite(losses).all():
+        raise SystemExit("a data-fed training loss is not finite")
+    report["match_iou_cuda"]["train_data_launches"] = launches
+    del train
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3038,6 +3532,11 @@ def main() -> int:
     phase_serve(state)
     phase_train(report, state)
     phase_train_fused(report, state)
+    phase_data(state)
+    phase_evaluate(report, state)
+    phase_evaluate_protocol(state)
+    phase_train_data(report, state)
+    state.pop("eval_set")["tmp"].cleanup()
     phase_maxpool_bwd_kernel(report)
     phase_stem(report, state)
     emit({"kernels": list(report.values())})

@@ -2,8 +2,12 @@
 
 detjax (the JAX package beside this one) is the reference. This package
 carries its serving path (``build_model`` -> ``detect`` / ``detect_u8`` ->
-the micro-batching ``DetectionServer``) and its training path
-(``make_train_state`` -> ``train_step``), at the full width of every
+the micro-batching ``DetectionServer``), its training path
+(``make_train_state`` -> ``train_step``), its data pipeline
+(``detjax_torch.data``: COCO and CSV datasets, the threaded batch
+iterator, prefetch to the device) and its evaluation (``evaluate``: COCO
+and VOC metrics over a dataset, also at each image's protocol canvas,
+``detjax_torch.evaluation``), at the full width of every
 RetinaNet preset, and serving and training with
 ``model.fused_backbone="on"``. detjax's Pallas kernels on those paths are
 replaced by CUDA kernels written by hand for ``sm_90a``: NMS
@@ -24,7 +28,9 @@ Ground rules:
   library and, only where detjax itself does, PIL. It never imports
   ``jax``, ``flax`` or anything under ``detjax/``, not even detjax modules
   that use only numpy: it keeps its own copy of what it needs from them
-  (``config.py``, ``ops/anchors.py``, the weight key maps, the letterbox).
+  (``config.py``, ``ops/anchors.py``, the weight key maps, the data
+  pipeline, the COCO and VOC evaluators, the native C++ of
+  ``detjax/native``).
   Only the tests import both packages.
 - **The JAX package** stays as it is; it is the reference the tests
   compare against.
@@ -44,6 +50,7 @@ Ground rules:
     >>> dets = detjax_torch.detect_u8(model, canvases_u8)
     >>> state = detjax_torch.make_train_state("retinanet_r50_640", seed=0)
     >>> state, metrics = detjax_torch.train_step(state, batch)
+    >>> result = detjax_torch.evaluate(model, dataset, cfg)
 """
 
 from detjax_torch.config import (
@@ -64,6 +71,14 @@ from detjax_torch.api import (
 )
 
 __version__ = "0.1.0"
+
+
+def evaluate(*args, **kwargs):
+    """COCO bbox evaluation of a model over a dataset: see
+    :func:`detjax_torch.evaluation.evaluator.run_coco_eval`."""
+    from detjax_torch.evaluation.evaluator import run_coco_eval
+
+    return run_coco_eval(*args, **kwargs)
 
 
 def serve(*args, **kwargs):
@@ -87,5 +102,6 @@ __all__ = [
     "detect_u8",
     "make_train_state",
     "train_step",
+    "evaluate",
     "serve",
 ]

@@ -22,6 +22,8 @@ from typing import Sequence, Tuple
 
 import torch
 
+from detjax_torch.utils.device import device_constant
+
 DEFAULT_BOX_STD = (0.1, 0.1, 0.2, 0.2)
 
 
@@ -68,15 +70,14 @@ def encode_boxes(gt_boxes: torch.Tensor, anchors: torch.Tensor,
     gh = torch.clamp(gh, min=1.0)
     deltas = torch.stack([(gx - ax) / aw, (gy - ay) / ah,
                           torch.log(gw / aw), torch.log(gh / ah)], dim=-1)
-    return deltas / torch.tensor(tuple(std), dtype=deltas.dtype,
-                                 device=deltas.device)
+    return deltas / device_constant(tuple(std), deltas.dtype, deltas.device)
 
 
 def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor,
                  std: Sequence[float] = DEFAULT_BOX_STD) -> torch.Tensor:
     """Regression deltas + anchors -> xyxy boxes; shapes broadcast."""
-    deltas = deltas * torch.tensor(tuple(std), dtype=deltas.dtype,
-                                   device=deltas.device)
+    deltas = deltas * device_constant(tuple(std), deltas.dtype,
+                                      deltas.device)
     ax, ay, aw, ah = _to_cxcywh(anchors)
     px = deltas[..., 0] * aw + ax
     py = deltas[..., 1] * ah + ay
@@ -90,7 +91,7 @@ def clip_boxes(boxes: torch.Tensor,
                image_size: Tuple[int, int]) -> torch.Tensor:
     """Clamp xyxy boxes to [0, W] x [0, H]."""
     h, w = image_size
-    hi = torch.tensor([w, h, w, h], dtype=boxes.dtype, device=boxes.device)
+    hi = device_constant((w, h, w, h), boxes.dtype, boxes.device)
     return torch.minimum(torch.clamp(boxes, min=0.0), hi)
 
 

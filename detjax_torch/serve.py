@@ -11,7 +11,8 @@ the host, which waits for the device.
 Not ported yet, each raising ``NotImplementedError``: the int8 engine (the
 quantization slice), serialized detect artifacts (the export slice) and
 multi-device serving over a mesh (the parallel slice). Request bodies are
-decoded with PIL; detjax's in-repo JPEG decoder comes with the data slice.
+decoded with the in-repo libjpeg binding (``detjax_torch.native``), then
+PIL, as detjax decodes them.
 
 HTTP API (stdlib ThreadingHTTPServer; no extra deps):
     POST /detect   body = JPEG/PNG bytes -> {"detections": [{box, score,
@@ -22,7 +23,6 @@ HTTP API (stdlib ThreadingHTTPServer; no extra deps):
 from __future__ import annotations
 
 import dataclasses
-import io
 import json
 import queue
 import threading
@@ -326,10 +326,9 @@ class DetectionServer:
 
     @staticmethod
     def _decode(data: bytes) -> np.ndarray:
-        from PIL import Image
+        from detjax_torch import native
 
-        return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"),
-                          np.uint8)
+        return native.decode_image(data)  # libjpeg, then PIL
 
     # ---- HTTP front ----
 

@@ -1,0 +1,20 @@
+"""Small constant tensors kept on their device."""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+
+@functools.lru_cache(maxsize=64)
+def device_constant(values: tuple, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, made once per
+    argument set. A tensor made anew from host memory on a CUDA device is
+    a synchronous copy that waits for the device's queue to drain, so a
+    caller that makes one per batch cannot dispatch batch N+1 while batch
+    N computes. The tensor is made outside inference mode, so autograd may
+    save it; it is shared, so no caller writes to it."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)

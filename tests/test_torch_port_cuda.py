@@ -1061,3 +1061,90 @@ def test_maxpool_bwd_wrapper_raises_instead_of_falling_back(cuda):
     assert ks.maxpool_bwd_launches == before
     empty = ks.maxpool_bwd_cuda(z[:0], dp[:0])
     assert empty.shape == (0, 8, 16, 16) and ks.maxpool_bwd_launches == before
+
+
+def _desaturated_r18(cfg, canvases):
+    """A seeded R18 on the card with its output convs rescaled so that the
+    class logits spread with std 2 (random towers saturate every score
+    otherwise), as chip_smoke.py's desaturate_ does."""
+    import detjax_torch
+    from detjax_torch.data.pipeline import normalize_u8
+
+    model = detjax_torch.build_model(cfg, seed=0)
+    x = normalize_u8(torch.as_tensor(canvases).cuda(), cfg.data.mean,
+                     cfg.data.std, model.compute_dtype).permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        cls, box = model(x)
+    with torch.no_grad():
+        model.classificationModel.output.weight.mul_(2.0 / float(
+            cls.float().std()))
+        model.regressionModel.output.weight.mul_(0.5 / float(
+            box.float().std()))
+    return model
+
+
+def test_evaluate_kernel_route_equals_twin_route(cuda):
+    """A small evaluate (R18, 128 px, 16 images, batch 4): the NMS
+    kernel's route and the twin's give equal stats and per-class AP, with
+    one NMS launch per eval batch."""
+    import detjax_torch
+    from detjax_torch.data.synthetic import SyntheticDetectionDataset
+    from detjax_torch.evaluation import evaluator
+
+    cfg = detjax_torch.get_config("retinanet_r50_640", **{
+        "model.backbone_depth": 18, "model.image_size": (128, 128),
+        "model.prior_prob": 0.05, "eval.batch_size": 4,
+        "data.host_workers": 2})
+    ds = SyntheticDetectionDataset(num_images=16, image_size=(160, 200),
+                                   num_classes=80, max_objects=6, seed=3,
+                                   crowd_prob=0.1)
+    canvases = np.stack([_canvas128(ds[i]["image"]) for i in range(4)])
+    model = _desaturated_r18(cfg, canvases)
+
+    def twin(m, x):
+        return detjax_torch.detect(m, x, cfg, nms_backend="torch")
+
+    pp.nms_launches = 0
+    got = detjax_torch.evaluate(model, ds, cfg)
+    launches = pp.nms_launches
+    want = evaluator.run_coco_eval(model, ds, cfg, detect_fn=twin)
+    assert launches == 4 and pp.nms_launches == 4
+    assert got.stats == want.stats
+    assert got.per_class_ap == want.per_class_ap
+    kept = sum(len(lab) for _, _, _, lab in evaluator.iter_detections(
+        model, ds, cfg))
+    assert kept > 100
+
+
+def _canvas128(image):
+    from detjax_torch.data.transforms import letterbox
+
+    return letterbox(image, np.zeros((0, 4), np.float32), (128, 128))[0]
+
+
+def test_device_prefetch_round_trip(cuda):
+    """Batches copied through pinned memory on the side stream arrive
+    byte-equal to their source, two in flight; entries not named in
+    ``keys`` pass through untouched."""
+    from detjax_torch.data.pipeline import device_prefetch
+
+    rng = np.random.default_rng(0)
+    batches = [{"images": rng.integers(0, 256, (4, 64, 96, 3), np.uint8),
+                "gt_boxes": rng.normal(0, 50, (4, 7, 4)).astype(np.float32),
+                "gt_labels": rng.integers(-1, 80, (4, 7)).astype(np.int32),
+                "image_id": np.arange(4, dtype=np.int64) + 4 * i}
+               for i in range(5)]
+    out = list(device_prefetch(iter(batches), cuda, size=2))
+    assert len(out) == 5
+    for got, src in zip(out, batches):
+        for k, v in src.items():
+            assert got[k].is_cuda and got[k].dtype == torch.from_numpy(
+                v).dtype
+            # consume on the current stream, then read back
+            np.testing.assert_array_equal((got[k] + 0).cpu().numpy(), v)
+    some = list(device_prefetch(iter(batches), cuda, keys=("images",)))
+    for got, src in zip(some, batches):
+        assert got["images"].is_cuda
+        assert got["image_id"] is src["image_id"]
+        np.testing.assert_array_equal(got["images"].cpu().numpy(),
+                                      src["images"])
