@@ -13,7 +13,10 @@ JSON: the native library on the card's host (``data``),
 ``detjax_torch.evaluate`` through the NMS kernel and through its twin
 (``evaluate``), the protocol evaluator at retinanet_r50_1024 with "off"
 and "on" (``evaluate_protocol``), and training fed by the threaded
-iterator through ``device_prefetch`` (``train_data``); and the R50 stem
+iterator through ``device_prefetch`` (``train_data``); then ``fit`` on
+detjax's mid-gate recipe (batch-statistics BatchNorm, checkpoints, a
+periodic ``evaluate``, a resume, a traced window) and through ``fit`` with
+frozen BatchNorm and "on" (``fit``); and the R50 stem
 (conv1 -> bn1 -> ReLU -> 3x3/s2 max-pool) forward and backward at the 640
 and 1024 training shapes, with ATen's pool backward and with the max-pool
 backward kernel (``kernels/stem.py::max_pool_3x3s2``, which no model path
@@ -29,9 +32,11 @@ cycles by phase), holds each kernel against its plain PyTorch twin on the
 card, also where NMS rows pass 16,384 candidates and matching passes
 9,642 GT slots, and checks that each path really launched its kernels. Prints JSON lines; the last line is
 ``{"ok": true, "device": {...}}`` and appears only when every phase
-passed. Exits non-zero without a CUDA device.
+passed. Exits non-zero without a CUDA device. ``mid_gate(steps)`` runs
+detjax's whole mid gate (not called by ``main``).
 
     python3 chip_smoke.py
+    python3 -c "import chip_smoke as cs; cs.mid_gate(6000)"
 """
 
 from __future__ import annotations
@@ -3032,10 +3037,6 @@ def write_eval_set(root: Path) -> Path:
     classes (category ids 1-80), COCO_VAL_SHAPES in turn, 1-12 objects an
     image with sides from 1/32 to 1/3 of the image's (COCO-small objects
     at these sizes), 10 % of them crowd. Returns the JSON's path."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from PIL import Image
-
     from detjax_torch.data import COCO_CLASSES
     from detjax_torch.data.synthetic import SyntheticDetectionDataset
 
@@ -3043,13 +3044,25 @@ def write_eval_set(root: Path) -> Path:
         num_images=EVAL_SET_SIZE, num_classes=80, max_objects=12, seed=12,
         size_range=(1 / 32, 1 / 3), crowd_prob=0.1,
         image_sizes=COCO_VAL_SHAPES)
+    return write_coco_jpegs(ds, root, COCO_CLASSES, first_category=1,
+                            quality=95)
+
+
+def write_coco_jpegs(ds, root: Path, class_names, first_category: int,
+                     **save_kw) -> Path:
+    """Every record of ``ds`` written into ``root`` as a JPEG (PIL,
+    ``save_kw``) with a COCO instances JSON whose category ids start at
+    ``first_category``. Returns the JSON's path."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
 
     def one(i):
         rec = ds[i]
         name = f"{i:012d}.jpg"
-        Image.fromarray(rec["image"]).save(root / name, quality=95)
+        Image.fromarray(rec["image"]).save(root / name, **save_kw)
         h, w = rec["size"]
-        anns = [{"image_id": i, "category_id": int(lab) + 1,
+        anns = [{"image_id": i, "category_id": int(lab) + first_category,
                  "bbox": [float(x1), float(y1), float(x2 - x1),
                           float(y2 - y1)],
                  "area": float((x2 - x1) * (y2 - y1)),
@@ -3059,15 +3072,15 @@ def write_eval_set(root: Path) -> Path:
         return {"id": i, "file_name": name, "height": h, "width": w}, anns
 
     with ThreadPoolExecutor(8) as pool:
-        rows = list(pool.map(one, range(EVAL_SET_SIZE)))
+        rows = list(pool.map(one, range(len(ds))))
     anns = [a for _, image_anns in rows for a in image_anns]
     for k, a in enumerate(anns):
         a["id"] = k + 1
     path = root / "instances_synthetic.json"
     path.write_text(json.dumps({
         "images": [img for img, _ in rows], "annotations": anns,
-        "categories": [{"id": k + 1, "name": n}
-                       for k, n in enumerate(COCO_CLASSES)]}))
+        "categories": [{"id": k + first_category, "name": n}
+                       for k, n in enumerate(class_names)]}))
     return path
 
 
@@ -3149,16 +3162,28 @@ def phase_data(state: dict) -> None:
                          f"{len(ds)} images")
 
 
+def device_events(prof):
+    """(name, device ms) of the kernels and copies a torch.profiler window
+    recorded. Left out: CPU records (with CPU activity traced, an op's
+    record carries its kernels' device time too) and the device ranges
+    of ``record_function`` annotations, which span other kernels."""
+    from torch.autograd import DeviceType
+
+    return [(e.name, e.device_time_total / 1e3) for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.device_time_total > 0]
+
+
 def busy_and_idle(prof, wall_ms: float) -> dict:
     """Device ms of the CUDA kernels and of the copies in a torch.profiler
     window, and the share of ``wall_ms`` in which no kernel ran (kernels
     on one stream; copies on the side stream overlap them)."""
     kernels = copies = 0.0
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", 0.0) / 1e3
-        if t <= 0 or "spin_kernel" in e.key:
+    for name, t in device_events(prof):
+        if "spin_kernel" in name:
             continue
-        if e.key.startswith(("Memcpy", "Memset")):
+        if name.startswith(("Memcpy", "Memset")):
             copies += t
         else:
             kernels += t
@@ -3504,6 +3529,481 @@ def phase_train_data(report: dict, state: dict) -> None:
     del train
 
 
+# ---- fit: detjax's mid-gate recipe ----
+
+# detjax's COCO-typical source shapes (scripts/e2e_gate.py:921)
+COCO_TYPICAL_SIZES = ((640, 480), (480, 640), (500, 375), (427, 640),
+                      (612, 612), (640, 426), (333, 500), (375, 500))
+MID_GATE_AP = 0.6768  # detjax bf16 (GATES_r05.json, torchref-mid)
+FIT_STEPS = 300
+FIT_CKPT_EVERY = 100
+FIT_EVAL_EVERY = 150
+FIT_RESUME_FROM = 200
+FIT_LOG_EVERY = 50
+FIT_WINDOW_STEPS = 20  # a timed steady-state window (no eval, no save)
+FIT_TRACE_STEPS = 10  # a traced window (its export is slow)
+FIT_WARMUP_STEPS = 3  # before each window: cuDNN's choice for the mode
+FIT_RESUME_BAR = 0.02  # of a tensor's change since the resume, if an op
+#                        has no deterministic version
+FIT_FROZEN_STEPS = 20
+
+
+def mid_gate_config(**extra):
+    """detjax's round-5 mid-gate recipe (scripts/e2e_gate.py:1087-1097):
+    R50-640, 12 classes, batch-statistics BatchNorm, bs 8, lr 5e-4
+    constant, hflip 0.5, random crop, eval batch 8."""
+    import detjax_torch
+
+    return detjax_torch.get_config("retinanet_r50_640", **{
+        "model.num_classes": 12,
+        "model.frozen_backbone_bn": False,
+        "train.batch_size": 8,
+        "train.max_gt": 16,
+        "train.learning_rate": 5e-4,
+        "train.lr_schedule": "constant",
+        "data.hflip_prob": 0.5,
+        "data.random_crop": True,
+        "eval.batch_size": 8, **extra})
+
+
+def mid_gate_data(root: Path):
+    """The recipe's 256 training scenes (seed 31) and its held-out set, the
+    gate's ``mid_val``: 24 scenes (seed 222) written into ``root`` as
+    JPEGs (quality 95, 4:4:4 chroma) with a COCO JSON whose category ids
+    are the labels, as detjax's ``dump_dataset_as_coco`` writes them
+    (scripts/e2e_gate.py:1105-1130)."""
+    from detjax_torch.data import CocoDataset
+    from detjax_torch.data.synthetic import SyntheticDetectionDataset
+
+    kw = dict(num_classes=12, max_objects=8, size_range=(1 / 24, 1 / 3),
+              crowd_prob=0.15, image_sizes=COCO_TYPICAL_SIZES)
+    train = SyntheticDetectionDataset(num_images=256, seed=31, **kw)
+    held = SyntheticDetectionDataset(num_images=24, seed=222, **kw)
+    ann = write_coco_jpegs(held, root, held.class_names, first_category=0,
+                           quality=95, subsampling=0)
+    return train, CocoDataset(str(ann), str(root))
+
+
+def protocol_config(cfg):
+    """detjax's protocol-evaluation config for the gate
+    (scripts/e2e_gate.py:964-988): 608/1024 canvases, pre-NMS top-k
+    16,384, exact candidates."""
+    import dataclasses
+
+    return dataclasses.replace(
+        cfg,
+        data=dataclasses.replace(cfg.data, eval_scale_minmax=(608, 1024)),
+        eval=dataclasses.replace(cfg.eval, pre_nms_top_k=16384,
+                                 exact_candidates=True))
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms and torch's deterministic mode
+    (warn_only: an op without a deterministic version warns). The first
+    line of each such warning goes into the yielded list, once; every
+    other warning is shown as usual."""
+    import warnings
+
+    old = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    refused: list = []
+    with warnings.catch_warnings():
+        warnings.filterwarnings("always", message=".*deterministic")
+        show = warnings.showwarning
+
+        def collect(message, category, filename, lineno, file=None,
+                    line=None):
+            first = str(message).split("\n")[0]
+            if "deterministic" not in first:
+                show(message, category, filename, lineno, file, line)
+            elif first not in refused:
+                refused.append(first)
+
+        warnings.showwarning = collect
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            yield refused
+        finally:
+            torch.use_deterministic_algorithms(old[0], warn_only=old[1])
+            torch.backends.cudnn.deterministic = old[2]
+            torch.backends.cudnn.benchmark = old[3]
+
+
+def state_tensors(train) -> dict:
+    """Every tensor of a TrainState: the model's state_dict, the
+    optimizer's moments and counts, and the EMA."""
+    out = {f"model.{k}": v for k, v in train.model.state_dict().items()}
+    for idx, st in train.optimizer.state_dict()["state"].items():
+        for k, v in st.items():
+            out[f"opt.{idx}.{k}"] = torch.as_tensor(v)
+    for k, v in (train.ema or {}).items():
+        out[f"ema.{k}"] = v
+    return out
+
+
+# the port's CUDA kernels by name (csrc/*.cu), and substrings of the
+# names of cuDNN's and CUTLASS's convolution kernels
+PORT_KERNEL_NAMES = (("match_kernel",) + NMS_KERNEL_NAMES + FWD_KERNEL_NAMES
+                     + BWD_KERNEL_NAMES + ("decode_kernel", "pool_bwd"))
+CONV_KERNEL_KEYS = ("conv", "xmma", "gemm", "cudnn", "cutlass", "winograd",
+                    "implicit", "dgrad", "wgrad")
+
+
+def device_ms_by_kind(prof) -> dict:
+    """Device ms of a torch.profiler window's kernel and copy records by
+    kind: the port's CUDA kernels, convolutions (cuDNN / CUTLASS), ATen's
+    elementwise and reduction kernels (the plain BatchNorm, the optimizer,
+    the losses), copies, and the rest."""
+    out = dict.fromkeys(("port_kernels", "convolutions",
+                         "elementwise_and_reductions", "copies", "other"),
+                        0.0)
+    for name, t in device_events(prof):
+        low = name.lower()
+        if name.startswith(("Memcpy", "Memset")):
+            kind = "copies"
+        elif any(k in name for k in PORT_KERNEL_NAMES):
+            kind = "port_kernels"
+        elif any(k in low for k in CONV_KERNEL_KEYS):
+            kind = "convolutions"
+        elif "elementwise" in low or "reduce" in low:
+            kind = "elementwise_and_reductions"
+        else:
+            kind = "other"
+        out[kind] += t
+    return out
+
+
+def top_device_ops(prof, n: int = 12) -> list:
+    """The ``n`` device records (kernels, copies) with the most device
+    time in a torch.profiler window."""
+    ms: dict = {}
+    calls: dict = {}
+    for name, t in device_events(prof):
+        ms[name] = ms.get(name, 0.0) + t
+        calls[name] = calls.get(name, 0) + 1
+    top = sorted(ms, key=ms.get, reverse=True)[:n]
+    return [{"op": k[:100], "device_ms": ms[k], "calls": calls[k]}
+            for k in top]
+
+
+def fit_window(train, cfg, train_ds, steps: int, det: bool,
+               trace_dir=None) -> dict:
+    """``steps`` steps of fit in steady state, with the deterministic
+    algorithms (``det``) or without: prefetch on (no calibration steps),
+    no evaluation or save, after FIT_WARMUP_STEPS steps in the same mode
+    (cuDNN chooses its algorithms anew), the loader's threads started and
+    its queue filled before the clock starts. Host-clock ms a step; with
+    ``trace_dir``, the window under trace_context with the device's
+    activity alone: kernel and copy ms, the idle share, device ms by kind
+    and the top device ops."""
+    import dataclasses
+
+    import detjax_torch
+    from detjax_torch.data import make_train_iterator
+    from detjax_torch.utils.profiling import trace_context
+
+    wcfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, device_prefetch=True))
+    mode = deterministic() if det else contextlib.nullcontext([])
+    with mode as refused:
+        for steps_now, timed in ((FIT_WARMUP_STEPS, False), (steps, True)):
+            stream = iter(make_train_iterator(train_ds, wcfg).iter_from(
+                train.step))
+            batches = itertools.chain([next(stream)], stream)
+            time.sleep(1.0)
+            name = f"fit_window_{'deterministic' if det else 'default'}"
+            ctx = (trace_context(name, str(trace_dir), host=False)
+                   if timed and trace_dir else contextlib.nullcontext())
+            with ctx as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                detjax_torch.fit(wcfg, batches, train.step + steps_now,
+                                 state=train, log_every=steps_now)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            stream.close()
+    out = {"steps": steps, "deterministic": det,
+           "ms_per_step": wall_ms / steps, "refused": refused}
+    if trace_dir:
+        out.update(busy_and_idle(prof, wall_ms))
+        out["kernel_ms_per_step"] = out["kernel_busy_ms"] / steps
+        out["device_ms_by_kind"] = device_ms_by_kind(prof)
+        out["top_device_ops"] = top_device_ops(prof)
+    return out
+
+
+def phase_fit(report: dict, state: dict) -> None:
+    """detjax_torch.fit on detjax's mid-gate recipe at full width (R50-640,
+    12 classes, batch-statistics BatchNorm, bs 8, bf16, random crop, hflip
+    0.5, lr 5e-4) with fused_backbone="on", which with batch statistics
+    fuses only in evaluation (detjax's rule): FIT_STEPS steps over the
+    recipe's 256 scenes from make_train_iterator, a checkpoint every
+    FIT_CKPT_EVERY steps, a periodic evaluate every FIT_EVAL_EVERY steps
+    over the 24 held-out JPEGs, under cuDNN's deterministic algorithms.
+    Checks: one matching launch a step, one NMS launch and 5 fused
+    forwards an eval batch, no fused launch in training, the loss falls,
+    the running statistics move, a resume from step FIT_RESUME_FROM
+    equals the straight run bit for bit (if an op has no deterministic
+    version, it is named and each tensor's difference is held within
+    FIT_RESUME_BAR of its change since the resume). Reports the run's
+    img/s (its evaluations and saves included), peak memory, the
+    synchronous and the background time of a save; then, in steady state
+    (fit_window), ms a step with the deterministic algorithms and
+    without, in turns, and, from trace_context over a window of
+    FIT_TRACE_STEPS steps in each mode with the device's activity alone,
+    kernel ms a step, the device's idle share and its top kernels. Then
+    FIT_FROZEN_STEPS steps of
+    the default preset (bs 16, frozen BN) with "on" through fit: 5 fused
+    forwards (10 CUDA kernels) and 5 fused backwards (25) a step."""
+    import shutil
+    import tempfile
+
+    import detjax_torch
+    from detjax_torch.data import make_train_iterator
+    from detjax_torch.kernels import bottleneck as kb
+    from detjax_torch.kernels import matching as km
+    from detjax_torch.kernels import postprocess as pp
+    from detjax_torch.train.checkpoint import Checkpointer
+
+    tmp = tempfile.TemporaryDirectory(prefix="detjax_fit_")
+    root = Path(tmp.name)
+    (root / "mid_val").mkdir()
+    train_ds, held = mid_gate_data(root / "mid_val")
+    cfg = mid_gate_config(**{
+        "model.fused_backbone": "on",
+        "train.checkpoint_every_steps": FIT_CKPT_EVERY,
+        "train.eval_every_steps": FIT_EVAL_EVERY})
+    eval_batches = -(-len(held) // cfg.eval.batch_size)
+    n_evals = FIT_STEPS // FIT_EVAL_EVERY
+
+    def run(train, steps, ckpt_dir, **kw):
+        return detjax_torch.fit(
+            cfg, make_train_iterator(train_ds, cfg), steps, state=train,
+            eval_dataset=held, checkpoint_dir=str(ckpt_dir),
+            log_every=FIT_LOG_EVERY, **kw)
+
+    train = detjax_torch.make_train_state(cfg, seed=0)
+    stats0 = train.model.bn1.running_mean.clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    km.match_launches = pp.nms_launches = kb.bottleneck_launches = 0
+    t0 = time.perf_counter()
+    with deterministic() as refused:
+        res = run(train, FIT_STEPS, root / "ck", log_dir=str(root / "log"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"match": km.match_launches, "nms": pp.nms_launches,
+                  "fused": kb.bottleneck_launches}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        straight = {k: v.clone() for k, v in state_tensors(train).items()}
+        moved = not torch.equal(train.model.bn1.running_mean, stats0)
+        # the resume: a fresh state from another seed, fed the checkpoint
+        # of step FIT_RESUME_FROM alone
+        (root / "resume").mkdir()
+        shutil.copytree(root / "ck" / str(FIT_RESUME_FROM),
+                        root / "resume" / str(FIT_RESUME_FROM))
+        again = detjax_torch.make_train_state(cfg, seed=1)
+        km.match_launches = 0
+        resumed = run(again, FIT_STEPS, root / "resume")
+        resume_launches = km.match_launches
+    got = state_tensors(again)
+    diffs = {k: float((got[k].double() - v.double()).abs().max())
+             for k, v in straight.items() if not torch.equal(got[k], v)}
+    # each differing tensor's difference as a share of its change since
+    # the resume (the checkpoint of step FIT_RESUME_FROM, read back)
+    del again, resumed
+    base = Checkpointer(str(root / "ck")).restore(
+        detjax_torch.make_train_state(cfg, seed=2), step=FIT_RESUME_FROM)
+    at_resume = state_tensors(base)
+    shares = {}
+    for k in diffs:
+        change = float((straight[k].double()
+                        - at_resume[k].double()).abs().max())
+        shares[k] = diffs[k] / change if change > 0 else float("inf")
+    del base, at_resume
+    losses = [h["loss"] for h in res.history if "loss" in h]
+    evals = [h["eval"] for h in res.history if "eval" in h]
+
+    ck = Checkpointer(str(root / "timing"))
+    t0 = time.perf_counter()
+    ck.save(train)
+    save_sync_s = time.perf_counter() - t0
+    ck.wait()
+    save_background_s = time.perf_counter() - t0 - save_sync_s
+    ckpt_mib = sum(f.stat().st_size for f in (root / "timing").rglob("*")
+                   if f.is_file()) / 2**20
+
+    # steady-state windows, no evaluation or save inside: timed ones
+    # with the deterministic algorithms and without, in turns, then one
+    # traced window of each (device activity only, so that the host runs
+    # at its own pace)
+    windows: dict = {"deterministic": [], "default": []}
+    for det in (True, False, True, False):
+        w = fit_window(train, cfg, train_ds, FIT_WINDOW_STEPS, det)
+        windows["deterministic" if det else "default"].append(
+            w["ms_per_step"])
+    traced = {("deterministic" if det else "default"): fit_window(
+        train, cfg, train_ds, FIT_TRACE_STEPS, det, root / "trace")
+        for det in (True, False)}
+    del train
+    torch.cuda.empty_cache()
+
+    frozen = phase_fit_frozen(train_ds)
+    tmp.cleanup()
+    emit({"phase": "fit", "preset": cfg.model.name, "recipe":
+          "scripts/e2e_gate.py:1087-1097 with model.fused_backbone=on",
+          "batch": cfg.train.batch_size, "dtype": cfg.model.dtype,
+          "steps": FIT_STEPS, "wall_s": wall,
+          "img_per_s_with_evals_and_saves": res.images_per_sec,
+          "ms_per_step_with_evals_and_saves":
+              cfg.train.batch_size / res.images_per_sec * 1e3,
+          "deterministic": True, "peak_gib": peak_gib,
+          "window_ms_per_step": windows, "window_steps": FIT_WINDOW_STEPS,
+          "logged_losses": losses, "evals": evals,
+          "launches": counts, "eval_batches": eval_batches * n_evals,
+          "running_stats_moved": moved,
+          "resume_from": FIT_RESUME_FROM, "resume_bit_equal": not diffs,
+          "resume_tensors_off": len(diffs),
+          "resume_max_abs_diff": max(diffs.values(), default=0.0),
+          "resume_max_share_of_change": max(shares.values(), default=0.0),
+          "resume_match_launches": resume_launches,
+          "ops_without_a_deterministic_version": refused,
+          "save_sync_s": save_sync_s, "save_background_s": save_background_s,
+          "checkpoint_mib": ckpt_mib, "trace_windows": traced,
+          "frozen_on": frozen, "card": state["card"]})
+    if counts["match"] != FIT_STEPS:
+        raise SystemExit(f"fit made {counts['match']} matching launches in "
+                         f"{FIT_STEPS} steps")
+    if counts["nms"] != eval_batches * n_evals:
+        raise SystemExit(f"fit's evaluations made {counts['nms']} NMS "
+                         f"launches over {eval_batches * n_evals} batches")
+    if counts["fused"] != 5 * eval_batches * n_evals:
+        raise SystemExit(f"{counts['fused']} fused forwards in fit: "
+                         f"expected none in its batch-statistics training "
+                         f"and 5 in each of its {eval_batches * n_evals} "
+                         f"eval batches")
+    if len(evals) != n_evals or any(len(e) != 12 for e in evals):
+        raise SystemExit(f"fit recorded evaluations {evals}")
+    if not (np.isfinite(losses).all()
+            and np.mean(losses[-2:]) < np.mean(losses[:2])):
+        raise SystemExit(f"the fit loss does not fall: {losses}")
+    if not moved:
+        raise SystemExit("the running statistics did not move in fit")
+    if resume_launches != FIT_STEPS - FIT_RESUME_FROM:
+        raise SystemExit(f"the resumed fit made {resume_launches} matching "
+                         f"launches")
+    if diffs and not refused:
+        raise SystemExit(f"the resume from step {FIT_RESUME_FROM} differs "
+                         f"from the straight run in {len(diffs)} tensors "
+                         f"though every op ran deterministically")
+    worst = max(shares, key=shares.get, default=None)
+    if worst is not None and shares[worst] > FIT_RESUME_BAR:
+        raise SystemExit(f"the resume from step {FIT_RESUME_FROM} differs "
+                         f"from the straight run in {worst} by "
+                         f"{shares[worst]:.3g} of its change since the "
+                         f"resume (bar {FIT_RESUME_BAR}); ops without a "
+                         f"deterministic version: {refused}")
+    report["match_iou_cuda"]["fit_launches"] = counts["match"]
+    report["nms_cuda"]["fit_eval_launches"] = counts["nms"]
+    report["bottleneck_identity_cuda"]["fit_launches"] = counts["fused"]
+    report["bottleneck_identity_cuda"]["fit_frozen_on_launches"] = frozen[
+        "launches"]["fwd_calls"]
+    report["bottleneck_identity_bwd_cuda"]["fit_frozen_on_launches"] = \
+        frozen["launches"]["bwd_calls"]
+
+
+def phase_fit_frozen(train_ds) -> dict:
+    """FIT_FROZEN_STEPS steps of retinanet_r50_640 (bs 16, frozen BN,
+    bf16) with fused_backbone="on" through fit, on the mid-gate scenes:
+    5 fused forward calls (10 CUDA kernels) and 5 fused backward calls (25
+    CUDA kernels) a step."""
+    import detjax_torch
+    from detjax_torch.data import make_train_iterator
+    from detjax_torch.kernels import bottleneck as kb
+
+    cfg = smoke_config(**{"model.fused_backbone": "on",
+                          "train.checkpoint_every_steps": 10**9,
+                          "train.eval_every_steps": 10**9})
+    train = detjax_torch.make_train_state(cfg, seed=0)
+    it = make_train_iterator(train_ds, cfg)
+    first = next(iter(it))
+    scales = desaturate_(train.model, first["images"][:4], cfg)
+    torch.cuda.synchronize()
+    kb.bottleneck_launches = kb.bottleneck_kernel_launches = 0
+    kb.bottleneck_bwd_launches = kb.bottleneck_bwd_kernel_launches = 0
+    res = detjax_torch.fit(cfg, make_train_iterator(train_ds, cfg),
+                           FIT_FROZEN_STEPS, state=train, log_every=5)
+    torch.cuda.synchronize()
+    n = FIT_FROZEN_STEPS
+    launches = {"fwd_calls": kb.bottleneck_launches,
+                "fwd_cuda_kernels": kb.bottleneck_kernel_launches,
+                "bwd_calls": kb.bottleneck_bwd_launches,
+                "bwd_cuda_kernels": kb.bottleneck_bwd_kernel_launches}
+    want = {"fwd_calls": 5 * n, "fwd_cuda_kernels": 10 * n,
+            "bwd_calls": 5 * n, "bwd_cuda_kernels": 25 * n}
+    losses = [h["loss"] for h in res.history]
+    if launches != want or not np.isfinite(losses).all():
+        raise SystemExit(f'fit with "on" and frozen BN: launches '
+                         f"{launches}, expected {want}; losses {losses}")
+    return {"preset": cfg.model.name, "batch": cfg.train.batch_size,
+            "steps": n, "launches": launches, "output_scales": scales,
+            "img_per_s": res.images_per_sec, "logged_losses": losses}
+
+
+def mid_gate(steps: int) -> int:
+    """detjax's mid gate on the card: fit the recipe (fused_backbone
+    "off", as detjax's) for ``steps`` steps, then the train-set AP50
+    through ``evaluate`` (detjax's floor: > 0.15,
+    scripts/e2e_gate.py:1118) and the held-out AP through
+    run_coco_eval_protocol with detjax's protocol config (its check: 0.05
+    < AP < 0.95, scripts/e2e_gate.py:1138), beside detjax's recorded bf16
+    AP. Not called by main; run as
+    ``python3 -c "import chip_smoke as cs; cs.mid_gate(6000)"``."""
+    import tempfile
+
+    import detjax_torch
+    from detjax_torch.data import make_train_iterator
+    from detjax_torch.evaluation.protocol import run_coco_eval_protocol
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip()
+    print(card, flush=True)
+    with tempfile.TemporaryDirectory(prefix="detjax_mid_gate_") as tmp:
+        train_ds, held = mid_gate_data(Path(tmp))
+        cfg = mid_gate_config(**{"train.checkpoint_every_steps": 10**9,
+                                 "train.eval_every_steps": 10**9})
+        t0 = time.perf_counter()
+        res = detjax_torch.fit(cfg, make_train_iterator(train_ds, cfg),
+                               steps, log_every=max(steps // 6, 1))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        model = res.state.model
+        t0 = time.perf_counter()
+        train_stats = detjax_torch.evaluate(model, train_ds, cfg).stats
+        held_stats = run_coco_eval_protocol(model, held,
+                                            protocol_config(cfg)).stats
+        eval_s = time.perf_counter() - t0
+    emit({"phase": "mid_gate", "preset": cfg.model.name, "steps": steps,
+          "batch": cfg.train.batch_size, "fit_s": fit_s,
+          "img_per_s": res.images_per_sec, "eval_s": eval_s,
+          "logged_losses": [h["loss"] for h in res.history],
+          "train_stats": train_stats, "held_out_stats": held_stats,
+          "detjax_bf16_held_out_AP": MID_GATE_AP,
+          "gap": held_stats["AP"] - MID_GATE_AP, "card": card})
+    ok = train_stats["AP50"] > 0.15 and 0.05 < held_stats["AP"] < 0.95
+    print(json.dumps({"mid_gate_passed": ok}), flush=True)
+    return 0 if ok else 1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3537,6 +4037,7 @@ def main() -> int:
     phase_evaluate_protocol(state)
     phase_train_data(report, state)
     state.pop("eval_set")["tmp"].cleanup()
+    phase_fit(report, state)
     phase_maxpool_bwd_kernel(report)
     phase_stem(report, state)
     emit({"kernels": list(report.values())})

@@ -3,7 +3,10 @@
 detjax (the JAX package beside this one) is the reference. This package
 carries its serving path (``build_model`` -> ``detect`` / ``detect_u8`` ->
 the micro-batching ``DetectionServer``), its training path
-(``make_train_state`` -> ``train_step``), its data pipeline
+(``make_train_state`` -> ``train_step``, and the loop around it,
+``fit``: plateau control, checkpoints and resume, periodic evaluation,
+batch-statistics BatchNorm; ``python -m detjax_torch.cli.train``), its
+data pipeline
 (``detjax_torch.data``: COCO and CSV datasets, the threaded batch
 iterator, prefetch to the device) and its evaluation (``evaluate``: COCO
 and VOC metrics over a dataset, also at each image's protocol canvas,
@@ -50,6 +53,7 @@ Ground rules:
     >>> dets = detjax_torch.detect_u8(model, canvases_u8)
     >>> state = detjax_torch.make_train_state("retinanet_r50_640", seed=0)
     >>> state, metrics = detjax_torch.train_step(state, batch)
+    >>> result = detjax_torch.fit(cfg, make_train_iterator(ds, cfg), 1000)
     >>> result = detjax_torch.evaluate(model, dataset, cfg)
 """
 
@@ -66,6 +70,7 @@ from detjax_torch.api import (
     build_model,
     detect,
     detect_u8,
+    fit,
     make_train_state,
     train_step,
 )
@@ -102,6 +107,7 @@ __all__ = [
     "detect_u8",
     "make_train_state",
     "train_step",
+    "fit",
     "evaluate",
     "serve",
 ]

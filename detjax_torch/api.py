@@ -1,5 +1,5 @@
-"""Public API of the port: model build, train step and detect
-(``detjax/api.py``)."""
+"""Public API of the port: model build, train step, the training loop and
+detect (``detjax/api.py``)."""
 
 from __future__ import annotations
 
@@ -47,3 +47,13 @@ def detect_u8(model, canvases_u8, preset="retinanet_r50_640", **overrides):
     from detjax_torch.modeling import detect_u8 as _impl
 
     return _impl(model, canvases_u8, preset, **overrides)
+
+
+def fit(cfg, train_batches, num_steps, **kwargs):
+    """Train for ``num_steps`` steps over ``train_batches`` with periodic
+    logging, plateau control, checkpoints (and resume) and evaluation, on
+    ``device`` (default ``cuda``). See :func:`detjax_torch.train.loop.fit`.
+    """
+    from detjax_torch.train.loop import fit as _impl
+
+    return _impl(cfg, train_batches, num_steps, **kwargs)

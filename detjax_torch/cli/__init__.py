@@ -1,0 +1,2 @@
+"""Command-line entry points of the port (``detjax/cli``):
+``python -m detjax_torch.cli.train``."""

@@ -1,14 +1,16 @@
 """Model build and the detect path (``detjax/modeling.py``).
 
 ``detect_u8``: uint8 NHWC canvases -> normalize on the model's device ->
-NCHW forward -> candidate selection in the logit domain -> decode and clip
-of the candidates only -> class-aware greedy NMS (the CUDA kernel on a GPU,
-its plain twin on the CPU) -> fixed-size :class:`Detections`. Anchors are
-built once per config and device and kept on the device.
+NCHW forward in eval mode -> candidate selection in the logit domain ->
+decode and clip of the candidates only -> class-aware greedy NMS (the CUDA
+kernel on a GPU, its plain twin on the CPU) -> fixed-size
+:class:`Detections`. Anchors are built once per config and device and
+kept on the device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -78,10 +80,24 @@ def _model_device(model: Detector, cfg: Config) -> torch.device:
     return next(model.parameters()).device
 
 
+@contextlib.contextmanager
+def eval_mode(model: torch.nn.Module):
+    """The model in eval mode inside, the caller's mode restored after:
+    detjax applies the model with ``train=False`` to detect, so a
+    batch-statistics BatchNorm normalises with its running statistics and
+    leaves them as they were, and fused blocks take their fused route."""
+    was_training = model.training
+    model.eval()
+    try:
+        yield model
+    finally:
+        model.train(was_training)
+
+
 def _run(model: Detector, images_nhwc: torch.Tensor, cfg: Config,
          nms_backend: str) -> Detections:
     e = cfg.eval
-    with torch.inference_mode():
+    with torch.inference_mode(), eval_mode(model):
         cls_logits, box_deltas = model(images_nhwc.permute(0, 3, 1, 2))
         # fp32 box deltas (bf16 would quantize decoded coords to ~2 px at
         # 640); class scores stay raw logits for logit-domain selection

@@ -9,9 +9,10 @@ takes ``detjax_torch.utils.weights.from_jax`` output directly.
 Precision policy: parameters and BatchNorm statistics stay fp32. With
 ``model.dtype="bfloat16"`` the forward runs under
 ``torch.autocast(dtype=torch.bfloat16)``: every conv casts its input and
-weights to bf16 and returns bf16, and ``FrozenBatchNorm2d`` applies its
-fp32 scale and shift in bf16. With ``"float32"`` it runs in fp32
-throughout; on a GPU an fp32 comparison with detjax also needs
+weights to bf16 and returns bf16, ``FrozenBatchNorm2d`` applies its
+fp32 scale and shift in bf16, and ``BatchNorm2d``
+(``frozen_backbone_bn=False``) normalises in fp32 and returns bf16. With
+``"float32"`` it runs in fp32 throughout; on a GPU an fp32 comparison with detjax also needs
 ``torch.backends.cudnn.allow_tf32 = False`` and
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (cuDNN convolutions use
 TF32 by default). The outputs stay in the compute dtype; detect casts the
@@ -23,7 +24,15 @@ at R152) when ``model.dtype="bfloat16"``, as detjax does; with
 ``"float32"`` it takes no fused route, as in detjax. "auto" resolves to
 "off" here: in detjax it means "on a TPU backend only". Training with "on"
 runs the fused blocks' backward through a second CUDA kernel, and trains
-every parameter, the folded BatchNorms' affines included. The
+every parameter, the folded BatchNorms' affines included.
+
+``model.frozen_backbone_bn=False`` makes every backbone BatchNorm (the
+stem's ``bn1``, each block's, each ``downsample.1``) a ``BatchNorm2d``:
+batch statistics in train mode, running statistics in eval mode; the FPN
+and the head have no BatchNorm, as in detjax. With "on" such a model
+fuses its blocks only in eval mode (detjax's rule, ``fused_blocks and
+(frozen_bn or not train)``): training launches no fused kernel, and
+evaluation folds the running statistics into the fused blocks. The
 ``bottleneck_backend`` attribute ("auto", or "torch" for the plain twin)
 exists for tests and ``chip_smoke.py`` to compare whole paths.
 """
@@ -60,17 +69,13 @@ class Detector(ResNet):
         if cfg.dtype not in _DTYPES:
             raise ValueError(f"model.dtype must be one of {sorted(_DTYPES)}, "
                              f"got {cfg.dtype!r}")
-        if not cfg.frozen_backbone_bn:
-            raise NotImplementedError(
-                "model.frozen_backbone_bn=False (batch-statistics BatchNorm) "
-                "is not ported yet; it waits for a later slice (ROADMAP.md "
-                "Queue 1, training knobs)")
         check_backbone_knobs(
             fused_backbone=cfg.fused_backbone, dot_1x1=cfg.dot_1x1,
             remat_early=cfg.remat_early,
             f8_remat_stages=cfg.f8_remat_stages)
         super().__init__(cfg.backbone_depth, fused_blocks=(
-            cfg.fused_backbone == "on" and cfg.dtype == "bfloat16"))
+            cfg.fused_backbone == "on" and cfg.dtype == "bfloat16"),
+            frozen_bn=cfg.frozen_backbone_bn)
         self.cfg = cfg
         self.fpn = FPN(self.stage_channels, cfg.min_level, cfg.max_level,
                        cfg.fpn_channels)
@@ -87,7 +92,8 @@ class Detector(ResNet):
         return _DTYPES[self.cfg.dtype]
 
     def fused_blocks(self) -> List[Bottleneck]:
-        """The blocks that take the fused route."""
+        """The blocks built for the fused route. With batch-statistics
+        BatchNorm they take it only in eval mode."""
         return [m for m in self.modules()
                 if isinstance(m, Bottleneck) and m.fused]
 
@@ -109,7 +115,8 @@ class Detector(ResNet):
     def init_weights(self, generator: torch.Generator) -> "Detector":
         """detjax's initialisers, drawn from ``generator``: He-normal convs
         in the backbone and FPN, N(0, 0.01) head convs with the prior bias
-        on the class output, identity frozen BatchNorm."""
+        on the class output, identity BatchNorm (weight 1, bias 0, mean 0,
+        variance 1)."""
         he_normal_(self, generator)
         init_towers_(self.classificationModel, self.regressionModel,
                      self.cfg.prior_prob, generator)

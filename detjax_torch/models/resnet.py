@@ -1,8 +1,8 @@
 """ResNet backbones, torchvision v1.5 (stride on the 3x3), in NCHW.
 
 The counterpart of ``detjax/models/resnet.py``: basic blocks (R18/34) and
-bottleneck blocks (R50/101/152), frozen BatchNorm, and the lineage's
-parameter names (``conv1``, ``bn1``, ``layer{s}.{b}.conv1``,
+bottleneck blocks (R50/101/152), frozen or batch-statistics BatchNorm, and
+the lineage's parameter names (``conv1``, ``bn1``, ``layer{s}.{b}.conv1``,
 ``layer{s}.{b}.downsample.0/1``), so that ``load_state_dict(strict=True)``
 takes the weights carried over by ``detjax_torch.utils.weights.from_jax``
 or a torchvision-format checkpoint directly.
@@ -13,9 +13,12 @@ pads with -inf.
 
 ``fused_blocks=True`` sends the stride-1 identity bottlenecks of layer1 and
 layer2 through the fused-block kernel (``kernels/bottleneck.py``), with
-each frozen BatchNorm folded into its conv by :func:`fold_frozen_bn`, as
-detjax's ``BottleneckBlock(fused=True)`` does. The parameters and their
-names do not change.
+each BatchNorm's running statistics folded into its conv by
+:func:`fold_frozen_bn`, as detjax's ``BottleneckBlock(fused=True)`` does.
+With batch-statistics BatchNorm a block fuses only in eval mode, detjax's
+rule ``fused_blocks and (frozen_bn or not train)``
+(``detjax/models/resnet.py:298``). The parameters and their names do not
+change.
 """
 
 from __future__ import annotations
@@ -93,12 +96,68 @@ class FrozenBatchNorm2d(nn.Module):
                 + shift.to(x.dtype)[None, :, None, None])
 
 
-def fold_frozen_bn(conv_weight: torch.Tensor, bn: FrozenBatchNorm2d
+class BatchNorm2d(nn.Module):
+    """flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``, which detjax
+    trains with when ``model.frozen_backbone_bn=False``
+    (``detjax/models/resnet.py:287-294``).
+
+    In training the statistics are those of the batch, over (N, H, W),
+    computed in fp32 from the activation (a bf16 conv output under
+    autocast is upcast first, as flax's ``force_float32_reductions``
+    does): the mean, and flax's fast variance ``E[x^2] - E[x]^2`` clipped
+    at 0, which is the biased variance. The running statistics move as
+    ``ra = 0.9 * ra + 0.1 * batch``, in place, so that each write bumps
+    the buffers' version counters (``Bottleneck.folded_weights`` keys its
+    fold on them). Autograd differentiates through the mean and the
+    variance, as ``jax.grad`` does. In eval mode the running statistics
+    take their place. Either way the output is ``(x - mean) * (weight *
+    rsqrt(var + eps)) + bias`` in fp32, cast to the activation's dtype.
+
+    ``nn.BatchNorm2d`` is not used: it stores the unbiased variance,
+    computes the variance another way and keeps a ``num_batches_tracked``
+    buffer that detjax's variables do not have."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.9):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        if self.training:
+            mean = xf.mean((0, 2, 3))
+            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                keep = 1.0 - self.momentum
+                self.running_mean.mul_(self.momentum).add_(mean * keep)
+                self.running_var.mul_(self.momentum).add_(var * keep)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = ((xf - mean[None, :, None, None]) * mul[None, :, None, None]
+             + self.bias[None, :, None, None])
+        return y.to(x.dtype)
+
+
+def batch_norm(num_features: int, frozen: bool) -> nn.Module:
+    """The backbone's BatchNorm: frozen, or with batch statistics."""
+    return (FrozenBatchNorm2d(num_features) if frozen
+            else BatchNorm2d(num_features))
+
+
+def fold_frozen_bn(conv_weight: torch.Tensor, bn: nn.Module
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fold a frozen BatchNorm into the conv before it, in detjax's order
-    of operations (``detjax/models/resnet.py::_fold_bn``): ``s = scale /
-    sqrt(var + eps)`` in fp32, ``w' = bf16(fp32(w) * s)``, ``b' = fp32(bias
-    - mean * s)[None]``.
+    """Fold a BatchNorm's running statistics (a :class:`FrozenBatchNorm2d`,
+    or a :class:`BatchNorm2d` in eval mode) into the conv before it, in
+    detjax's order of operations (``detjax/models/resnet.py::_fold_bn``):
+    ``s = scale / sqrt(var + eps)`` in fp32, ``w' = bf16(fp32(w) * s)``,
+    ``b' = fp32(bias - mean * s)[None]``.
 
     ``conv_weight`` is the port's OIHW weight. Returns the fused kernel's
     layout: ``w'`` as [I, O] for a 1x1 conv and [3, 3, I, O] (HWIO) for a
@@ -123,8 +182,10 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
 
 
-def _projection(cin: int, cout: int, stride: int) -> nn.Sequential:
-    return nn.Sequential(_conv(cin, cout, 1, stride), FrozenBatchNorm2d(cout))
+def _projection(cin: int, cout: int, stride: int,
+                frozen_bn: bool) -> nn.Sequential:
+    return nn.Sequential(_conv(cin, cout, 1, stride),
+                         batch_norm(cout, frozen_bn))
 
 
 class BasicBlock(nn.Module):
@@ -132,13 +193,14 @@ class BasicBlock(nn.Module):
 
     expansion = 1
 
-    def __init__(self, cin: int, planes: int, stride: int = 1):
+    def __init__(self, cin: int, planes: int, stride: int = 1,
+                 frozen_bn: bool = True):
         super().__init__()
         self.conv1 = _conv(cin, planes, 3, stride)
-        self.bn1 = FrozenBatchNorm2d(planes)
+        self.bn1 = batch_norm(planes, frozen_bn)
         self.conv2 = _conv(planes, planes, 3)
-        self.bn2 = FrozenBatchNorm2d(planes)
-        self.downsample = (_projection(cin, planes, stride)
+        self.bn2 = batch_norm(planes, frozen_bn)
+        self.downsample = (_projection(cin, planes, stride, frozen_bn)
                            if stride != 1 or cin != planes else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -156,28 +218,32 @@ class Bottleneck(nn.Module):
     runs as one fused kernel on bf16 input, its BatchNorms folded by
     :func:`fold_frozen_bn`; ``fused_backend="torch"`` (set through
     ``Detector.bottleneck_backend``) runs the kernel's plain twin instead.
-    Any other block ignores ``fused``."""
+    With batch-statistics BatchNorm (``frozen_bn=False``) the block fuses
+    only in eval mode: in training its statistics come from the batch,
+    which the fold cannot know. Any other block ignores ``fused``."""
 
     expansion = 4
 
     def __init__(self, cin: int, planes: int, stride: int = 1,
-                 fused: bool = False):
+                 fused: bool = False, frozen_bn: bool = True):
         super().__init__()
         cout = planes * self.expansion
         self.fused = fused and stride == 1 and cin == cout
+        self.frozen_bn = frozen_bn
         self.fused_backend = "auto"
         self._folded = None  # (key, folded weights) of the last fold
         self.conv1 = _conv(cin, planes, 1)
-        self.bn1 = FrozenBatchNorm2d(planes)
+        self.bn1 = batch_norm(planes, frozen_bn)
         self.conv2 = _conv(planes, planes, 3, stride)
-        self.bn2 = FrozenBatchNorm2d(planes)
+        self.bn2 = batch_norm(planes, frozen_bn)
         self.conv3 = _conv(planes, cout, 1)
-        self.bn3 = FrozenBatchNorm2d(cout)
-        self.downsample = (_projection(cin, cout, stride)
+        self.bn3 = batch_norm(cout, frozen_bn)
+        self.downsample = (_projection(cin, cout, stride, frozen_bn)
                            if stride != 1 or cin != cout else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fused:
+        # detjax's rule: fused and (frozen_bn or not train)
+        if self.fused and (self.frozen_bn or not self.training):
             return self.fused_forward(x)
         y = F.relu(self.bn1(self.conv1(x)))
         y = F.relu(self.bn2(self.conv2(y)))
@@ -186,9 +252,9 @@ class Bottleneck(nn.Module):
         return F.relu(y + idn)
 
     def folded_weights(self) -> List[torch.Tensor]:
-        """``[w1, b1, w2, b2, w3, b3]``: the three convs with their frozen
-        BatchNorms folded in by :func:`fold_frozen_bn`, the fused kernel's
-        arguments.
+        """``[w1, b1, w2, b2, w3, b3]``: the three convs with their
+        BatchNorms' running statistics folded in by :func:`fold_frozen_bn`,
+        the fused kernel's arguments.
 
         The fold is kept between calls and made anew once a weight or a
         statistic is written in place or moved (``load_state_dict``, an
@@ -230,9 +296,11 @@ class ResNet(nn.Module):
 
     ``fused_blocks=True`` fuses the stride-1 identity bottlenecks of the
     first :data:`FUSED_STAGES` stages (layer1 and layer2); basic blocks
-    never fuse."""
+    never fuse. ``frozen_bn=False`` makes every BatchNorm a
+    :class:`BatchNorm2d` (batch statistics in training)."""
 
-    def __init__(self, depth: int = 50, fused_blocks: bool = False):
+    def __init__(self, depth: int = 50, fused_blocks: bool = False,
+                 frozen_bn: bool = True):
         super().__init__()
         if depth not in RESNET_SPECS:
             raise ValueError(
@@ -241,7 +309,7 @@ class ResNet(nn.Module):
         kind, sizes = RESNET_SPECS[depth]
         block = BasicBlock if kind == "basic" else Bottleneck
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = FrozenBatchNorm2d(64)
+        self.bn1 = batch_norm(64, frozen_bn)
         cin = 64
         self.stage_channels = []
         for s, n_blocks in enumerate(sizes):
@@ -251,9 +319,11 @@ class ResNet(nn.Module):
                 stride = 2 if b == 0 and s > 0 else 1
                 if block is Bottleneck:
                     blocks.append(block(cin, planes, stride, fused=(
-                        fused_blocks and s < FUSED_STAGES)))
+                        fused_blocks and s < FUSED_STAGES),
+                        frozen_bn=frozen_bn))
                 else:
-                    blocks.append(block(cin, planes, stride))
+                    blocks.append(block(cin, planes, stride,
+                                        frozen_bn=frozen_bn))
                 cin = planes * block.expansion
             setattr(self, f"layer{s + 1}", nn.Sequential(*blocks))
             self.stage_channels.append(cin)

@@ -1,5 +1,7 @@
-"""Training: the step, its state and the optimizers (``detjax/train``)."""
+"""Training: the step, its state, the optimizers, the loop and its
+checkpoints (``detjax/train``)."""
 
+from detjax_torch.train.loop import FitResult, ReduceLROnPlateau, fit
 from detjax_torch.train.step import (
     TrainState,
     apply_gradients,
@@ -13,10 +15,13 @@ from detjax_torch.train.step import (
 )
 
 __all__ = [
+    "FitResult",
+    "ReduceLROnPlateau",
     "TrainState",
     "apply_gradients",
     "compute_gradients",
     "ema_variables",
+    "fit",
     "get_learning_rate",
     "make_optimizer",
     "make_train_state",

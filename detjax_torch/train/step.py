@@ -23,7 +23,9 @@ What matches detjax, by construction:
   10_000_000)`` counted from the first update; "plateau" and "constant"
   keep the base rate, which :func:`set_learning_rate` changes;
 - ``grad_accum_steps`` sums the micro-batches' gradients, then scales by
-  1 / steps, as detjax's scan does;
+  1 / steps, as detjax's scan does; with batch-statistics BatchNorm each
+  micro-batch normalises with its own statistics and moves the running
+  statistics once;
 - the flip mask is drawn per step from a ``torch.Generator`` seeded by
   ``(train.seed, step)``. detjax draws it from ``fold_in(PRNGKey(seed),
   step)``, which torch cannot reproduce, so the two packages flip
@@ -60,10 +62,13 @@ class TrainState:
     """The live training state, updated in place by :func:`train_step`.
 
     ``step`` counts the updates taken; ``model`` holds the fp32 parameters
-    (the frozen-BN affine included; its running statistics are buffers
-    that nothing updates); ``optimizer`` holds the moments; ``ema`` maps
-    each trainable parameter's name to its EMA shadow, or is None when
-    ``cfg.train.ema_decay`` is 0.
+    (the BatchNorm affine included) and, as buffers, the BatchNorm running
+    statistics, detjax's ``batch_stats``: frozen with
+    ``model.frozen_backbone_bn=True``, and otherwise moved by every
+    training forward, once per micro-batch under ``grad_accum_steps``, as
+    detjax's scan carries them; ``optimizer`` holds the moments; ``ema``
+    maps each trainable parameter's name to its EMA shadow (parameters
+    only, as in detjax), or is None when ``cfg.train.ema_decay`` is 0.
     """
 
     step: int

@@ -477,8 +477,7 @@ def test_learning_rate_controls(weights):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("frozen_backbone_bn", False), ("dot_1x1", "dw"), ("remat_early", 2),
-    ("f8_remat_stages", 1),
+    ("dot_1x1", "dw"), ("remat_early", 2), ("f8_remat_stages", 1),
 ])
 def test_unported_training_knobs_raise(knob, value):
     _, tcfg = _cfgs(**{f"model.{knob}": value})
