@@ -4,7 +4,13 @@ Drives ``detjax_torch``'s serving path (RetinaNet-R50-FPN at 640, eval
 batch 8, bf16, seeded random weights), its full-anchor-set eval branch
 (decode + clip of every anchor, per-class NMS), the same serving path with
 ``model.fused_backbone="on"`` (layer1/layer2 identity bottlenecks through
-the fused block's kernels; also on a 608x832 canvas), and its training
+the fused block's kernels; also on a 608x832 canvas), detjax's other two
+serving engines on the same model (``int8``: the int8 PTQ engine,
+calibrated, ``conv_int8`` held to an fp64 reference at every site shape;
+``export``: detect programs "off", "on" and int8, saved and run in fresh
+processes that load no model code; ``serve_engines``: the HTTP server with
+the int8 engine and with a program, and the custom ops' host time), its
+training
 path (the same model, train batch 16, bf16 autocast over fp32 parameters,
 Adam, clip 0.1, synthetic scenes; then with "on", and retinanet_r50_1024
 with "on") through the entry points a user calls; then its data pipeline
@@ -56,7 +62,7 @@ import numpy as np
 import torch
 
 H100 = {"bytes_per_s": 3.35e12, "fp32_flops": 67e12,
-        "bf16_flops": 989e12}  # SXM data sheet, dense
+        "bf16_flops": 989e12, "int8_ops": 1979e12}  # SXM data sheet, dense
 
 
 def emit(obj) -> None:
@@ -2344,6 +2350,540 @@ def phase_serve(state: dict) -> None:
                          "detect, or its requests did not coalesce")
 
 
+INT8_CALIB_IMAGES = 16
+INT8_BARS = {"corr": 0.99, "mean_abs": 0.1}  # detjax's, tests/test_quant.py
+
+
+def corr_and_mean_abs(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """Pearson correlation and mean |a - b| of two tensors, in fp64 on
+    their device."""
+    a, b = a.double().flatten(), b.double().flatten()
+    da, db = a - a.mean(), b - b.mean()
+    corr = float((da * db).sum() / (da.norm() * db.norm()))
+    return corr, float((a - b).abs().mean())
+
+
+def int8_conv_sites(qtree, cfg, x) -> dict:
+    """Every conv_int8 call of one int8 forward on ``x``, grouped by
+    (input shape, weight shape, stride): the first call's operands and the
+    number of calls of that shape."""
+    from detjax_torch import quant
+
+    sites: dict = {}
+    inner = quant.conv_int8
+
+    def record(xq, w, stride=1):
+        key = (tuple(xq.shape), tuple(w.shape), int(stride))
+        if key not in sites:
+            sites[key] = {"xq": xq.clone(), "w": w, "calls": 0}
+        sites[key]["calls"] += 1
+        return inner(xq, w, stride)
+    quant.conv_int8 = record
+    try:
+        quant.forward_int8(qtree, cfg, x)
+    finally:
+        quant.conv_int8 = inner
+    return sites
+
+
+def int8_gemm_bound_ms(key) -> tuple:
+    """The least time of one conv_int8 on the H100: its patch matrix and
+    weights read and the int32 result written once (bytes), or its
+    multiply-adds at the int8 tensor-core rate (operations)."""
+    (b, h, w, c), (k, _, _, n), s = key
+    ho, wo = (h + 2 * (k // 2) - k) // s + 1, (w + 2 * (k // 2) - k) // s + 1
+    m, kk = b * ho * wo, k * k * c
+    byts = b * h * w * c + kk * n + 4 * m * n
+    ops = 2 * m * kk * n
+    t_b, t_o = byts / H100["bytes_per_s"] * 1e3, ops / H100["int8_ops"] * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def int8_bars_at_detjax_test_shape() -> dict:
+    """detjax's own int8-vs-fp check (tests/test_quant.py:94-110) on the
+    card: R18, 64 px, 4 classes, fp32, seeded weights, two N(0, 1) images
+    that are also the calibration batch; the int8 logits against the fp32
+    traversal's, correlation > 0.99 and mean |d| < 0.1."""
+    import detjax_torch
+    from detjax_torch import quant
+
+    cfg = detjax_torch.get_config("retinanet_r50_640", **{
+        "model.image_size": (64, 64), "model.backbone_depth": 18,
+        "model.num_classes": 4, "model.dtype": "float32"})
+    model = detjax_torch.build_model(cfg, seed=0)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, (2, 64, 64, 3)).astype(np.float32)).cuda()
+    qtree = quant.quantize_model(model, cfg, x)
+    with tf32_off():
+        f_cls, _ = quant.forward_fp(model, cfg, x, dtype=torch.float32)
+    q_cls, _ = quant.forward_int8(qtree, cfg, x)
+    corr, mean_abs = corr_and_mean_abs(q_cls, f_cls)
+    return {"corr": corr, "mean_abs": mean_abs,
+            "ok": corr > INT8_BARS["corr"] and mean_abs < INT8_BARS["mean_abs"]}
+
+
+def phase_int8(report: dict, state: dict) -> None:
+    """detjax's int8 PTQ engine at full width: R50-640, bf16, bs 8, on
+    ``main``'s de-saturated model. Calibrates on INT8_CALIB_IMAGES seeded
+    canvases with "absmax" and "p999"; holds conv_int8 bit-equal to an
+    fp64 conv of the integer values at every distinct site shape of the
+    forward (each timed by device_ms, beside its bound); counts
+    detect_int8_u8's NMS launches (the launcher's and the profiler's);
+    holds the int8 logits to the fp traversal's within detjax's bars at
+    detjax's test shape, and within its correlation bar at full width
+    for both calibration modes (printing the mean |d|);
+    times detect_int8_u8 against detect_u8 in turns (CUDA events, the
+    device's busy ms by torch.profiler, the host clock with the results
+    copied)."""
+    import detjax_torch
+    from detjax_torch import quant
+    from detjax_torch.data.pipeline import normalize_u8
+    from detjax_torch.kernels import postprocess as pp
+
+    model, cfg = state["model"], state["cfg"]
+    b = cfg.eval.batch_size
+    dev = next(model.parameters()).device
+    calib_u8 = seeded_canvases(4, INT8_CALIB_IMAGES)
+    calib = normalize_u8(torch.as_tensor(calib_u8).to(dev), cfg.data.mean,
+                         cfg.data.std)  # fp32, as the server calibrates
+    qtrees, calib_s = {}, {}
+    for mode in quant.CALIB_MODES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qtrees[mode] = detjax_torch.quantize_model(model, cfg, calib,
+                                                   calib_mode=mode)
+        torch.cuda.synchronize()
+        calib_s[mode] = time.perf_counter() - t0
+    qtree = qtrees["absmax"]
+    scales = {m: [float(v) for v in q["act_scales"].values()]
+              for m, q in qtrees.items()}
+    p999_below = all(p <= a * (1 + 1e-6)
+                     for p, a in zip(scales["p999"], scales["absmax"]))
+
+    canvases = seeded_canvases(1, b)
+    canvases_dev = torch.as_tensor(canvases).to(dev)
+    x = normalize_u8(canvases_dev, cfg.data.mean, cfg.data.std,
+                     model.compute_dtype)
+    sites = int8_conv_sites(qtree, cfg, x)
+    conv_rows, conv_ms_total, conv_bound_total = [], 0.0, 0.0
+    for key, site in sites.items():
+        xq, w, s = site["xq"], site["w"], key[2]
+        got = quant.conv_int8(xq, w, s)
+        want = quant.conv_int8_reference(xq, w, s)
+        equal = bool(torch.equal(got, want))
+        ms = device_ms(lambda: quant.conv_int8(xq, w, s), iters=5)
+        bound, by = int8_gemm_bound_ms(key)
+        conv_ms_total += ms * site["calls"]
+        conv_bound_total += bound * site["calls"]
+        conv_rows.append({"x": list(key[0]), "w": list(key[1]),
+                          "stride": s, "calls": site["calls"],
+                          "bit_equal": equal, "ms": ms, "bound_ms": bound,
+                          "bound_by": by})
+        if not equal:
+            emit({"phase": "int8", "conv_int8_mismatch": conv_rows[-1]})
+            raise SystemExit(f"conv_int8 differs from the fp64 reference "
+                             f"at x {key[0]}, w {key[1]}, stride {s}")
+    del sites
+
+    detjax_torch.detect_int8_u8(qtree, canvases_dev, cfg)  # warm-up
+    torch.cuda.synchronize()
+    pp.nms_launches = pp.nms_kernel_launches = 0
+    det = detjax_torch.detect_int8_u8(qtree, canvases_dev, cfg)
+    torch.cuda.synchronize()
+    launches, nms_kernels = pp.nms_launches, pp.nms_kernel_launches
+    traced = kernel_ms_by_name(
+        lambda: detjax_torch.detect_int8_u8(qtree, canvases_dev, cfg))
+    traced_nms = None if traced is None else traced[1].get("nms_kernel")
+    top = (None if traced is None else sorted(
+        traced[0].items(), key=lambda kv: -kv[1])[:10])
+
+    with torch.inference_mode():
+        with tf32_off():
+            f_cls, f_box = quant.forward_fp(model, cfg, x,
+                                            dtype=torch.float32)
+        m_cls, _ = model(x.permute(0, 3, 1, 2))
+        tracking = {}
+        for mode, q in qtrees.items():
+            q_cls, q_box = quant.forward_int8(q, cfg, x)
+            tracking[mode] = {
+                "logits_vs_fp32_traversal": corr_and_mean_abs(q_cls, f_cls),
+                "deltas_vs_fp32_traversal": corr_and_mean_abs(q_box, f_box),
+                "logits_vs_bf16_model": corr_and_mean_abs(q_cls, m_cls)}
+            del q_cls, q_box
+        fp_logit_std = float(f_cls.float().std())
+        del f_cls, f_box, m_cls
+    corr, mean_abs = tracking["absmax"]["logits_vs_fp32_traversal"]
+    small = int8_bars_at_detjax_test_shape()
+
+    def int8_call():
+        return detjax_torch.detect_int8_u8(qtree, canvases_dev, cfg)
+
+    def fp_call():
+        return detjax_torch.detect_u8(model, canvases_dev, cfg)
+    # a call launches hundreds of kernels: queued behind device_ms's spin,
+    # ten of them fill the launch queue and the host waits on the spin.
+    # So: CUDA events around back-to-back calls (the slower of host and
+    # device), and the device's busy ms a call from torch.profiler
+    calls = {"fp": fp_call, "int8": int8_call}
+    turns = [(c, cuda_ms(calls[c], iters=10))
+             for c in ("fp", "int8", "int8", "fp")]
+    events_ms = {c: float(np.mean([t for k, t in turns if k == c]))
+                 for c in calls}
+    busy = {}
+    for c, fn in calls.items():
+        traced_c = kernel_ms_by_name(fn)
+        busy[c] = None if traced_c is None else sum(traced_c[0].values())
+    wall = {}
+    for name in ("fp", "int8", "int8", "fp"):
+        fn = fp_call if name == "fp" else int8_call
+        [t.cpu() for t in fn()]
+        t0 = time.perf_counter()
+        for _ in range(10):
+            [t.cpu() for t in fn()]
+        wall.setdefault(name, []).append(
+            (time.perf_counter() - t0) / 10 * 1e3)
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in det)
+    row = {"phase": "int8", "preset": cfg.model.name, "batch": b,
+           "dtype": cfg.model.dtype, "calib_images": INT8_CALIB_IMAGES,
+           "calib_s": calib_s, "sites": len(qtree["act_scales"]),
+           "conv_weights": len(qtree["weights"]),
+           "p999_scales_below_absmax": p999_below,
+           "conv_int8_shapes": len(conv_rows),
+           "conv_int8_bit_equal": all(r["bit_equal"] for r in conv_rows),
+           "conv_int8_rows": conv_rows,
+           "int8_convs_device_ms": conv_ms_total,
+           "int8_convs_bound_ms": conv_bound_total,
+           "nms_launches": launches, "nms_cuda_kernels": nms_kernels,
+           "nms_launches_traced": traced_nms,
+           "top_kernels_ms": top,
+           "num_valid": det.num_valid.tolist(),
+           "tracking_corr_mean_abs": tracking,
+           "fp32_logit_std": fp_logit_std,
+           "bars": INT8_BARS,
+           "bars_at_detjax_test_shape": small,
+           "events_ms": events_ms, "events_ms_turns": turns,
+           "device_busy_ms": busy,
+           "int8_convs_share_of_int8_device_busy":
+               None if busy["int8"] is None else conv_ms_total / busy["int8"],
+           "wall_ms": {k: float(np.mean(v)) for k, v in wall.items()},
+           "wall_ms_turns": wall, "card": state["card"]}
+    emit(row)
+    if not (finite and p999_below):
+        raise SystemExit("the int8 engine returned non-finite output, or a "
+                         "p999 scale above its absmax scale")
+    if launches != 1 or nms_kernels != 1 or traced_nms not in (None, 1.0):
+        raise SystemExit(f"detect_int8_u8 made {launches} NMS calls "
+                         f"({nms_kernels} CUDA kernels, {traced_nms} traced)"
+                         f" a batch, expected 1")
+    # detjax's bars (tests/test_quant.py:94-110) hold at its test's shape;
+    # at full width the scale-free one, the correlation, is held for both
+    # calibration modes, and the mean |d| (whose 0.1 was set for logits
+    # near the prior bias) is printed beside the logits' spread
+    if not small["ok"]:
+        raise SystemExit(f"int8 logits off the fp traversal's at detjax's "
+                         f"test shape: {small}")
+    low = {m: t["logits_vs_fp32_traversal"][0] for m, t in tracking.items()
+           if t["logits_vs_fp32_traversal"][0] <= INT8_BARS["corr"]}
+    if low:
+        raise SystemExit(f"int8 logits decorrelated from the fp traversal's "
+                         f"at full width: {low} (bar {INT8_BARS['corr']})")
+    if int(det.num_valid.min()) == 0:
+        raise SystemExit("the int8 engine kept no detection")
+    report["nms_cuda"]["launches_int8"] = launches
+    state["int8"] = {"qtree": qtree, "calib_u8": calib_u8}
+
+
+ARTIFACT_LOADER = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import numpy as np
+import torch
+import detjax_torch.kernels.ops  # registers the custom ops
+from detjax_torch.export import load_detect
+from detjax_torch.kernels import bottleneck as kb
+from detjax_torch.kernels import postprocess as pp
+path, canvases_path, out_path = sys.argv[1:4]
+run = load_detect(path)
+load_s = time.perf_counter() - t0
+canvases = torch.from_numpy(np.load(canvases_path)).cuda()
+run(canvases)
+torch.cuda.synchronize()
+pp.nms_launches = pp.nms_kernel_launches = 0
+kb.bottleneck_launches = kb.bottleneck_kernel_launches = 0
+det = run(canvases)
+torch.cuda.synchronize()
+counts = {"nms_launches": pp.nms_launches,
+          "nms_cuda_kernels": pp.nms_kernel_launches,
+          "bottleneck_launches": kb.bottleneck_launches,
+          "bottleneck_cuda_kernels": kb.bottleneck_kernel_launches}
+t0 = time.perf_counter()
+for _ in range(10):
+    [t.cpu() for t in run(canvases)]
+ms = (time.perf_counter() - t0) / 10 * 1e3
+loaded = sorted(m for m in sys.modules
+                if m.startswith(("detjax_torch.models", "detjax_torch.quant",
+                                 "detjax_torch.modeling", "jax"))
+                or m == "detjax" or m.startswith("detjax."))
+torch.save(tuple(t.cpu() for t in det), out_path)
+print(json.dumps({"load_s": load_s, "ms_per_batch": ms, "loaded": loaded,
+                  "in_shape": list(run.in_shape), "in_dtype": str(run.in_dtype),
+                  **counts}))
+"""
+
+
+def within_detect_bars(got, want) -> dict:
+    """tests/test_torch_port_detect.py's bars: keep-sets (counts, labels,
+    order) equal, scores within 2e-5, boxes within 5e-3."""
+    keep = (torch.equal(got.num_valid, want.num_valid)
+            and torch.equal(got.labels, want.labels))
+    ds = float((got.scores - want.scores).abs().max())
+    db = float((got.boxes - want.boxes).abs().max())
+    return {"bit_equal": all(torch.equal(a, b) for a, b in zip(got, want)),
+            "keep_sets_equal": keep, "max_score_diff": ds,
+            "max_box_diff": db, "ok": keep and ds <= 2e-5 and db <= 5e-3}
+
+
+def phase_export(report: dict, state: dict) -> None:
+    """Detect programs at full width (R50-640, bs 8, uint8 input): the fp
+    engine "off" and "on" (same weights) and the int8 engine (phase_int8's
+    qtree), each exported, saved, and loaded and run in a fresh process
+    that imports detjax_torch.kernels.ops and no model module; each
+    program's detections against its live engine's; launches through the
+    program: 1 NMS a batch, and 10 fused-forward CUDA kernels with "on"."""
+    import tempfile
+
+    import detjax_torch
+
+    model, cfg = state["model"], state["cfg"]
+    b = cfg.eval.batch_size
+    qtree = state["int8"]["qtree"]
+    on_cfg = smoke_config(**{"model.fused_backbone": "on"})
+    on_model = detjax_torch.build_model(on_cfg, seed=0)
+    on_model.load_state_dict(model.state_dict())
+    canvases = seeded_canvases(1, b)
+    live = {"off": detjax_torch.detect_u8(model, canvases, cfg),
+            "on": detjax_torch.detect_u8(on_model, canvases, on_cfg),
+            "int8": detjax_torch.detect_int8_u8(qtree, canvases, cfg)}
+    live = {k: type(v)(*(t.cpu() for t in v)) for k, v in live.items()}
+    tmp = tempfile.TemporaryDirectory(prefix="detjax_export_")
+    root = Path(tmp.name)
+    np.save(root / "canvases.npy", canvases)
+    rows, fails = {}, []
+    for name, (m, c, q) in {"off": (model, cfg, None),
+                            "on": (on_model, on_cfg, None),
+                            "int8": (model, cfg, qtree)}.items():
+        path = root / f"detect_{name}.pt2"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prog = detjax_torch.export_detect(m, c, batch_size=b,
+                                          input_format="u8", qtree=q)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        torch.export.save(prog, str(path))
+        save_s = time.perf_counter() - t0
+        nodes = [str(n.target) for n in prog.graph.nodes
+                 if n.op == "call_function"]
+        del prog
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", ARTIFACT_LOADER, str(path),
+             str(root / "canvases.npy"), str(root / f"det_{name}.pt")],
+            capture_output=True, text=True, timeout=600,
+            cwd=str(Path(__file__).resolve().parent))
+        sub_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            emit({"phase": "export", "program": name,
+                  "loader_stderr": proc.stderr[-3000:]})
+            raise SystemExit(f"the {name} program did not load and run in "
+                             f"a fresh process")
+        sub = json.loads(proc.stdout.strip().splitlines()[-1])
+        from detjax_torch.ops.nms import Detections
+
+        got = Detections(*torch.load(root / f"det_{name}.pt"))
+        cmp = within_detect_bars(got, live[name])
+        want_fused = 5 if name == "on" else 0
+        rows[name] = {"export_s": export_s, "save_s": save_s,
+                      "subprocess_s": sub_s,
+                      "file_mb": path.stat().st_size / 1e6,
+                      "graph_nodes": len(nodes),
+                      "nms_ops_in_graph": nodes.count(
+                          "detjax_torch.nms.default"),
+                      "bottleneck_ops_in_graph": nodes.count(
+                          "detjax_torch.bottleneck_identity.default"),
+                      **sub, **cmp}
+        if not cmp["ok"]:
+            fails.append(f"{name}: detections off the live engine's {cmp}")
+        if sub["loaded"]:
+            fails.append(f"{name}: the loader imported {sub['loaded']}")
+        if (sub["nms_launches"], sub["nms_cuda_kernels"]) != (1, 1):
+            fails.append(f"{name}: {sub['nms_launches']} NMS launches a "
+                         f"batch through the program")
+        if (sub["bottleneck_launches"] != want_fused
+                or sub["bottleneck_cuda_kernels"] != 2 * want_fused):
+            fails.append(f"{name}: {sub['bottleneck_launches']} fused calls "
+                         f"({sub['bottleneck_cuda_kernels']} CUDA kernels) a "
+                         f"batch through the program, expected {want_fused}")
+    state["artifact"] = {"tmp": tmp, "off": str(root / "detect_off.pt2")}
+    emit({"phase": "export", "batch": b, "input_format": "u8",
+          "programs": rows, "tolerance": "keep-sets equal, scores 2e-5, "
+          "boxes 5e-3 (tests/test_torch_port_detect.py)",
+          "card": state["card"]})
+    if fails:
+        raise SystemExit("; ".join(fails))
+    report["nms_cuda"]["launches_artifact"] = {
+        k: r["nms_launches"] for k, r in rows.items()}
+    report["bottleneck_identity_cuda"]["launches_artifact_on"] = rows["on"][
+        "bottleneck_launches"]
+
+
+def http_answers(srv, canvases) -> tuple:
+    """POST each canvas (PNG) concurrently to a running ``srv``; the
+    answers, the NMS launches meanwhile, the wall seconds."""
+    import io
+    import urllib.request
+
+    from PIL import Image
+
+    from detjax_torch.kernels import postprocess as pp
+
+    ready = threading.Event()
+    th = threading.Thread(target=srv.serve, args=("127.0.0.1", 0, ready),
+                          daemon=True)
+    th.start()
+    outs = [None] * len(canvases)
+    try:
+        if not ready.wait(300):
+            raise SystemExit("the server did not come up")
+        base = f"http://127.0.0.1:{srv.port}"
+        bodies = []
+        for c in canvases:
+            buf = io.BytesIO()
+            Image.fromarray(c).save(buf, format="PNG")
+            bodies.append(buf.getvalue())
+
+        def hit(i):
+            req = urllib.request.Request(f"{base}/detect", data=bodies[i])
+            with urllib.request.urlopen(req, timeout=120) as r:
+                outs[i] = json.loads(r.read())["detections"]
+        pp.nms_launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=hit, args=(i,))
+                   for i in range(len(canvases))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall_s = time.perf_counter() - t0
+        batches = pp.nms_launches
+    finally:
+        srv.shutdown()
+        th.join(timeout=30)
+    if th.is_alive():
+        raise SystemExit("the server thread did not stop")
+    return outs, batches, wall_s
+
+
+def answers_mismatch(outs, direct) -> int:
+    """Answers that differ from ``direct`` (per canvas: boxes, scores,
+    labels, num_valid) beyond the JSON's rounding."""
+    bad = 0
+    for got, (boxes, scores, labels, nv) in zip(outs, direct):
+        bad += got is None or not (
+            [d["label"] for d in got] == labels[:nv].tolist()
+            and np.allclose([d["score"] for d in got], np.round(scores[:nv], 4),
+                            rtol=0, atol=1.01e-4)
+            and np.allclose(np.reshape([d["box"] for d in got], (-1, 4)),
+                            np.clip(boxes[:nv], 0, 640), rtol=0, atol=1.1e-2))
+    return bad
+
+
+def op_host_us(op_call, direct_call, iters: int = 200) -> dict:
+    """Host microseconds a call through the custom op and through the
+    wrapper it calls, in turns (op, direct, direct, op), each the mean of
+    ``iters`` calls with one synchronize at the end."""
+    turns = []
+    for name in ("op", "direct", "direct", "op"):
+        fn = op_call if name == "op" else direct_call
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        turns.append((name, (time.perf_counter() - t0) / iters * 1e6))
+    us = {n: float(np.mean([t for k, t in turns if k == n]))
+          for n in ("op", "direct")}
+    return {"us": us, "added_us": us["op"] - us["direct"], "turns": turns}
+
+
+def phase_serve_engines(state: dict) -> None:
+    """The HTTP DetectionServer with engine="int8" (calibrated on
+    phase_int8's canvases) and engine=<phase_export's "off" program>,
+    2 x batch requests each, every answer equal to a direct call of the
+    same engine; then the host time the custom ops add a call against a
+    direct wrapper call, in turns."""
+    import detjax_torch
+    from detjax_torch.export import load_detect
+    from detjax_torch.kernels import bottleneck as kb
+    from detjax_torch.kernels import ops as kops
+    from detjax_torch.kernels import postprocess as pp
+    from detjax_torch.serve import DetectionServer
+
+    model, cfg = state["model"], state["cfg"]
+    b = cfg.eval.batch_size
+    n_req = 2 * b
+    canvases = seeded_canvases(5, n_req)
+    qtree = state["int8"]["qtree"]
+    program = load_detect(state["artifact"]["off"])
+    direct_fns = {"int8": lambda x: detjax_torch.detect_int8_u8(qtree, x,
+                                                                cfg),
+                  "program": program}
+    rows, fails = {}, []
+    for name, engine in (("int8", "int8"),
+                         ("program", state["artifact"]["off"])):
+        direct = []
+        for lo in range(0, n_req, b):
+            d = [t.cpu().numpy() for t in direct_fns[name](
+                canvases[lo:lo + b])]
+            direct += [(d[0][i], d[1][i], d[2][i], int(d[3][i]))
+                       for i in range(b)]
+        t0 = time.perf_counter()
+        srv = DetectionServer(model, cfg, engine=engine, batch_size=b,
+                              max_wait_ms=200.0, score_threshold=0.0,
+                              calibration=state["int8"]["calib_u8"])
+        start_s = time.perf_counter() - t0
+        outs, batches, wall_s = http_answers(srv, canvases)
+        bad = answers_mismatch(outs, direct)
+        rows[name] = {"requests": n_req, "device_batches": batches,
+                      "start_s": start_s, "wall_s": wall_s,
+                      "mismatches": bad,
+                      "detections": sum(d[3] for d in direct)}
+        if bad or batches >= n_req or batches == 0:
+            fails.append(f"{name}: {bad} answers differ from a direct call, "
+                         f"{batches} device batches for {n_req} requests")
+
+    # the custom ops' host time a call against the wrapper they call
+    boxes, scores, labels = (torch.from_numpy(t).cuda()
+                             for t in hard_candidates(7))
+    nms_args = (boxes, scores, labels, 0.5, 100, 642.0)
+    nms_us = op_host_us(lambda: kops.nms(*nms_args),
+                        lambda: pp.nms_cuda(*nms_args))
+    x, block = kb.seeded_block(0, b, 160, 160, 64, torch.device("cuda"))
+    wts = block.folded_weights()
+    with torch.inference_mode():
+        bott_us = op_host_us(lambda: kops.bottleneck_identity(x, *wts),
+                             lambda: kb.bottleneck_identity(x, *wts),
+                             iters=50)
+    emit({"phase": "serve_engines", "engines": rows,
+          "tolerance": "scores 1e-4 and boxes 1e-2 (JSON rounding)",
+          "custom_op_host_us": {"nms": nms_us, "bottleneck_identity":
+                                bott_us},
+          "card": state["card"]})
+    state.pop("artifact")["tmp"].cleanup()
+    if fails:
+        raise SystemExit("; ".join(fails))
+
+
 def train_batch(cfg, seed: int) -> dict:
     """One uint8 training batch: seeded synthetic scenes at the canvas
     size with 1-20 objects each, letterboxed and padded to max_gt."""
@@ -4030,6 +4570,10 @@ def main() -> int:
     phase_eval_branch(report, state)
     phase_main_fused(report, state)
     phase_serve(state)
+    phase_int8(report, state)
+    phase_export(report, state)
+    phase_serve_engines(state)
+    state.pop("int8")
     phase_train(report, state)
     phase_train_fused(report, state)
     phase_data(state)

@@ -12,7 +12,13 @@ iterator, prefetch to the device) and its evaluation (``evaluate``: COCO
 and VOC metrics over a dataset, also at each image's protocol canvas,
 ``detjax_torch.evaluation``), at the full width of every
 RetinaNet preset, and serving and training with
-``model.fused_backbone="on"``. detjax's Pallas kernels on those paths are
+``model.fused_backbone="on"``, and its other two serving engines: the
+int8 PTQ engine (``quantize_model`` -> ``detect_int8`` /
+``detect_int8_u8``, ``detjax_torch.quant``) and saved detect programs
+(``export_detect``; ``detjax_torch.export.save_detect`` /
+``load_detect``), each behind the server too; and the CLIs
+(``python -m detjax_torch.cli.{train,export,serve,detect,evaluate}``).
+detjax's Pallas kernels on those paths are
 replaced by CUDA kernels written by hand for ``sm_90a``: NMS
 (``detjax_torch/csrc/nms.cu``), anchor matching
 (``detjax_torch/csrc/matching.cu``), the fused identity bottleneck's
@@ -55,6 +61,9 @@ Ground rules:
     >>> state, metrics = detjax_torch.train_step(state, batch)
     >>> result = detjax_torch.fit(cfg, make_train_iterator(ds, cfg), 1000)
     >>> result = detjax_torch.evaluate(model, dataset, cfg)
+    >>> qtree = detjax_torch.quantize_model(model, cfg, calib_images)
+    >>> dets = detjax_torch.detect_int8_u8(qtree, canvases_u8, cfg)
+    >>> program = detjax_torch.export_detect(model, cfg, 8, input_format="u8")
 """
 
 from detjax_torch.config import (
@@ -69,9 +78,13 @@ from detjax_torch.config import (
 from detjax_torch.api import (
     build_model,
     detect,
+    detect_int8,
+    detect_int8_u8,
     detect_u8,
+    export_detect,
     fit,
     make_train_state,
+    quantize_model,
     train_step,
 )
 
@@ -109,5 +122,9 @@ __all__ = [
     "train_step",
     "fit",
     "evaluate",
+    "export_detect",
     "serve",
+    "quantize_model",
+    "detect_int8",
+    "detect_int8_u8",
 ]

@@ -1,5 +1,5 @@
-"""Public API of the port: model build, train step, the training loop and
-detect (``detjax/api.py``)."""
+"""Public API of the port: model build, train step, the training loop,
+detect, the int8 engine and the detect export (``detjax/api.py``)."""
 
 from __future__ import annotations
 
@@ -57,3 +57,43 @@ def fit(cfg, train_batches, num_steps, **kwargs):
     from detjax_torch.train.loop import fit as _impl
 
     return _impl(cfg, train_batches, num_steps, **kwargs)
+
+
+def quantize_model(model, cfg, calib_images, calib_mode: str = "absmax",
+                   device=None):
+    """Calibrate and PTQ-quantize ``model`` on normalized ``calib_images``
+    -> the int8 engine's qtree, on the model's device unless ``device``
+    names another. See :func:`detjax_torch.quant.quantize_model`."""
+    from detjax_torch.quant import quantize_model as _impl
+
+    return _impl(model, cfg, calib_images, calib_mode, device=device)
+
+
+def detect_int8(qtree, images, cfg):
+    """Int8 inference over normalized NHWC images -> Detections. See
+    :func:`detjax_torch.quant.detect_int8`."""
+    from detjax_torch.quant import detect_int8 as _impl
+
+    return _impl(qtree, images, cfg)
+
+
+def detect_int8_u8(qtree, canvases_u8, cfg):
+    """The int8 engine over raw uint8 canvases (normalization first, on
+    the qtree's device). See :func:`detjax_torch.quant.detect_int8_u8`."""
+    from detjax_torch.quant import detect_int8_u8 as _impl
+
+    return _impl(qtree, canvases_u8, cfg)
+
+
+def export_detect(model, cfg="retinanet_r50_640", batch_size: int = 1,
+                  platforms=None, calibration=None,
+                  input_format: str = "fp32", calib_mode: str = "absmax",
+                  qtree=None, **overrides):
+    """The detect step with its weights baked in, as a
+    ``torch.export.ExportedProgram`` (the int8 engine's with
+    ``calibration`` or an already quantized ``qtree``). See
+    :func:`detjax_torch.export.export_detect`."""
+    from detjax_torch.export import export_detect as _impl
+
+    return _impl(model, cfg, batch_size, platforms, calibration,
+                 input_format, calib_mode, qtree=qtree, **overrides)

@@ -16,7 +16,7 @@ Any config field is overridable: --set train.learning_rate=1e-4
 
 Runs on ``--device`` (default ``cuda``; without a GPU it stops unless
 given ``--device cpu``). ``--dp`` and ``--spatial`` wait for the parallel
-slice of the port (ROADMAP Queue 1 #7). detjax's ``--compile-cache`` has
+slice of the port (ROADMAP Queue 1 #5, Parallel). detjax's ``--compile-cache`` has
 no counterpart: it points XLA's persistent compilation cache at a
 directory, and this package compiles no XLA programs (its CUDA kernels
 build once per checkout, into ``detjax_torch/_build``).
@@ -102,7 +102,7 @@ def main(argv=None):
         raise NotImplementedError(
             "--dp / --spatial are not ported yet; data-parallel and spatial "
             "training come with the parallel slice of the port (ROADMAP "
-            "Queue 1 #7)")
+            "Queue 1 #5, Parallel)")
 
     import torch
 

@@ -115,7 +115,7 @@ def iter_detections(model, dataset, cfg: Config,
     if mesh is not None:
         raise NotImplementedError(
             "mesh= evaluation is not ported yet; sharded eval comes with "
-            "the parallel slice of the port (ROADMAP Queue 1 #7)")
+            "the parallel slice of the port (ROADMAP Queue 1 #5, Parallel)")
     dev = _model_device(model, cfg)
 
     def dispatch(images):

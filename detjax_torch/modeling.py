@@ -94,28 +94,45 @@ def eval_mode(model: torch.nn.Module):
         model.train(was_training)
 
 
+def postprocess_logits(cls_logits: torch.Tensor, box_deltas: torch.Tensor,
+                       anchors: torch.Tensor, cfg: Config,
+                       nms_backend: str = "auto") -> Detections:
+    """The detect path after the forward: fp32 box deltas (bf16 would
+    quantize decoded coords to ~2 px at 640), class scores kept as raw
+    logits for logit-domain selection, then the fused postprocess."""
+    e = cfg.eval
+    return fused_detect_postprocess(
+        box_deltas.to(torch.float32), anchors, cls_logits,
+        box_std=cfg.model.box_std,
+        image_size=cfg.model.image_size,
+        score_threshold=e.score_threshold,
+        iou_threshold=e.nms_iou_threshold,
+        num_candidates=e.pre_nms_top_k,
+        max_detections=e.max_detections,
+        exact=e.exact_candidates,
+        backend=nms_backend,
+        scores_are_logits=True,
+        topk=e.topk_mode)
+
+
+def detect_graph(model: Detector, images_nhwc: torch.Tensor, cfg: Config,
+                 anchors: torch.Tensor, nms_backend: str = "auto"
+                 ) -> Detections:
+    """Forward + postprocess on normalized NHWC images, with no mode or
+    grad context of its own: :func:`detect` runs it in inference and eval
+    mode, and :mod:`detjax_torch.export` traces it."""
+    cls_logits, box_deltas = model(images_nhwc.permute(0, 3, 1, 2))
+    return postprocess_logits(cls_logits, box_deltas, anchors, cfg,
+                              nms_backend)
+
+
 def _run(model: Detector, images_nhwc: torch.Tensor, cfg: Config,
          nms_backend: str) -> Detections:
-    e = cfg.eval
     with torch.inference_mode(), eval_mode(model):
-        cls_logits, box_deltas = model(images_nhwc.permute(0, 3, 1, 2))
-        # fp32 box deltas (bf16 would quantize decoded coords to ~2 px at
-        # 640); class scores stay raw logits for logit-domain selection
-        return fused_detect_postprocess(
-            box_deltas.to(torch.float32),
+        return detect_graph(
+            model, images_nhwc, cfg,
             _anchors(cfg.model.image_size, anchor_config(cfg),
-                     images_nhwc.device),
-            cls_logits,
-            box_std=cfg.model.box_std,
-            image_size=cfg.model.image_size,
-            score_threshold=e.score_threshold,
-            iou_threshold=e.nms_iou_threshold,
-            num_candidates=e.pre_nms_top_k,
-            max_detections=e.max_detections,
-            exact=e.exact_candidates,
-            backend=nms_backend,
-            scores_are_logits=True,
-            topk=e.topk_mode)
+                     images_nhwc.device), nms_backend)
 
 
 def detect(model: Detector, images, preset="retinanet_r50_640",

@@ -39,6 +39,7 @@ exists for tests and ``chip_smoke.py`` to compare whole paths.
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Tuple
 
 import torch
@@ -126,9 +127,12 @@ class Detector(ResNet):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """images [B, 3, H, W] normalized -> (cls_logits [B, sum A, K],
         box_deltas [B, sum A, 4]) in the compute dtype."""
-        bf16 = self.compute_dtype == torch.bfloat16
-        with torch.autocast(device_type=images.device.type,
-                            dtype=torch.bfloat16, enabled=bf16):
+        # no autocast region at all in fp32: a traced program then has none
+        region = (torch.autocast(device_type=images.device.type,
+                                 dtype=torch.bfloat16)
+                  if self.compute_dtype == torch.bfloat16
+                  else contextlib.nullcontext())
+        with region:
             feats = super().forward(images.to(self.compute_dtype))
             pyramid = self.fpn(feats)
             return head_outputs(self.classificationModel,

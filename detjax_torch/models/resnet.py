@@ -29,6 +29,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from detjax_torch.kernels import ops as kernel_ops
 from detjax_torch.kernels.bottleneck import (
     bottleneck_identity,
     bottleneck_identity_reference,
@@ -273,6 +274,10 @@ class Bottleneck(nn.Module):
                     for t in fold_frozen_bn(conv.weight, bn)]
         if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
             return fold()
+        if torch.compiler.is_compiling():
+            # a traced program (torch.export) takes the fold made before
+            # the trace as constants; a fake tensor has no storage to key
+            return self._folded[1] if self._folded is not None else fold()
         key = [(t.data_ptr(), t._version) for t in tensors]
         if self._folded is None or self._folded[0] != key:
             # plain tensors even under inference_mode, so that the cached
@@ -284,11 +289,21 @@ class Bottleneck(nn.Module):
     def fused_forward(self, x: torch.Tensor) -> torch.Tensor:
         """The block through the fused kernel: x [B, C, H, W] (any dtype;
         rounded to bf16) -> bf16. For a ``channels_last`` x the NHWC view
-        and the result's NCHW view are both free of copies."""
+        and the result's NCHW view are both free of copies. Where autograd
+        records, through ``bottleneck_identity``'s autograd function (the
+        backward kernel); otherwise through the custom op
+        ``detjax_torch::bottleneck_identity``, the route an exported
+        program takes too."""
         xh = x.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
-        fn = (bottleneck_identity_reference if self.fused_backend == "torch"
-              else bottleneck_identity)
-        return fn(xh, *self.folded_weights()).permute(0, 3, 1, 2)
+        wts = self.folded_weights()
+        if self.fused_backend == "torch":
+            y = bottleneck_identity_reference(xh, *wts)
+        elif torch.is_grad_enabled() and any(
+                t.requires_grad for t in (xh, *wts)):
+            y = bottleneck_identity(xh, *wts)
+        else:
+            y = kernel_ops.bottleneck_identity(xh, *wts)
+        return y.permute(0, 3, 1, 2)
 
 
 class ResNet(nn.Module):

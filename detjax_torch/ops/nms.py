@@ -313,7 +313,8 @@ def fused_detect_postprocess(
     """Candidate selection -> decode/clip -> one class-offset greedy NMS.
 
     ``backend="auto"`` is "cuda" for a CUDA tensor (the hand-written NMS
-    kernel, ``detjax_torch.kernels.postprocess.nms_cuda``) and "torch" for
+    kernel, ``detjax_torch.kernels.postprocess.nms_cuda``, called through
+    the custom op ``detjax_torch::nms``) and "torch" for
     a CPU tensor (the plain twin :func:`_greedy_suppress`). "torch" on a
     CUDA tensor runs the twin on the card, the comparison route.
 
@@ -330,12 +331,13 @@ def fused_detect_postprocess(
 
     offset = float(max(image_size) + 2)
     if backend == "cuda":
-        from detjax_torch.kernels.postprocess import nms_cuda
+        # through the custom op, so that an exported program takes the
+        # same route (detjax_torch/kernels/ops.py)
+        from detjax_torch.kernels import ops
 
-        keep_idx, keep_scores = nms_cuda(
+        keep_idx, keep_scores = ops.nms(
             cand_boxes, cand_scores, cand_label.to(torch.int32),
-            iou_threshold=iou_threshold, max_det=max_detections,
-            class_offset=offset)
+            float(iou_threshold), int(max_detections), offset)
     else:
         off_boxes = cand_boxes + (
             cand_label.to(torch.float32) * offset)[..., None]

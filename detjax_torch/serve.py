@@ -8,11 +8,13 @@ batch N. The fp engine's ``dispatch`` enqueues ``detect_u8`` on the
 current CUDA stream and returns device tensors; ``finalize`` copies them to
 the host, which waits for the device.
 
-Not ported yet, each raising ``NotImplementedError``: the int8 engine (the
-quantization slice), serialized detect artifacts (the export slice) and
-multi-device serving over a mesh (the parallel slice). Request bodies are
-decoded with the in-repo libjpeg binding (``detjax_torch.native``), then
-PIL, as detjax decodes them.
+Three engines behind one callable interface, as in detjax: the live fp
+path (``detect_u8``), the int8 PTQ engine (``quant.detect_int8_u8``,
+calibrated when the server starts) and a saved detect program
+(``export.load_detect``). Not ported yet: multi-device serving over a mesh
+(the parallel slice), which raises ``NotImplementedError``. Request bodies
+are decoded with the in-repo libjpeg binding (``detjax_torch.native``),
+then PIL, as detjax decodes them.
 
 HTTP API (stdlib ThreadingHTTPServer; no extra deps):
     POST /detect   body = JPEG/PNG bytes -> {"detections": [{box, score,
@@ -198,32 +200,81 @@ class MicroBatcher:
             self._finish(pending)
 
 
-def _build_engine(model, cfg, engine: str, batch_size: int, mesh=None):
+def _build_engine(model, cfg, engine: str, batch_size: int,
+                  calibration: Optional[np.ndarray] = None, mesh=None,
+                  calib_mode: str = "absmax"):
     """One detect engine at ``cfg.model.image_size``.
 
     Returns ``(dispatch, finalize, run_batch)``, the MicroBatcher trio.
-    ``engine``: "fp" (the live model). "int8" and artifact paths, and
-    ``mesh``, come with later slices of the port.
+    ``engine``: "fp" (the live model), "int8" (the PTQ engine,
+    :mod:`detjax_torch.quant`, calibrated on ``calibration``: uint8
+    canvases of the served shape, REQUIRED), or the path of a saved detect
+    program (:func:`detjax_torch.export.save_detect`, exported for input
+    ``(batch_size, H, W, 3)``). ``mesh`` comes with a later slice.
     """
+    import torch
+
+    from detjax_torch.data.pipeline import normalize_u8
     from detjax_torch.modeling import detect_u8
 
     if mesh is not None:
         raise NotImplementedError(
             "mesh= serving is not ported yet; multi-device serving comes "
             "with the parallel slice of the port")
-    if engine == "int8":
-        raise NotImplementedError(
-            "engine='int8' is not ported yet; it comes with the "
-            "quantization slice of the port")
-    if engine != "fp":
-        raise NotImplementedError(
-            f"engine={engine!r}: serialized detect artifacts are not ported "
-            "yet; they come with the export slice of the port")
+    h, w = cfg.model.image_size
+    dev = next(model.parameters()).device
+
+    def _normalize(canvases_u8, device):  # artifact engine + calibration
+        return normalize_u8(torch.as_tensor(canvases_u8).to(device),
+                            cfg.data.mean, cfg.data.std)
+
+    if engine == "fp":
+        def run(canvases_u8):
+            return detect_u8(model, canvases_u8, cfg)
+    elif engine == "int8":
+        from detjax_torch import quant
+
+        # PTQ activation scales are frozen at calibration time; scales
+        # taken from whatever request arrives first (mostly zero-padded
+        # slots) would clip later activations for the server's lifetime,
+        # so calibration is required, as in detjax
+        if calibration is None:
+            raise ValueError(
+                "engine='int8' requires calibration images "
+                "(--int8-calibrate): PTQ activation ranges frozen from "
+                "an arbitrary first request batch are unrepresentative "
+                "and non-reproducible")
+        calibration = np.asarray(calibration, np.uint8)
+        if calibration.shape[1:] != (h, w, 3):
+            raise ValueError(
+                f"calibration must be [N, {h}, {w}, 3] uint8 "
+                f"canvases, got {calibration.shape}")
+        qtree = quant.quantize_model(model, cfg, _normalize(calibration, dev),
+                                     calib_mode=calib_mode)
+
+        def run(canvases_u8):
+            return quant.detect_int8_u8(qtree, canvases_u8, cfg)
+    else:  # the path of a saved detect program
+        from detjax_torch.export import load_detect
+
+        artifact = load_detect(engine)
+        want = (batch_size, h, w, 3)
+        if artifact.in_shape != want:
+            raise ValueError(
+                f"artifact {engine!r} was exported for input shape "
+                f"{artifact.in_shape}, but this server feeds {want} "
+                f"(--batch-size / preset image_size must match the "
+                f"export)")
+        if artifact.in_dtype == torch.uint8:
+            run = artifact  # normalization inside the program
+        else:
+            def run(canvases_u8):
+                return artifact(_normalize(canvases_u8, artifact.device))
 
     def dispatch_batch(canvases_u8: np.ndarray):
         # enqueues the device work and returns device tensors: the NEXT
         # batch's H2D and normalize are issued while this one computes
-        return detect_u8(model, canvases_u8, cfg)
+        return run(canvases_u8)
 
     def finalize_batch(det, n: int):
         boxes = det.boxes.cpu().numpy()  # waits for the device
@@ -240,37 +291,73 @@ def _build_engine(model, cfg, engine: str, batch_size: int, mesh=None):
     return dispatch_batch, finalize_batch, run_batch
 
 
+def _resize_canvases_u8(canvases: np.ndarray, size_hw) -> np.ndarray:
+    """Bilinear-resize a [N, H, W, 3] uint8 canvas stack on the host (the
+    PTQ calibration canvases of each serving bucket)."""
+    from PIL import Image
+
+    th, tw = size_hw
+    out = np.empty((canvases.shape[0], th, tw, 3), np.uint8)
+    for i, c in enumerate(canvases):
+        out[i] = np.asarray(
+            Image.fromarray(c).resize((tw, th), Image.BILINEAR))
+    return out
+
+
 class DetectionServer:
-    """HTTP detection service over the port's detect engine.
+    """HTTP detection service over one of the port's detect engines.
 
     ``model``: a :class:`detjax_torch.models.detector.Detector` on its
     device (``detjax_torch.build_model``); ``cfg``: the config it serves.
+    ``engine``: "fp" (the live model), "int8" (PTQ; ``calibration``
+    canvases, uint8 [N, H, W, 3], are REQUIRED; ``int8_calib_mode`` picks
+    the range estimator), or the path of a saved detect program
+    (:func:`detjax_torch.export.save_detect`, exported at ``batch_size``).
 
     ``buckets``: optional square canvas sizes (e.g. ``(320, 640)``): one
     engine per canvas, each image routed to the smallest canvas that holds
     it unscaled (larger images letterbox down onto the largest bucket).
+    fp and int8 engines only (a program has one input shape); int8
+    recalibrates each bucket from the calibration canvases, resized on the
+    host.
     """
 
     def __init__(self, model, cfg, engine: str = "fp",
                  batch_size: int = 8, max_wait_ms: float = 2.0,
                  score_threshold: float = 0.3,
+                 calibration: Optional[np.ndarray] = None,
                  class_names: Optional[Sequence[str]] = None,
                  max_queue_batches: int = 8, overlap: bool = True,
-                 buckets: Optional[Sequence[int]] = None, mesh=None):
+                 buckets: Optional[Sequence[int]] = None, mesh=None,
+                 int8_calib_mode: str = "absmax"):
         self.cfg = cfg
         self.score_threshold = float(score_threshold)
         self.class_names = class_names
         self.engine = engine
         self._httpd = None
 
-        sizes = sorted({int(s) for s in buckets}) if buckets else [None]
+        if buckets:
+            if engine not in ("fp", "int8"):
+                raise ValueError(
+                    "buckets= requires the fp or int8 engine: a saved "
+                    "detect program has one input shape")
+            sizes = sorted({int(s) for s in buckets})
+        else:
+            sizes = [None]  # one bucket at cfg.model.image_size
         self._buckets = []  # [(canvas_hw, MicroBatcher)], ascending size
         self._runs = []  # per-bucket run_batch, for warmup()
         for s in sizes:
             cfg_b = cfg if s is None else dataclasses.replace(
                 cfg, model=dataclasses.replace(cfg.model, image_size=(s, s)))
+            cal_b = calibration
+            if s is not None and calibration is not None and \
+                    np.asarray(calibration).shape[1:3] != \
+                    cfg_b.model.image_size:
+                cal_b = _resize_canvases_u8(
+                    np.asarray(calibration, np.uint8), cfg_b.model.image_size)
             dispatch, finalize, run_batch = _build_engine(
-                model, cfg_b, engine, batch_size, mesh=mesh)
+                model, cfg_b, engine, batch_size, cal_b, mesh=mesh,
+                calib_mode=int8_calib_mode)
             batcher = MicroBatcher(
                 run_batch, batch_size, cfg_b.model.image_size, max_wait_ms,
                 max_queue_batches=max_queue_batches,

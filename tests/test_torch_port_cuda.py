@@ -1148,3 +1148,52 @@ def test_device_prefetch_round_trip(cuda):
         assert got["image_id"] is src["image_id"]
         np.testing.assert_array_equal(got["images"].cpu().numpy(),
                                       src["images"])
+
+
+def test_custom_ops_equal_direct_wrapper_calls(cuda):
+    """``detjax_torch::nms`` and ``detjax_torch::bottleneck_identity`` on
+    the card equal a direct call of the wrapper they call, bit for bit,
+    and each launches once through it (the launchers' counters)."""
+    from detjax_torch.kernels import bottleneck as kb
+    from detjax_torch.kernels import ops
+
+    boxes, scores, labels = (torch.from_numpy(a).to(cuda)
+                             for a in _case(5, 8, 1000))
+    want = pp.nms_cuda(boxes, scores, labels, 0.5, 100, 642.0)
+    before = pp.nms_launches
+    got = ops.nms(boxes, scores, labels, 0.5, 100, 642.0)
+    assert pp.nms_launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    x, block = kb.seeded_block(3, 2, 24, 40, 64, cuda)
+    wts = block.folded_weights()
+    with torch.inference_mode():
+        want = kb.bottleneck_identity(x, *wts)
+        before = kb.bottleneck_launches
+        got = ops.bottleneck_identity(x, *wts)
+    assert kb.bottleneck_launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,h,w,c,k,stride,n", [
+    (8, 160, 160, 64, 3, 1, 64),  # layer1 conv2 at R50-640, bs 8
+    (8, 80, 80, 256, 3, 1, 36),  # box_out at P3: N = 36
+    (8, 80, 80, 256, 3, 1, 720),  # cls_out at P3, 80 classes
+    (8, 20, 20, 1024, 1, 2, 2048),  # layer4's projection
+    (1, 5, 5, 256, 3, 1, 108),  # P7 at bs 1: M = 25; N = 108
+    (1, 2, 2, 64, 3, 2, 64),  # M = 1 < 17: padded rows
+])
+def test_conv_int8_bit_equal_to_fp64_on_card(cuda, b, h, w, c, k, stride, n):
+    """``conv_int8`` (``torch._int_mm``, cuBLASLt) equals an fp64 conv of
+    the integer values exactly, at the main path's shapes and at the
+    padded edges (M < 17, N not a multiple of 8)."""
+    from detjax_torch.quant import conv_int8, conv_int8_reference
+
+    gen = torch.Generator(device="cpu").manual_seed(b * h + n)
+    xq = torch.randint(-127, 128, (b, h, w, c), generator=gen,
+                       dtype=torch.int8).to(cuda)
+    wq = torch.randint(-127, 128, (k, k, c, n), generator=gen,
+                       dtype=torch.int8).to(cuda)
+    got = conv_int8(xq, wq, stride)
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got, conv_int8_reference(xq, wq, stride))

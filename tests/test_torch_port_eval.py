@@ -299,7 +299,7 @@ def test_detect_fn_overrides_and_max_images_caps(carried):
 
 def test_mesh_is_not_ported(carried):
     _, tcfg, _, model, (t_ds, _), _ = carried
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
         detjax_torch.evaluate(model, t_ds, tcfg, mesh=object())
 
 

@@ -392,7 +392,7 @@ def test_fit_needs_a_gpu_unless_asked_for_the_cpu(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tloop.fit(tcfg, [], 1)
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
         tloop.fit(tcfg, [], 1, mesh=object(), device="cpu")
     _, guard = _cfgs(**{"train.leak_guard_every": 100})
     with pytest.raises(NotImplementedError, match="leak"):
@@ -620,5 +620,5 @@ def test_cli_train_synthetic_on_the_cpu(tmp_path):
     assert res.state.step == 2
     assert os.listdir(tmp_path / "ck") == ["2"]
     assert (tmp_path / "log" / "metrics.jsonl").exists()
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
         cli_train.main(args + ["--dp"])

@@ -206,13 +206,110 @@ def test_buckets_route_by_image_size(model):
 
 
 @pytest.mark.parametrize("kw,slice_name", [
-    ({"engine": "int8"}, "quantization"),
-    ({"engine": "/tmp/detect.stablehlo"}, "export"),
-    ({"mesh": object()}, "parallel"),
+    pytest.param({"mesh": object()}, "parallel", id="kw2-parallel"),
 ])
 def test_unported_engines_name_their_slice(model, kw, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         DetectionServer(model, _cfg(), **kw)
+
+
+def _http_answers(srv, canvases):
+    """POST each canvas as a PNG to a running ``srv``, concurrently; the
+    ``detections`` of each answer."""
+    ready = threading.Event()
+    th = threading.Thread(target=srv.serve, args=("127.0.0.1", 0, ready),
+                          daemon=True)
+    th.start()
+    outs = [None] * len(canvases)
+    try:
+        assert ready.wait(120)
+        base = f"http://127.0.0.1:{srv.port}"
+        with urllib.request.urlopen(f"{base}/healthz", timeout=30) as r:
+            assert json.loads(r.read())["engine"] == srv.engine
+
+        def hit(i):
+            req = urllib.request.Request(f"{base}/detect",
+                                         data=_png(canvases[i]))
+            with urllib.request.urlopen(req, timeout=120) as r:
+                outs[i] = json.loads(r.read())["detections"]
+        threads = [threading.Thread(target=hit, args=(i,))
+                   for i in range(len(canvases))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        srv.shutdown()
+        th.join(timeout=10)
+    assert not th.is_alive()
+    return outs
+
+
+def _assert_answers(outs, canvases, detect_batch, batch_size):
+    """Each answer equals ``detect_batch`` of its canvas in slot 0 of a
+    zero-padded batch, within the JSON's rounding (scores 1e-4, boxes
+    1e-2)."""
+    assert sum(len(o) for o in outs) > 0, "no detections to compare"
+    for out, canvas in zip(outs, canvases):
+        batch = np.zeros((batch_size, 64, 64, 3), np.uint8)
+        batch[0] = canvas
+        det = detect_batch(batch)
+        nv = int(det.num_valid[0])
+        assert [d["label"] for d in out] == det.labels[0, :nv].tolist()
+        np.testing.assert_allclose([d["score"] for d in out],
+                                   np.round(det.scores[0, :nv].numpy(), 4),
+                                   atol=1.01e-4)
+        np.testing.assert_allclose(
+            np.asarray([d["box"] for d in out]).reshape(-1, 4),
+            np.clip(det.boxes[0, :nv].numpy(), 0, 64), atol=1.1e-2)
+
+
+def test_int8_server_answers_http(model):
+    """engine="int8" calibrated on uint8 canvases: 3 concurrent requests,
+    each equal to a direct ``detect_int8_u8`` on a qtree calibrated the
+    same way (the server normalizes the canvases to fp32 first)."""
+    from detjax_torch.data.pipeline import normalize_u8
+
+    cal = _canvases(4, seed=7)
+    srv = DetectionServer(model, _cfg(), engine="int8", batch_size=2,
+                          max_wait_ms=20.0, score_threshold=0.0,
+                          calibration=cal)
+    canvases = _canvases(3, seed=8)
+    outs = _http_answers(srv, canvases)
+    cfg = _cfg()
+    qtree = detjax_torch.quantize_model(model, cfg, normalize_u8(
+        torch.from_numpy(cal), cfg.data.mean, cfg.data.std))
+    _assert_answers(outs, canvases,
+                    lambda b: detjax_torch.detect_int8_u8(qtree, b, cfg), 2)
+
+
+def test_int8_server_needs_calibration_of_the_served_shape(model):
+    with pytest.raises(ValueError, match="requires calibration"):
+        DetectionServer(model, _cfg(), engine="int8")
+    with pytest.raises(ValueError, match="calibration must be"):
+        DetectionServer(model, _cfg(), engine="int8",
+                        calibration=np.zeros((2, 32, 32, 3), np.uint8))
+
+
+def test_artifact_server_answers_http(model, tmp_path):
+    """engine=<a saved detect program>: the uint8 program answers 3
+    concurrent requests, each equal to a direct ``detect_u8``; a program
+    of another batch, and buckets, are refused."""
+    from detjax_torch.export import save_detect
+
+    path = str(tmp_path / "detect.pt2")
+    save_detect(path, model, _cfg(), batch_size=2, input_format="u8")
+    with pytest.raises(ValueError, match="exported for input shape"):
+        DetectionServer(model, _cfg(), engine=path, batch_size=4)
+    with pytest.raises(ValueError, match="buckets"):
+        DetectionServer(model, _cfg(), engine=path, batch_size=2,
+                        buckets=(32, 64))
+    srv = DetectionServer(model, _cfg(), engine=path, batch_size=2,
+                          max_wait_ms=20.0, score_threshold=0.0)
+    canvases = _canvases(3, seed=9)
+    outs = _http_answers(srv, canvases)
+    _assert_answers(outs, canvases,
+                    lambda b: detjax_torch.detect_u8(model, b, _cfg()), 2)
 
 
 def test_entry_points_need_a_gpu_unless_asked_for_the_cpu():
@@ -249,6 +346,12 @@ def _imported_roots(path):
 def test_port_never_imports_jax_or_detjax():
     files = _port_files()
     assert len(files) > 15
+    names = {str(p.relative_to(REPO)) for p in files}
+    assert {"detjax_torch/quant.py", "detjax_torch/export.py",
+            "detjax_torch/kernels/ops.py", "detjax_torch/cli/export.py",
+            "detjax_torch/cli/serve.py", "detjax_torch/cli/detect.py",
+            "detjax_torch/cli/evaluate.py",
+            "detjax_torch/utils/visualize.py"} <= names
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "flax", "detjax"}
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
