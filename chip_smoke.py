@@ -26,7 +26,11 @@ frozen BatchNorm and "on" (``fit``); and the R50 stem
 (conv1 -> bn1 -> ReLU -> 3x3/s2 max-pool) forward and backward at the 640
 and 1024 training shapes, with ATen's pool backward and with the max-pool
 backward kernel (``kernels/stem.py::max_pool_3x3s2``, which no model path
-calls).
+calls); then detjax's other two single-card configs at full width
+(``ssd``: ssd_512 serving "off" and "on", its int8 engine and a detect
+program, training through the matching kernel at A = 32,736; ``r101``:
+retinanet_r101_fpn serving "off" and "on", training, and multi-scale
+steps at 512 and 640 with batch-statistics BatchNorm).
 Builds every CUDA kernel of those paths from ``detjax_torch/csrc/`` (one
 nvcc per source, all started together; also, from ``smoke_prior/``, the
 fused forward as it stood at commit 2503cdf, one kernel on wmma, timed in
@@ -38,11 +42,14 @@ cycles by phase), holds each kernel against its plain PyTorch twin on the
 card, also where NMS rows pass 16,384 candidates and matching passes
 9,642 GT slots, and checks that each path really launched its kernels. Prints JSON lines; the last line is
 ``{"ok": true, "device": {...}}`` and appears only when every phase
-passed. Exits non-zero without a CUDA device. ``mid_gate(steps)`` runs
-detjax's whole mid gate (not called by ``main``).
+passed. Exits non-zero without a CUDA device. ``mid_gate(steps)``,
+``ssd_gate()`` and ``r101_multiscale_gate()`` run detjax's mid, SSD and
+R101 multi-scale gates (not called by ``main``).
 
     python3 chip_smoke.py
     python3 -c "import chip_smoke as cs; cs.mid_gate(6000)"
+    python3 -c "import chip_smoke as cs; cs.ssd_gate()"
+    python3 -c "import chip_smoke as cs; cs.r101_multiscale_gate()"
 """
 
 from __future__ import annotations
@@ -63,6 +70,17 @@ import torch
 
 H100 = {"bytes_per_s": 3.35e12, "fp32_flops": 67e12,
         "bf16_flops": 989e12, "int8_ops": 1979e12}  # SXM data sheet, dense
+
+
+def print_card() -> str:
+    """The card's name and power limit as nvidia-smi gives them, printed on
+    a line of their own."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip()
+    print(card, flush=True)
+    return card
 
 
 def emit(obj) -> None:
@@ -1675,19 +1693,35 @@ def normalized_nchw(model, canvases, cfg) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+def level_rows(cfg) -> list:
+    """Rows of the head's flattened outputs a pyramid level, in order."""
+    m = cfg.model
+    h, w = m.image_size
+    return [m.num_anchors_per_cell * -(-h // 2**lvl) * -(-w // 2**lvl)
+            for lvl in range(m.min_level, m.max_level + 1)]
+
+
 def desaturate_(model, canvases, cfg) -> dict:
-    """Rescale the two output convs of a seeded model so that on these
+    """Rescale the output convs of a seeded model so that on these
     canvases the class logits spread with std 2 around the prior bias and
-    the box deltas with std 0.5. Random towers over identity BatchNorm
-    otherwise give logits with a std near 17: every score saturates to 1.0
-    and every decoded box clips to the whole canvas."""
+    the box deltas with std 0.5: RetinaNet's one shared pair over all the
+    rows, SSD's pair a level over that level's rows. Random towers over
+    identity BatchNorm otherwise give logits with a std near 17 (SSD's
+    predictors, over the FPN's outputs, far more): every score saturates
+    to 1.0 and every decoded box clips to the whole canvas."""
     with torch.inference_mode():
         cls, box = model(normalized_nchw(model, canvases, cfg))
-    scales = {"cls": 2.0 / float(cls.float().std()),
-              "box": 0.5 / float(box.float().std())}
+    cls_convs, box_convs = model.output_convs()
+    rows = ([cls.shape[1]] if len(cls_convs) == 1 else level_rows(cfg))
+    scales = {
+        "cls": [2.0 / float(c.float().std())
+                for c in torch.split(cls, rows, dim=1)],
+        "box": [0.5 / float(b.float().std())
+                for b in torch.split(box, rows, dim=1)]}
     with torch.no_grad():
-        model.classificationModel.output.weight.mul_(scales["cls"])
-        model.regressionModel.output.weight.mul_(scales["box"])
+        for convs, key in ((cls_convs, "cls"), (box_convs, "box")):
+            for conv, s in zip(convs, scales[key]):
+                conv.weight.mul_(s)
     return scales
 
 
@@ -2061,6 +2095,70 @@ def kept_pairs_found(ref, got, min_iou: float = 0.9, select=None) -> tuple:
     return found, total
 
 
+def fused_against_twin(model, cfg, canvases, x, det, outs, others=None
+                       ) -> dict:
+    """main_fused's comparison of a fused ("on") model's kernel route with
+    its twin route (``bottleneck_backend="torch"``, fp32 convs, TF32 off)
+    on the same canvases: the logits and deltas ``outs`` of the kernel
+    route on the normalized ``x`` within 0.05 x max|twin|, and the twin
+    route's kept (class, box) pairs found in the kernel route's ``det`` at
+    IoU >= 0.9, by their margin in bf16 steps; ``others`` (name ->
+    detections) are counted beside as yardsticks."""
+    import detjax_torch
+    from detjax_torch.modeling import _anchors, anchor_config
+    from detjax_torch.ops import nms as ops_nms
+
+    e = cfg.eval
+    model.bottleneck_backend = "torch"
+    with tf32_off():
+        twin = detjax_torch.detect_u8(model, canvases, cfg)
+        with torch.inference_mode():
+            cls_t, box_t = model(x)
+    model.bottleneck_backend = "auto"
+    torch.cuda.synchronize()
+    errs = {}
+    for key, got, want in (("cls", outs[0], cls_t), ("box", outs[1], box_t)):
+        g, w = got.float(), want.float()
+        errs[key] = {"max_abs_err": float((g - w).abs().max()),
+                     "tolerance": 0.05 * float(w.abs().max()),
+                     "finite": bool(torch.isfinite(g).all())}
+    # kept pairs found at IoU >= 0.9, same class, among the twin route's
+    # pairs whose margin is at least k bf16 steps (k = 0: all)
+    with torch.inference_mode():
+        cand = ops_nms._select_candidates(
+            box_t.float(), _anchors(cfg.model.image_size, anchor_config(cfg),
+                                    x.device),
+            cls_t, cfg.model.box_std, cfg.model.image_size,
+            e.score_threshold, e.pre_nms_top_k, e.exact_candidates, True)
+    margins = clear_margins(twin, cand, e.nms_iou_threshold)
+    pairs = {}
+    for k in sorted({0, 2, 4, CLEAR_STEPS, 16}):
+        sel = [mg >= k for mg in margins]
+        found, n_k = kept_pairs_found(twin, det, select=sel)
+        pairs[f"{k}_steps"] = {
+            "twin_pairs": n_k, "kernel_route": found,
+            **{name: kept_pairs_found(twin, d, select=sel)[0]
+               for name, d in (others or {}).items()}}
+    return {"twin": twin, "errs": errs, "pairs": pairs, "margins": margins,
+            "total": pairs["0_steps"]["twin_pairs"],
+            "clear": pairs[f"{CLEAR_STEPS}_steps"]}
+
+
+def check_fused_bars(check: dict) -> None:
+    """Fail unless :func:`fused_against_twin`'s result meets main_fused's
+    bars."""
+    errs, clear, total = check["errs"], check["clear"], check["total"]
+    if not all(e["finite"] and e["max_abs_err"] <= e["tolerance"]
+               for e in errs.values()):
+        raise SystemExit(f"the fused kernel route differs from the twin "
+                         f"route: {errs}")
+    if (clear["twin_pairs"] < 0.05 * total
+            or clear["kernel_route"] < 0.95 * clear["twin_pairs"]):
+        raise SystemExit(f"the kernel route found {clear['kernel_route']} "
+                         f"of the twin route's {clear['twin_pairs']} clear "
+                         f"kept pairs ({total} kept in all)")
+
+
 def phase_main_fused(report: dict, state: dict) -> None:
     """detect_u8 at full width with model.fused_backbone="on": the same
     seeded model and desaturate_ as phase_main, bs 8, bf16; exactly 5
@@ -2072,11 +2170,9 @@ def phase_main_fused(report: dict, state: dict) -> None:
     forward that folds on every call."""
     import detjax_torch
     from detjax_torch.kernels import bottleneck as kb
-    from detjax_torch.modeling import _anchors, anchor_config
-    from detjax_torch.ops import nms as ops_nms
 
     cfg = smoke_config(**{"model.fused_backbone": "on"})
-    b, e = cfg.eval.batch_size, cfg.eval
+    b = cfg.eval.batch_size
     canvases = seeded_canvases(1, b)
     model = detjax_torch.build_model(cfg, seed=0)
     scales = desaturate_(model, canvases, cfg)
@@ -2104,44 +2200,15 @@ def phase_main_fused(report: dict, state: dict) -> None:
     busy = forward_busy(model, x, grad=False)
     batch_ms = host_ms(model, cfg, canvases)
 
-    model.bottleneck_backend = "torch"
-    with tf32_off():
-        twin = detjax_torch.detect_u8(model, canvases, cfg)
-        with torch.inference_mode():
-            cls_t, box_t = model(x)
-    model.bottleneck_backend = "auto"
     unfused_cfg = smoke_config()
     unfused = detjax_torch.build_model(unfused_cfg, seed=0)
     unfused.load_state_dict(model.state_dict())
     det_unfused = detjax_torch.detect_u8(unfused, canvases, unfused_cfg)
     del unfused
-    torch.cuda.synchronize()
-
-    errs = {}
-    for key, got, want in (("cls", cls_k, cls_t), ("box", box_k, box_t)):
-        g, w = got.float(), want.float()
-        errs[key] = {"max_abs_err": float((g - w).abs().max()),
-                     "tolerance": 0.05 * float(w.abs().max()),
-                     "finite": bool(torch.isfinite(g).all())}
-    # kept pairs found at IoU >= 0.9, same class, among the twin route's
-    # pairs whose margin is at least k bf16 steps (k = 0: all)
-    with torch.inference_mode():
-        cand = ops_nms._select_candidates(
-            box_t.float(), _anchors(cfg.model.image_size, anchor_config(cfg),
-                                    x.device),
-            cls_t, cfg.model.box_std, cfg.model.image_size,
-            e.score_threshold, e.pre_nms_top_k, e.exact_candidates, True)
-    margins = clear_margins(twin, cand, e.nms_iou_threshold)
-    pairs = {}
-    for k in sorted({0, 2, 4, CLEAR_STEPS, 16}):
-        sel = [mg >= k for mg in margins]
-        found, n_k = kept_pairs_found(twin, det, select=sel)
-        pairs[f"{k}_steps"] = {
-            "twin_pairs": n_k, "kernel_route": found,
-            "unfused_path": kept_pairs_found(twin, det_unfused,
-                                             select=sel)[0]}
-    total = pairs["0_steps"]["twin_pairs"]
-    clear = pairs[f"{CLEAR_STEPS}_steps"]
+    check = fused_against_twin(model, cfg, canvases, x, det, (cls_k, box_k),
+                               {"unfused_path": det_unfused})
+    twin, errs, pairs = check["twin"], check["errs"], check["pairs"]
+    margins, total, clear = check["margins"], check["total"], check["clear"]
     shapes_ok = (tuple(det.boxes.shape) == (b, cfg.eval.max_detections, 4)
                  and bool(torch.isfinite(det.boxes).all()))
     main = state["main"]
@@ -2184,15 +2251,10 @@ def phase_main_fused(report: dict, state: dict) -> None:
                          f"{kb.FWD_KERNELS * 5} CUDA kernels in one forward "
                          f"of R50, got {launches} and {kernels} ({n_fused} "
                          f"fused blocks)")
-    if not shapes_ok or not all(e["finite"] and e["max_abs_err"]
-                                <= e["tolerance"] for e in errs.values()):
-        raise SystemExit(f"the fused kernel route differs from the twin "
-                         f"route: {errs}")
-    if (clear["twin_pairs"] < 0.05 * total
-            or clear["kernel_route"] < 0.95 * clear["twin_pairs"]):
-        raise SystemExit(f"the kernel route found {clear['kernel_route']} "
-                         f"of the twin route's {clear['twin_pairs']} clear "
-                         f"kept pairs ({total} kept in all)")
+    if not shapes_ok:
+        raise SystemExit("the fused detect returned misshapen or "
+                         "non-finite boxes")
+    check_fused_bars(check)
     report["bottleneck_identity_cuda"]["launches"] = launches
     report["bottleneck_identity_cuda"]["cuda_kernels_per_forward"] = kernels
     fused_detect_608x832(model, state)
@@ -3747,6 +3809,18 @@ def profiled_wall(fn):
     return None if prof is None else busy_and_idle(prof, wall[-1])
 
 
+def kernel_launches_traced(fn, names, calls: int = 3):
+    """Launches a call of ``fn`` of the CUDA kernels whose names contain
+    each of ``names``, from torch.profiler's device records over ``calls``
+    calls (profile_calls, device_events); None when the profiler cannot
+    trace the card."""
+    prof = profile_calls(fn, calls)
+    if prof is None:
+        return None
+    events = device_events(prof)
+    return {n: sum(n in name for name, _ in events) / calls for n in names}
+
+
 def jittered_detections(gts: dict, seed: int) -> dict:
     """Detections made from the ground truth: 85 % of the boxes jittered
     by 5 % of their side, with random scores, and two false positives an
@@ -4512,11 +4586,7 @@ def mid_gate(steps: int) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip()
-    print(card, flush=True)
+    card = print_card()
     with tempfile.TemporaryDirectory(prefix="detjax_mid_gate_") as tmp:
         train_ds, held = mid_gate_data(Path(tmp))
         cfg = mid_gate_config(**{"train.checkpoint_every_steps": 10**9,
@@ -4544,16 +4614,647 @@ def mid_gate(steps: int) -> int:
     return 0 if ok else 1
 
 
+# -- other presets: ssd_512 (benchmark config 2), retinanet_r101_fpn (4) ----
+
+FAMILY_TRAIN_STEPS = 10  # steps of each new preset's main training path
+MULTISCALE = ((512, 512), (640, 640))
+MULTISCALE_STEPS = 8  # four at each resolution
+SSD_GATE_AP50 = 0.5  # detjax's floor (scripts/e2e_gate.py:287)
+R101_GATE_AP50 = 0.5  # at both resolutions (scripts/e2e_gate.py:475)
+
+
+def match_at(anchors, boxes, labels, b: int, g: int) -> dict:
+    """match_iou_cuda on the main path's anchors and augmented GT, against
+    its twin: device ms, plain ms and the bound from the pairs left after
+    culling (as match_kernel)."""
+    from detjax_torch.kernels import matching as km
+
+    valid = labels >= 0
+    args = (anchors, boxes, valid, labels)
+    got, want = km.match_iou_cuda(*args), km.match_iou_reference(*args)
+    equal = all(torch.equal(x, y) for x, y in zip(got, want))
+    a = anchors.shape[0]
+    pairs = match_listed_pairs(anchors, boxes, valid, km.ANCHORS_PER_BLOCK)
+    bound_ms, bound_by = match_bound_ms(b, a, g, pairs)
+    return {"B": b, "A": a, "G": g, "bit_equal": equal,
+            "ms": device_ms(lambda: km.match_iou_cuda(*args), iters=100),
+            "ms_by": "device_ms",
+            "plain_ms": cuda_ms(lambda: km.match_iou_reference(*args),
+                                iters=5, warmup=1),
+            "pairs_divided": pairs, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "max_abs_err": float((got[0] - want[0]).abs().max())}
+
+
+RESIDUAL_SCALE = 0.2  # each block's last BatchNorm scale in detect_cell
+
+
+def damp_residuals_(model, scale: float = RESIDUAL_SCALE) -> None:
+    """Scale every bottleneck's last BatchNorm (``bn3``) by ``scale``, as
+    a trained ResNet's are small. At detjax's identity-BatchNorm init the
+    residual sums grow with depth until one common component dominates
+    the features: the logits of neighbouring anchors then tie within a
+    few bf16 steps, and main_fused's clear kept pairs vanish (R101: 0 of
+    800; SSD-512, whose predictors read the FPN directly: 25 of 800).
+    Damped: 29 and 75 of 200 (bs 2, the twin route on the CPU)."""
+    from detjax_torch.models.resnet import Bottleneck
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Bottleneck):
+                m.bn3.weight.mul_(scale)
+
+
+def detect_cell(name: str, cfg, canvases, state: dict) -> dict:
+    """``detect_u8`` at full width on a seeded model of ``cfg``, its
+    residual branches damped (damp_residuals_) and its output convs
+    desaturated: "off" through the NMS kernel against the twin route (bit-equal,
+    one NMS launch a batch, by the launcher and by torch.profiler's device
+    records), the NMS kernel on the real candidates against
+    its twin with its bound, ms a batch, img/s and the device's busy ms
+    and idle share over one call; then "on" on the same weights (5 fused
+    calls, 10 CUDA kernels a batch) held to its twin route by main_fused's
+    bars. Returns the model, its detections and the rows."""
+    import dataclasses
+
+    import detjax_torch
+    from detjax_torch.kernels import bottleneck as kb
+    from detjax_torch.kernels import postprocess as pp
+    from detjax_torch.modeling import _anchors, anchor_config
+    from detjax_torch.ops import nms as ops_nms
+
+    b, e = cfg.eval.batch_size, cfg.eval
+    model = detjax_torch.build_model(cfg, seed=0)
+    damp_residuals_(model)
+    scales = desaturate_(model, canvases, cfg)
+    detjax_torch.detect_u8(model, canvases, cfg)  # warm-up
+    torch.cuda.synchronize()
+    pp.nms_launches = pp.nms_kernel_launches = 0
+    det = detjax_torch.detect_u8(model, canvases, cfg)
+    torch.cuda.synchronize()
+    launches, nms_kernels = pp.nms_launches, pp.nms_kernel_launches
+    twin = detjax_torch.detect_u8(model, canvases, cfg, nms_backend="torch")
+    identical = same_detections(det, twin)
+    with torch.inference_mode():
+        x = normalized_nchw(model, canvases, cfg)
+        cls, box = model(x)
+        anchors = _anchors(cfg.model.image_size, anchor_config(cfg),
+                           x.device)
+        cand = ops_nms._select_candidates(
+            box.float(), anchors, cls, cfg.model.box_std,
+            cfg.model.image_size, e.score_threshold, e.pre_nms_top_k,
+            e.exact_candidates, True)
+        live_cands = (cand[1] > ops_nms.NEG_INF / 2).sum(dim=1)
+        nms_args = (cand[0], cand[1], cand[2].to(torch.int32),
+                    e.nms_iou_threshold, e.max_detections,
+                    float(max(cfg.model.image_size) + 2))
+        fwd_ms = cuda_ms(lambda: model(x), iters=10)
+    nms = nms_case(name, nms_args, iters=200, priors=())
+    traced = kernel_launches_traced(
+        lambda: detjax_torch.detect_u8(model, canvases, cfg), ("nms_kernel",))
+    batch_ms = host_ms(model, cfg, canvases)
+    busy = profiled_wall(lambda: detjax_torch.detect_u8(model, canvases,
+                                                        cfg))
+    off = {"preset": cfg.model.name, "depth": cfg.model.backbone_depth,
+           "family": cfg.model.family, "dtype": cfg.model.dtype,
+           "batch": b, "canvas": list(cfg.model.image_size),
+           "anchors": int(anchors.shape[0]),
+           "anchors_per_cell": cfg.model.num_anchors_per_cell,
+           "residual_scale": RESIDUAL_SCALE, "output_scales": scales,
+           "live_candidates_per_image": live_cands.tolist(),
+           "num_valid": det.num_valid.tolist(),
+           "nms_launches": launches, "nms_cuda_kernels": nms_kernels,
+           "profiler_launches_a_batch": traced,
+           "identical_to_twin_route": identical,
+           "ms_per_batch": batch_ms, "img_per_s": b / batch_ms * 1e3,
+           "forward_ms": fwd_ms, "device_one_call": busy,
+           "nms_kernel": {k: nms[k] for k in (
+               "N", "ms", "call_ms", "bound_ms", "bound_by", "pairs_needed",
+               "kept_per_row", "max_abs_err", "ms_by_kernel")}}
+    emit({"phase": name, "fused_backbone": "off", **off,
+          "tolerance": "keep-sets, scores and boxes bit-equal",
+          "card": state["card"]})
+    if not (all(bool(torch.isfinite(t.float()).all()) for t in det)
+            and tuple(det.boxes.shape) == (b, e.max_detections, 4)):
+        raise SystemExit(f"{name}: detect_u8 returned non-finite or "
+                         f"misshapen output")
+    if (launches != 1 or nms_kernels != len(NMS_KERNEL_NAMES)
+            or traced != {"nms_kernel": 1.0}):
+        raise SystemExit(f"{name}: {launches} NMS calls ({nms_kernels} CUDA "
+                         f"kernels; the profiler's count {traced}) a batch, "
+                         f"expected 1")
+    if not identical:
+        raise SystemExit(f"{name}: detect_u8 through the kernel differs from "
+                         f"the twin route")
+    if int(live_cands.min()) == 0 or int(det.num_valid.min()) == 0:
+        raise SystemExit(f"{name}: no live candidates")
+
+    on_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, fused_backbone="on"))
+    on_model = detjax_torch.build_model(on_cfg, seed=0)
+    on_model.load_state_dict(model.state_dict())
+    detjax_torch.detect_u8(on_model, canvases, on_cfg)  # warm-up
+    torch.cuda.synchronize()
+    kb.bottleneck_launches = kb.bottleneck_kernel_launches = 0
+    pp.nms_launches = 0
+    det_on = detjax_torch.detect_u8(on_model, canvases, on_cfg)
+    torch.cuda.synchronize()
+    fused_calls, fused_kernels = (kb.bottleneck_launches,
+                                  kb.bottleneck_kernel_launches)
+    on_nms = pp.nms_launches
+    on_traced = kernel_launches_traced(
+        lambda: detjax_torch.detect_u8(on_model, canvases, on_cfg),
+        ("nms_kernel",) + FWD_KERNEL_NAMES)
+    with torch.inference_mode():
+        outs = on_model(x)
+    check = fused_against_twin(on_model, on_cfg, canvases, x, det_on, outs,
+                               {"unfused_path": det})
+    on_ms = host_ms(on_model, on_cfg, canvases)
+    on = {"fused_blocks": len(on_model.fused_blocks()),
+          "bottleneck_launches": fused_calls,
+          "bottleneck_cuda_kernels": fused_kernels, "nms_launches": on_nms,
+          "profiler_launches_a_batch": on_traced,
+          "outputs_vs_twin_route": check["errs"],
+          "twin_pairs_found_by_margin": check["pairs"],
+          "num_valid": det_on.num_valid.tolist(),
+          "ms_per_batch": on_ms, "img_per_s": b / on_ms * 1e3}
+    emit({"phase": f"{name}_fused", "fused_backbone": "on", **on,
+          "tolerance": "main_fused's: logits and deltas within 0.05 x "
+                       "max|twin|; >= 95 % of the twin route's clear kept "
+                       "pairs found", "card": state["card"]})
+    del on_model
+    want_traced = {"nms_kernel": 1.0, **{k: 5.0 for k in FWD_KERNEL_NAMES}}
+    if ((fused_calls, fused_kernels, on_nms) != (5, kb.FWD_KERNELS * 5, 1)
+            or on_traced != want_traced):
+        raise SystemExit(f"{name}_fused: {fused_calls} fused calls "
+                         f"({fused_kernels} CUDA kernels) and {on_nms} NMS "
+                         f"launches a batch, expected 5 (10) and 1; the "
+                         f"profiler's count {on_traced}")
+    check_fused_bars(check)
+    return {"model": model, "det": det, "off": off, "on": on, "nms": nms}
+
+
+def train_cell(name: str, preset: str, state: dict, traced: bool) -> dict:
+    """``preset`` at full width through make_train_state / train_step, its
+    default batch (16), bf16, frozen BatchNorm: the kernel route against
+    the twin route from one state and one batch (MatchResults identical,
+    step-1 loss within 1e-6 relative), then FAMILY_TRAIN_STEPS steps of
+    the main path with one matching launch a step (the launcher's count;
+    torch.profiler's over one more step), ms a step (after 2),
+    peak memory; matching on this batch against its twin, timed, with its
+    bound; with ``traced``, the idle share of a 3-step profiler window."""
+    import detjax_torch
+    from detjax_torch.data.pipeline import device_augment
+    from detjax_torch.kernels import matching as km
+    from detjax_torch.modeling import _anchors, anchor_config
+    from detjax_torch.ops.matching import match_anchors
+    from detjax_torch.train import step as tstep
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train = detjax_torch.make_train_state(preset, seed=0)
+    cfg = train.cfg
+    b = cfg.train.batch_size
+    batch = train_batch(cfg, seed=0)
+    scales = desaturate_(train.model, batch["images"][:4], cfg)
+    twin = copy.deepcopy(train)
+    dev = next(train.model.parameters()).device
+    _, gt_aug = device_augment(
+        torch.as_tensor(batch["images"]).to(dev),
+        torch.as_tensor(batch["gt_boxes"]).to(dev),
+        flip=tstep.flip_mask(cfg, 0, b), hflip_prob=0.0,
+        mean=cfg.data.mean, std=cfg.data.std)
+    anchors = _anchors(cfg.model.image_size, anchor_config(cfg), dev)
+    labels = torch.as_tensor(batch["gt_labels"]).to(dev)
+    m_kernel = match_anchors(anchors, gt_aug, labels, backend="auto")
+    m_twin = match_anchors(anchors, gt_aug, labels, backend="torch")
+    match_equal = {f: torch.equal(getattr(m_kernel, f), getattr(m_twin, f))
+                   for f in m_kernel._fields}
+    _, mk = detjax_torch.train_step(train, batch)
+    _, mt = detjax_torch.train_step(twin, batch, match_backend="torch")
+    loss_k, loss_t = float(mk["loss"]), float(mt["loss"])
+    del twin
+    kernel = match_at(anchors, gt_aug, labels, b, cfg.train.max_gt)
+
+    torch.cuda.synchronize()
+    km.match_launches = km.match_kernel_launches = 0
+    steps, t0 = [], None
+    for i in range(FAMILY_TRAIN_STEPS):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        steps.append(detjax_torch.train_step(train, batch)[1])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / (FAMILY_TRAIN_STEPS - 2) * 1e3
+    launches, kernels = km.match_launches, km.match_kernel_launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    traced_match = kernel_launches_traced(
+        lambda: detjax_torch.train_step(train, batch), ("match_kernel",))
+    window = (profiled_wall(lambda: [detjax_torch.train_step(train, batch)
+                                     for _ in range(3)])
+              if traced else None)
+    per_step = [{k: float(v) for k, v in m.items()} for m in steps]
+    row = {"preset": cfg.model.name, "depth": cfg.model.backbone_depth,
+           "family": cfg.model.family, "dtype": cfg.model.dtype,
+           "batch": b, "canvas": list(cfg.model.image_size),
+           "anchors": int(anchors.shape[0]), "max_gt": cfg.train.max_gt,
+           "output_scales": scales, "match_result_equal": match_equal,
+           "loss_kernel_route": loss_k, "loss_twin_route": loss_t,
+           "steps": len(steps), "match_launches": launches,
+           "match_cuda_kernels": kernels,
+           "profiler_match_launches_a_step": traced_match,
+           "losses": [m["loss"] for m in per_step],
+           "num_pos": [m["num_pos"] for m in per_step],
+           "ms_per_step": step_ms, "img_per_s": b / step_ms * 1e3,
+           "peak_memory_gib": peak, "traced_3_steps": window,
+           "match_kernel": kernel}
+    emit({"phase": name, **row, "tolerance": "MatchResults identical; "
+          "step-1 loss within 1e-6 relative; matching bit-equal to its "
+          "twin", "card": state["card"]})
+    if not all(match_equal.values()) or not kernel["bit_equal"]:
+        raise SystemExit(f"{name}: kernel and twin MatchResults differ: "
+                         f"{match_equal}")
+    if abs(loss_k - loss_t) > 1e-6 * abs(loss_t):
+        raise SystemExit(f"{name}: step-1 loss differs between the routes: "
+                         f"{loss_k} vs {loss_t}")
+    if not all(np.isfinite(list(m.values())).all() for m in per_step):
+        raise SystemExit(f"{name}: a training metric is not finite")
+    if min(m["num_pos"] for m in per_step) <= 0:
+        raise SystemExit(f"{name}: a step had no positive anchor")
+    if (launches != len(steps) or kernels != launches
+            or traced_match != {"match_kernel": 1.0}):
+        raise SystemExit(f"{name}: the match kernel launched {launches} "
+                         f"times ({kernels} CUDA kernels) in {len(steps)} "
+                         f"steps; the profiler's count a step "
+                         f"{traced_match}")
+    del train
+    return row
+
+
+def ssd_gate_config(**extra):
+    """detjax's SSD gate recipe (scripts/e2e_gate.py:269-282): ssd_512,
+    12 classes, batch-statistics BatchNorm, bs 8, max_gt 8, lr 1e-3
+    constant, no flip, no crop, eval batch 8."""
+    import detjax_torch
+
+    return detjax_torch.get_config("ssd_512", **{
+        "model.num_classes": 12, "model.frozen_backbone_bn": False,
+        "train.batch_size": 8, "train.max_gt": 8,
+        "train.learning_rate": 1e-3, "train.lr_schedule": "constant",
+        "data.hflip_prob": 0.0, "data.random_crop": False,
+        "eval.batch_size": 8, **extra})
+
+
+def ssd_gate_data():
+    """The gate's 8 scenes at 512 (seed 11), its train and eval set."""
+    from detjax_torch.data.synthetic import SyntheticDetectionDataset
+
+    return SyntheticDetectionDataset(num_images=8, image_size=(512, 512),
+                                     num_classes=12, max_objects=3, seed=11,
+                                     size_range=(0.15, 0.5))
+
+
+def r101_multiscale_config(**extra):
+    """detjax's R101 multi-scale gate recipe (scripts/e2e_gate.py:434-447):
+    retinanet_r101_fpn, 12 classes, batch-statistics BatchNorm, bs 8,
+    max_gt 8, lr 1e-3 constant, hflip 0.5, no crop, eval batch 8."""
+    import detjax_torch
+
+    return detjax_torch.get_config("retinanet_r101_fpn", **{
+        "model.num_classes": 12, "model.frozen_backbone_bn": False,
+        "train.batch_size": 8, "train.max_gt": 8,
+        "train.learning_rate": 1e-3, "train.lr_schedule": "constant",
+        "data.hflip_prob": 0.5, "data.random_crop": False,
+        "eval.batch_size": 8, **extra})
+
+
+def r101_multiscale_data():
+    """The gate's 12 scenes at 640 (seed 13)."""
+    from detjax_torch.data.synthetic import SyntheticDetectionDataset
+
+    return SyntheticDetectionDataset(num_images=12, image_size=(640, 640),
+                                     num_classes=12, max_objects=4, seed=13,
+                                     size_range=(0.08, 0.4))
+
+
+def phase_ssd(report: dict, state: dict) -> None:
+    """ssd_512 (benchmark config 2) at full width, bf16, seeded weights
+    with every level's output pair rescaled (desaturate_): detect_cell at
+    eval batch 8 on 512x512 canvases ("off" and "on"); the int8 engine
+    calibrated on those canvases (one NMS launch a batch); a u8 detect
+    program loaded and run in a fresh process (one NMS launch, bit-equal
+    to detect_u8); then train_cell at bs 16 (A = 32,736 through the
+    matching kernel)."""
+    import tempfile
+
+    import detjax_torch
+    from detjax_torch.data.pipeline import normalize_u8
+    from detjax_torch.export import save_detect
+    from detjax_torch.kernels import postprocess as pp
+    from detjax_torch.ops.nms import Detections
+
+    cfg = detjax_torch.get_config("ssd_512",
+                                  **{"model.prior_prob": PRIOR_PROB})
+    b = cfg.eval.batch_size
+    canvases = seeded_canvases(1, b, cfg.model.image_size)
+    cell = detect_cell("ssd", cfg, canvases, state)
+    model = cell["model"]
+
+    t0 = time.perf_counter()
+    qtree = detjax_torch.quantize_model(model, cfg, normalize_u8(
+        torch.as_tensor(canvases).to(next(model.parameters()).device),
+        cfg.data.mean, cfg.data.std))
+    calib_s = time.perf_counter() - t0
+    detjax_torch.detect_int8_u8(qtree, canvases, cfg)  # warm-up
+    torch.cuda.synchronize()
+    pp.nms_launches = 0
+    det8 = detjax_torch.detect_int8_u8(qtree, canvases, cfg)
+    torch.cuda.synchronize()
+    int8_nms = pp.nms_launches
+    int8_ms = cuda_ms(lambda: detjax_torch.detect_int8_u8(qtree, canvases,
+                                                          cfg), iters=10)
+    del qtree
+
+    tmp = tempfile.TemporaryDirectory(prefix="detjax_ssd_")
+    root = Path(tmp.name)
+    np.save(root / "canvases.npy", canvases)
+    path = root / "detect_ssd.pt2"
+    t0 = time.perf_counter()
+    save_detect(str(path), model, cfg, batch_size=b, input_format="u8")
+    export_s = time.perf_counter() - t0
+    proc = subprocess.run(
+        [sys.executable, "-c", ARTIFACT_LOADER, str(path),
+         str(root / "canvases.npy"), str(root / "det.pt")],
+        capture_output=True, text=True, timeout=600,
+        cwd=str(Path(__file__).resolve().parent))
+    if proc.returncode != 0:
+        emit({"phase": "ssd_export", "loader_stderr": proc.stderr[-3000:]})
+        raise SystemExit("the SSD program did not load and run in a fresh "
+                         "process")
+    sub = json.loads(proc.stdout.strip().splitlines()[-1])
+    got = Detections(*torch.load(root / "det.pt"))
+    cmp = within_detect_bars(got, type(cell["det"])(
+        *(t.cpu() for t in cell["det"])))
+    tmp.cleanup()
+    emit({"phase": "ssd_engines", "int8_calibration_s": calib_s,
+          "int8_nms_launches": int8_nms, "int8_ms_per_batch": int8_ms,
+          "int8_ms_by": "CUDA events",
+          "int8_num_valid": det8.num_valid.tolist(),
+          "program_export_and_save_s": export_s,
+          "program": {**sub, **cmp}, "card": state["card"],
+          "tolerance": "the program bit-equal to detect_u8; one NMS launch "
+                       "a batch through each engine"})
+    if int8_nms != 1 or not all(bool(torch.isfinite(t.float()).all())
+                                for t in det8):
+        raise SystemExit(f"ssd int8 engine: {int8_nms} NMS launches a "
+                         f"batch, or non-finite detections")
+    if not cmp["bit_equal"] or sub["nms_launches"] != 1 or sub["loaded"]:
+        raise SystemExit(f"ssd program: {cmp}, {sub['nms_launches']} NMS "
+                         f"launches, imported {sub['loaded']}")
+    del model, cell["model"]
+    train = train_cell("ssd_train", "ssd_512", state, traced=False)
+    report["nms_cuda"]["launches_ssd"] = cell["off"]["nms_launches"]
+    report["nms_cuda"]["ssd_512_candidates"] = cell["off"]["nms_kernel"]
+    report["match_iou_cuda"]["launches_ssd_train"] = train["match_launches"]
+    report["match_iou_cuda"]["ssd_512_train"] = train["match_kernel"]
+    report["bottleneck_identity_cuda"]["launches_ssd"] = cell["on"][
+        "bottleneck_launches"]
+    state["ssd"] = {"detect": cell["off"], "fused": cell["on"],
+                    "train": train}
+
+
+def multiscale_cell(state: dict) -> dict:
+    """MULTISCALE_STEPS steps of detjax's R101 gate recipe (batch-statistics
+    BatchNorm, bs 8) through train/multiscale.py: the seeded round-robin
+    over 512 and 640 fed by make_train_iterator, one shared TrainState;
+    one matching launch a step; ms a step by resolution (after each one's
+    first step), peak memory."""
+    import detjax_torch
+    from detjax_torch.kernels import matching as km
+    from detjax_torch.train.multiscale import (MultiScaleIterator,
+                                               make_multiscale_train_step)
+
+    cfg = r101_multiscale_config()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train = detjax_torch.make_train_state(cfg, seed=0)
+    step = make_multiscale_train_step(cfg, MULTISCALE)
+    it = iter(MultiScaleIterator(r101_multiscale_data(), cfg, MULTISCALE,
+                                 seed=0))
+    km.match_launches = km.match_kernel_launches = 0
+    ms_by_hw, losses = {}, []
+    for _ in range(MULTISCALE_STEPS):
+        batch = next(it)
+        hw = "x".join(map(str, batch["images"].shape[1:3]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(train, batch)
+        losses.append(float(m["loss"]))
+        ms_by_hw.setdefault(hw, []).append(
+            (time.perf_counter() - t0) * 1e3)
+    row = {"preset": cfg.model.name, "scales": [list(s) for s in MULTISCALE],
+           "batch": cfg.train.batch_size, "frozen_backbone_bn": False,
+           "steps": MULTISCALE_STEPS, "steps_by_resolution": {
+               k: len(v) for k, v in ms_by_hw.items()},
+           "ms_per_step_by_resolution": {
+               k: float(np.median(v[1:])) for k, v in ms_by_hw.items()},
+           "first_step_ms_by_resolution": {k: v[0]
+                                           for k, v in ms_by_hw.items()},
+           "losses": losses, "match_launches": km.match_launches,
+           "match_cuda_kernels": km.match_kernel_launches,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "train_step": train.step}
+    emit({"phase": "r101_multiscale", **row, "card": state["card"]})
+    if sorted(ms_by_hw) != sorted("x".join(map(str, s)) for s in MULTISCALE):
+        raise SystemExit(f"multi-scale steps ran at {sorted(ms_by_hw)}")
+    if (km.match_launches, km.match_kernel_launches) != (MULTISCALE_STEPS,
+                                                         MULTISCALE_STEPS):
+        raise SystemExit(f"multi-scale: {km.match_launches} matching "
+                         f"launches in {MULTISCALE_STEPS} steps")
+    if not np.isfinite(losses).all() or train.step != MULTISCALE_STEPS:
+        raise SystemExit("multi-scale: a loss is not finite or a step "
+                         "was lost")
+    del train
+    return row
+
+
+def r101_train_fused(state: dict) -> dict:
+    """Two train_steps of retinanet_r101_fpn at bs 16 with "on" (frozen
+    BatchNorm): 5 forward and 5 backward fused calls (10 + 25 CUDA
+    kernels) and one matching launch a step; each step's loss within 1e-2
+    relative of the twin route's (``bottleneck_backend="torch"``, TF32
+    off) from the same state and batch, as train_fused_1024 holds R50; the
+    residual branches damped as in detect_cell."""
+    import detjax_torch
+    from detjax_torch.kernels import bottleneck as kb
+    from detjax_torch.kernels import matching as km
+
+    torch.cuda.empty_cache()
+    train = detjax_torch.make_train_state(
+        "retinanet_r101_fpn", seed=0, **{"model.fused_backbone": "on"})
+    cfg = train.cfg
+    batch = train_batch(cfg, seed=0)
+    damp_residuals_(train.model)
+    desaturate_(train.model, batch["images"][:4], cfg)
+    twin = copy.deepcopy(train)
+    twin.model.bottleneck_backend = "torch"
+    kb.bottleneck_launches = kb.bottleneck_kernel_launches = 0
+    kb.bottleneck_bwd_launches = kb.bottleneck_bwd_kernel_launches = 0
+    km.match_launches = 0
+    losses_k = [float(detjax_torch.train_step(train, batch)[1]["loss"])
+                for _ in range(2)]
+    torch.cuda.synchronize()
+    launches = {"bottleneck_fwd": kb.bottleneck_launches,
+                "bottleneck_fwd_cuda_kernels": kb.bottleneck_kernel_launches,
+                "bottleneck_bwd": kb.bottleneck_bwd_launches,
+                "bottleneck_bwd_cuda_kernels":
+                    kb.bottleneck_bwd_kernel_launches,
+                "match": km.match_launches}
+    with tf32_off():
+        losses_t = [float(detjax_torch.train_step(twin, batch)[1]["loss"])
+                    for _ in range(2)]
+    del twin, train
+    rel = [abs(k - t) / abs(t) for k, t in zip(losses_k, losses_t)]
+    row = {"preset": cfg.model.name, "fused_backbone": "on",
+           "batch": cfg.train.batch_size, "launches_in_2_steps": launches,
+           "losses_kernel_route": losses_k, "losses_twin_route": losses_t,
+           "loss_rel_err": rel}
+    emit({"phase": "r101_train_fused", **row,
+          "loss_tolerance": "1e-2 relative", "card": state["card"]})
+    want = {"bottleneck_fwd": 10,
+            "bottleneck_fwd_cuda_kernels": 10 * kb.FWD_KERNELS,
+            "bottleneck_bwd": 10,
+            "bottleneck_bwd_cuda_kernels": 10 * kb.BWD_KERNELS, "match": 2}
+    if launches != want:
+        raise SystemExit(f"r101_train_fused: launches {launches} in two "
+                         f"steps, expected {want}")
+    if not all(np.isfinite(losses_k)) or max(rel) > 1e-2:
+        raise SystemExit(f"r101_train_fused: losses {losses_k} against the "
+                         f"twin route's {losses_t}")
+    return row
+
+
+def phase_r101(report: dict, state: dict) -> None:
+    """retinanet_r101_fpn (benchmark config 4) at full width, bf16:
+    detect_cell at eval batch 8 on 640 canvases ("off" and "on", as main
+    and main_fused), train_cell at bs 16 with a traced window, two steps
+    with "on" (r101_train_fused), and the multi-scale steps at 512 and
+    640 of detjax's R101 gate recipe."""
+    import detjax_torch
+
+    cfg = detjax_torch.get_config("retinanet_r101_fpn",
+                                  **{"model.prior_prob": PRIOR_PROB})
+    cell = detect_cell("r101", cfg, seeded_canvases(1, cfg.eval.batch_size,
+                                                    cfg.model.image_size),
+                       state)
+    del cell["model"]
+    torch.cuda.empty_cache()
+    train = train_cell("r101_train", "retinanet_r101_fpn", state,
+                       traced=True)
+    fused = r101_train_fused(state)
+    multi = multiscale_cell(state)
+    report["nms_cuda"]["launches_r101"] = cell["off"]["nms_launches"]
+    report["match_iou_cuda"]["launches_r101_train"] = train["match_launches"]
+    report["match_iou_cuda"]["launches_r101_multiscale"] = multi[
+        "match_launches"]
+    report["bottleneck_identity_cuda"]["launches_r101"] = cell["on"][
+        "bottleneck_launches"]
+    report["bottleneck_identity_bwd_cuda"]["launches_r101_train_2_steps"] = (
+        fused["launches_in_2_steps"]["bottleneck_bwd"])
+    state["r101"] = {"detect": cell["off"], "fused": cell["on"],
+                     "train": train, "train_fused": fused,
+                     "multiscale": multi}
+
+
+
+
+def ssd_gate(steps: int = 1500) -> int:
+    """detjax's SSD gate on the card (scripts/e2e_gate.py:269-297): fit the
+    recipe for ``steps`` steps on its 8 scenes, then AP50 on them through
+    ``evaluate``; detjax's floor: AP50 > 0.5. Not called by main; run as
+    ``python3 -c "import chip_smoke as cs; cs.ssd_gate()"``."""
+    import detjax_torch
+    from detjax_torch.data import make_train_iterator
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    card = print_card()
+    cfg = ssd_gate_config(**{"train.checkpoint_every_steps": 10**9,
+                             "train.eval_every_steps": 10**9})
+    ds = ssd_gate_data()
+    t0 = time.perf_counter()
+    res = detjax_torch.fit(cfg, make_train_iterator(ds, cfg), steps,
+                           log_every=max(steps // 6, 1))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    stats = detjax_torch.evaluate(res.state.model, ds, cfg).stats
+    ok = stats["AP50"] > SSD_GATE_AP50
+    emit({"phase": "ssd_gate", "preset": cfg.model.name, "steps": steps,
+          "batch": cfg.train.batch_size, "fit_s": fit_s,
+          "img_per_s": res.images_per_sec,
+          "logged_losses": [h["loss"] for h in res.history],
+          "stats": stats, "detjax_floor_AP50": SSD_GATE_AP50, "card": card})
+    print(json.dumps({"ssd_gate_passed": ok}), flush=True)
+    return 0 if ok else 1
+
+
+def r101_multiscale_gate(steps: int = 2500) -> int:
+    """detjax's R101 multi-scale gate on the card
+    (scripts/e2e_gate.py:424-477): ``steps`` multi-scale steps at 512 and
+    640 of the recipe on its 12 scenes, then AP50 at both resolutions
+    through ``evaluate``; detjax's floor: AP50 > 0.5 at both. Not called by
+    main; run as ``python3 -c "import chip_smoke as cs;
+    cs.r101_multiscale_gate()"``."""
+    import dataclasses
+
+    import detjax_torch
+    from detjax_torch.train.multiscale import (MultiScaleIterator,
+                                               make_multiscale_train_step)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    card = print_card()
+    cfg = r101_multiscale_config()
+    ds = r101_multiscale_data()
+    train = detjax_torch.make_train_state(cfg, seed=0)
+    step = make_multiscale_train_step(cfg, MULTISCALE)
+    it = iter(MultiScaleIterator(ds, cfg, MULTISCALE, seed=0))
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        _, m = step(train, next(it))
+        if (i + 1) % 500 == 0 or i + 1 == steps:
+            losses.append({"step": i + 1, "loss": float(m["loss"]),
+                           "s": time.perf_counter() - t0})
+            print(json.dumps(losses[-1]), flush=True)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    stats = {}
+    for hw in MULTISCALE:
+        cfg_e = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, image_size=hw))
+        stats["x".join(map(str, hw))] = detjax_torch.evaluate(
+            train.model, ds, cfg_e).stats
+    ok = all(s["AP50"] > R101_GATE_AP50 for s in stats.values())
+    emit({"phase": "r101_multiscale_gate", "preset": cfg.model.name,
+          "steps": steps, "batch": cfg.train.batch_size, "fit_s": fit_s,
+          "img_per_s": steps * cfg.train.batch_size / fit_s,
+          "logged_losses": losses, "stats": stats,
+          "detjax_floor_AP50": R101_GATE_AP50, "card": card})
+    print(json.dumps({"r101_multiscale_gate_passed": ok}), flush=True)
+    return 0 if ok else 1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     import detjax_torch  # noqa: F401  (fails outside a checkout)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip()
-    print(card, flush=True)
+    card = print_card()
     emit({"python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
@@ -4584,6 +5285,8 @@ def main() -> int:
     phase_fit(report, state)
     phase_maxpool_bwd_kernel(report)
     phase_stem(report, state)
+    phase_ssd(report, state)
+    phase_r101(report, state)
     emit({"kernels": list(report.values())})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
-"""Full detector: backbone -> FPN -> RetinaNet head, in the lineage layout.
+"""Full detector: backbone -> FPN -> head, in the lineage layout.
 
 The counterpart of ``detjax/models/detector.py``. Like the lineage's
-detector, ``Detector`` IS the ResNet, with ``fpn``, ``classificationModel``
-and ``regressionModel`` beside the backbone's modules, so its
+detector, ``Detector`` IS the ResNet, with ``fpn`` and the head beside the
+backbone's modules: ``classificationModel`` and ``regressionModel`` for
+``model.family="retinanet"``, ``ssdHead`` for ``"ssd"``. So its
 ``state_dict`` keys are the lineage's and ``load_state_dict(strict=True)``
 takes ``detjax_torch.utils.weights.from_jax`` output directly.
 
@@ -48,6 +49,7 @@ from detjax_torch.config import ModelConfig
 from detjax_torch.models.fpn import FPN
 from detjax_torch.models.heads import (
     RetinaNetHead,
+    SSDHead,
     head_outputs,
     init_towers_,
 )
@@ -63,10 +65,8 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 class Detector(ResNet):
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "retinanet":
-            raise NotImplementedError(
-                f"model.family={cfg.family!r} is not ported yet; the SSD head "
-                "comes with a later slice of the port")
+        if cfg.family not in ("retinanet", "ssd"):
+            raise ValueError(f"unknown model family {cfg.family!r}")
         if cfg.dtype not in _DTYPES:
             raise ValueError(f"model.dtype must be one of {sorted(_DTYPES)}, "
                              f"got {cfg.dtype!r}")
@@ -80,12 +80,18 @@ class Detector(ResNet):
         self.cfg = cfg
         self.fpn = FPN(self.stage_channels, cfg.min_level, cfg.max_level,
                        cfg.fpn_channels)
-        head = RetinaNetHead(cfg.fpn_channels, cfg.num_classes,
-                             cfg.num_anchors_per_cell, cfg.head_channels,
-                             cfg.num_head_convs, cfg.prior_prob)
-        # the lineage keeps both towers at the detector's top level
-        self.classificationModel = head.classificationModel
-        self.regressionModel = head.regressionModel
+        if cfg.family == "ssd":
+            self.ssdHead = SSDHead(cfg.fpn_channels, cfg.num_classes,
+                                   cfg.num_anchors_per_cell,
+                                   range(cfg.min_level, cfg.max_level + 1),
+                                   cfg.prior_prob)
+        else:
+            head = RetinaNetHead(cfg.fpn_channels, cfg.num_classes,
+                                 cfg.num_anchors_per_cell, cfg.head_channels,
+                                 cfg.num_head_convs, cfg.prior_prob)
+            # the lineage keeps both towers at the detector's top level
+            self.classificationModel = head.classificationModel
+            self.regressionModel = head.regressionModel
         self.bottleneck_backend = "auto"
 
     @property
@@ -116,12 +122,24 @@ class Detector(ResNet):
     def init_weights(self, generator: torch.Generator) -> "Detector":
         """detjax's initialisers, drawn from ``generator``: He-normal convs
         in the backbone and FPN, N(0, 0.01) head convs with the prior bias
-        on the class output, identity BatchNorm (weight 1, bias 0, mean 0,
+        on the class outputs, identity BatchNorm (weight 1, bias 0, mean 0,
         variance 1)."""
         he_normal_(self, generator)
-        init_towers_(self.classificationModel, self.regressionModel,
-                     self.cfg.prior_prob, generator)
+        if self.cfg.family == "ssd":
+            self.ssdHead.init_weights(generator)
+        else:
+            init_towers_(self.classificationModel, self.regressionModel,
+                         self.cfg.prior_prob, generator)
         return self
+
+    def output_convs(self) -> Tuple[List[torch.nn.Conv2d],
+                                    List[torch.nn.Conv2d]]:
+        """The head's class and box output convs: RetinaNet's one pair,
+        shared over the levels, or SSD's pair a level."""
+        if self.cfg.family == "ssd":
+            return self.ssdHead.output_convs()
+        return ([self.classificationModel.output],
+                [self.regressionModel.output])
 
     def forward(self, images: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -135,6 +153,8 @@ class Detector(ResNet):
         with region:
             feats = super().forward(images.to(self.compute_dtype))
             pyramid = self.fpn(feats)
+            if self.cfg.family == "ssd":
+                return self.ssdHead(pyramid)
             return head_outputs(self.classificationModel,
                                 self.regressionModel, pyramid,
                                 self.cfg.num_classes)

@@ -36,9 +36,12 @@ def stride2_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 
 
 def upsample_nearest_2x(x: torch.Tensor, out_hw) -> torch.Tensor:
-    """[B,C,H,W] -> [B,C,2H,2W], cropped to ``out_hw`` for odd targets."""
+    """[B,C,H,W] -> [B,C,2H,2W], cropped to ``out_hw`` for odd targets, in
+    ``x``'s dtype. CUDA's autocast runs the upsample in fp32: its bf16
+    copy then carried the top-down sum in fp32 down to P3, where detjax
+    (and a traced program) round each level's sum to bf16."""
     y = F.interpolate(x, scale_factor=2.0, mode="nearest")
-    return y[:, :, : out_hw[0], : out_hw[1]]
+    return y[:, :, : out_hw[0], : out_hw[1]].to(x.dtype)
 
 
 class FPN(nn.Module):

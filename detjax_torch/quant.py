@@ -69,11 +69,8 @@ def module_names(model_cfg) -> Dict[str, str]:
     """detjax's module path of every conv and BatchNorm (``"backbone/
     layer1_block0/conv1"``, ``"fpn/lateral_p3"``, ``"head/cls_out"``) ->
     the port's module name (``"layer1.0.conv1"``, ``"fpn.P3_1"``,
-    ``"classificationModel.output"``)."""
-    if model_cfg.family != "retinanet":
-        raise NotImplementedError(
-            f"model.family={model_cfg.family!r} is not ported yet; the SSD "
-            "head comes with a later slice of the port")
+    ``"classificationModel.output"``; ``"head/cls_p3"`` -> ``"ssdHead.cls_p3"``
+    for the SSD family)."""
     block, sizes = RESNET_SPECS[model_cfg.backbone_depth]
     names = {"backbone/" + "/".join(path): key
              for key, path in _resnet_key_map(sizes, block).items()}
@@ -397,10 +394,19 @@ def _flatten_level(x: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def _head_forward(mode, cfg: Config, pyramid):
-    """detjax's ``_head_forward`` for RetinaNet: the towers' weights are
-    shared over the levels, each (conv, level) site has its own scale."""
+    """detjax's ``_head_forward``. SSD: one predictor pair a level, each
+    its own site. RetinaNet: the towers' weights are shared over the
+    levels, each (conv, level) site has its own scale."""
     m = cfg.model
     cls_all, box_all = [], []
+    if m.family == "ssd":
+        for level in sorted(pyramid):
+            x = pyramid[level]
+            cls = mode.conv(f"head/cls_p{level}", f"head/cls_p{level}", x)
+            box = mode.conv(f"head/box_p{level}", f"head/box_p{level}", x)
+            cls_all.append(_flatten_level(cls, m.num_classes))
+            box_all.append(_flatten_level(box, 4))
+        return torch.cat(cls_all, dim=1), torch.cat(box_all, dim=1)
     for level in sorted(pyramid):
         x = pyramid[level]
         c = x
@@ -419,10 +425,6 @@ def _head_forward(mode, cfg: Config, pyramid):
 
 
 def _forward(mode, cfg: Config, images: torch.Tensor):
-    if cfg.model.family != "retinanet":
-        raise NotImplementedError(
-            f"model.family={cfg.model.family!r} is not ported yet; the SSD "
-            "head comes with a later slice of the port")
     feats = _backbone_forward(mode, cfg, images)
     return _head_forward(mode, cfg, _fpn_forward(mode, cfg, feats))
 

@@ -32,6 +32,11 @@ from detjax_torch.models.resnet import (Bottleneck, FrozenBatchNorm2d, ResNet,
                                         fold_frozen_bn)
 from detjax_torch.utils.weights import from_jax
 
+# One intra-op thread a process: pytest-xdist runs several workers on
+# the host's cores, and torch's default of a thread a core in each
+# worker oversubscribes them many times over.
+torch.set_num_threads(1)
+
 # detjax's own bars for the fused block (tests/test_kernels.py:175-177,
 # :218-219): within 5 % of max(|ref|, 1), under 1 % of elements differing
 REL_BAR = 0.05

@@ -22,6 +22,11 @@ from detjax.kernels.bottleneck import _bottleneck_bwd as j_bottleneck_bwd
 
 from detjax_torch.kernels import bottleneck as kb
 
+# One intra-op thread a process: pytest-xdist runs several workers on
+# the host's cores, and torch's default of a thread a core in each
+# worker oversubscribes them many times over.
+torch.set_num_threads(1)
+
 # (B, H, W, M): the card test's shapes with tails, single rows and wide rows
 SHAPES = [(2, 8, 16, 16), (1, 7, 24, 32), (3, 5, 48, 64), (2, 9, 80, 128),
           (1, 5, 104, 128), (1, 2, 1024, 16)]

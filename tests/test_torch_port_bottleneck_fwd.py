@@ -21,6 +21,11 @@ from detjax.kernels.bottleneck import _bottleneck_fwd as j_bottleneck_fwd
 
 from detjax_torch.kernels import bottleneck as kb
 
+# One intra-op thread a process: pytest-xdist runs several workers on
+# the host's cores, and torch's default of a thread a core in each
+# worker oversubscribes them many times over.
+torch.set_num_threads(1)
+
 # (B, H, W, M): the backward's partition tests' shapes, then W = 1, the
 # 608x832 canvas's layer2 (W = 104) and a 4096-px row
 SHAPES = [(2, 8, 16, 16), (1, 7, 24, 32), (3, 5, 48, 64), (2, 9, 80, 128),

@@ -17,6 +17,11 @@ from detjax_torch.cli import export as cli_export
 from detjax_torch.cli import serve as cli_serve
 from detjax_torch.cli import train as cli_train
 
+# One intra-op thread a process: pytest-xdist runs several workers on
+# the host's cores, and torch's default of a thread a core in each
+# worker oversubscribes them many times over.
+torch.set_num_threads(1)
+
 _SETS = ["model.image_size=(64,64)", "model.dtype=float32",
          "model.backbone_depth=18", "model.fpn_channels=32",
          "model.head_channels=32", "model.num_head_convs=1",

@@ -398,6 +398,82 @@ def test_train_step_runs_the_match_kernel(cuda):
     assert km.match_launches == before + 1
 
 
+def test_match_kernel_at_the_ssd_512_anchors(cuda):
+    """ssd_512's anchor set (A = 32,736: two absolute sizes a level, 6 a
+    cell) at its training batch: the kernel's MatchResult bit-equal to the
+    twin's, one launch."""
+    import detjax_torch
+    from detjax_torch.kernels import matching as km
+    from detjax_torch.modeling import anchor_config
+    from detjax_torch.ops.anchors import anchors_for_shape
+
+    cfg = detjax_torch.get_config("ssd_512")
+    anchors = anchors_for_shape((512, 512), anchor_config(cfg))
+    assert anchors.shape == (32736, 4)
+    _, boxes, labels = _match_case(7, 16, 100, 100)
+    anchors, boxes, labels = (torch.from_numpy(x).to(cuda)
+                              for x in (anchors, boxes * 0.8, labels))
+    valid = labels >= 0
+    before = km.match_kernel_launches
+    got = km.match_iou_cuda(anchors, boxes, valid, labels)
+    want = km.match_iou_reference(anchors, boxes, valid, labels)
+    torch.cuda.synchronize()
+    assert km.match_kernel_launches == before + 1
+    assert bool((got[0] >= 0.5).any())
+    for name, x, y in zip(("max_iou", "argmax", "boxes", "labels"), got,
+                          want):
+        assert torch.equal(x, y), name
+
+
+def test_ssd_detect_kernel_route_equals_twin_route(cuda):
+    """An SSD detector (R18, 128 px) detects through the NMS kernel, one
+    launch a batch, bit-equal to the twin route."""
+    import detjax_torch
+
+    cfg = detjax_torch.get_config("ssd_512", **{
+        "model.backbone_depth": 18, "model.image_size": (128, 128),
+        "model.num_classes": 8, "model.prior_prob": 0.3})
+    model = detjax_torch.build_model(cfg, seed=0)
+    canvases = np.random.default_rng(0).integers(0, 256, (2, 128, 128, 3),
+                                                 np.uint8)
+    before = pp.nms_launches
+    det = detjax_torch.detect_u8(model, canvases, cfg)
+    assert pp.nms_launches == before + 1
+    assert int(det.num_valid.min()) > 0
+    twin = detjax_torch.detect_u8(model, canvases, cfg, nms_backend="torch")
+    assert pp.nms_launches == before + 1
+    for a, b in zip(det, twin):
+        assert torch.equal(a, b)
+
+
+def test_bf16_program_equals_the_live_engine(cuda):
+    """The FPN's top-down upsample stays bf16 under CUDA's autocast (which
+    runs it in fp32), so each level's sum rounds to bf16 as in detjax; a
+    traced bf16 detect program, whose upsample runs in bf16, then equals
+    ``detect_u8`` bit for bit on the card."""
+    import detjax_torch
+    from detjax_torch.export import export_detect
+    from detjax_torch.models.fpn import upsample_nearest_2x
+    from detjax_torch.ops.nms import Detections
+
+    x = torch.randn(1, 4, 3, 3, device=cuda).to(torch.bfloat16)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        assert upsample_nearest_2x(x, (5, 6)).dtype == torch.bfloat16
+    cfg = detjax_torch.get_config("retinanet_r50_640", **{
+        "model.backbone_depth": 50, "model.image_size": (256, 256),
+        "model.num_classes": 8, "model.prior_prob": 0.3,
+        "eval.batch_size": 2})
+    model = detjax_torch.build_model(cfg, seed=0)
+    canvases = np.random.default_rng(0).integers(0, 256, (2, 256, 256, 3),
+                                                 np.uint8)
+    live = detjax_torch.detect_u8(model, canvases, cfg)
+    prog = export_detect(model, cfg, batch_size=2, input_format="u8")
+    with torch.inference_mode():
+        got = Detections(*prog.module()(torch.from_numpy(canvases).to(cuda)))
+    for a, b in zip(got, live):
+        assert torch.equal(a, b)
+
+
 # -- fused identity bottleneck -----------------------------------------------
 
 def _bottleneck_case(seed, b, h, w, m, device):

@@ -29,6 +29,11 @@ from detjax_torch.data import pipeline as t_pipeline
 from detjax_torch.data import transforms as t_tf
 from detjax_torch.data.synthetic import SyntheticDetectionDataset
 
+# One intra-op thread a process: pytest-xdist runs several workers on
+# the host's cores, and torch's default of a thread a core in each
+# worker oversubscribes them many times over.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 
 # up, down, odd, one channel, extreme aspect, the 640 -> 608 protocol step

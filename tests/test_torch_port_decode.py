@@ -37,6 +37,11 @@ from detjax_torch.ops.anchors import anchors_for_shape
 
 from tests.test_torch_port_detect import pair  # noqa: F401  (fixture)
 
+# One intra-op thread a process: pytest-xdist runs several workers on
+# the host's cores, and torch's default of a thread a core in each
+# worker oversubscribes them many times over.
+torch.set_num_threads(1)
+
 STD = (0.1, 0.1, 0.2, 0.2)
 CANVAS = (640, 640)
 

@@ -20,6 +20,11 @@ import detjax_torch
 from detjax_torch.ops import nms as tnms
 from detjax_torch.utils.weights import from_jax
 
+# One intra-op thread a process: pytest-xdist runs several workers on
+# the host's cores, and torch's default of a thread a core in each
+# worker oversubscribes them many times over.
+torch.set_num_threads(1)
+
 _OVR = {"model.backbone_depth": 18, "model.image_size": (128, 128),
         "model.num_classes": 8, "model.dtype": "float32",
         "model.fpn_channels": 32, "model.head_channels": 32,

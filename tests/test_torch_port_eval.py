@@ -34,6 +34,11 @@ from detjax_torch.evaluation import protocol as t_protocol
 from detjax_torch.evaluation import voc as t_voc
 from detjax_torch.utils.weights import from_jax
 
+# One intra-op thread a process: pytest-xdist runs several workers on
+# the host's cores, and torch's default of a thread a core in each
+# worker oversubscribes them many times over.
+torch.set_num_threads(1)
+
 STATS = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10", "AR100",
          "ARs", "ARm", "ARl")
 

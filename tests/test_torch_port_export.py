@@ -31,6 +31,11 @@ from detjax_torch.data.pipeline import normalize_u8
 from test_torch_port_detect import _OVR as _DETECT_OVR
 from test_torch_port_quant import _port_qtree, exact_jit
 
+# One intra-op thread a process: pytest-xdist runs several workers on
+# the host's cores, and torch's default of a thread a core in each
+# worker oversubscribes them many times over.
+torch.set_num_threads(1)
+
 # tests/test_torch_port_detect.py's config with one conv a head tower: an
 # int8 program's trace, save and load take time in proportion to its convs
 _OVR = {**_DETECT_OVR, "model.num_head_convs": 1}
@@ -170,10 +175,12 @@ def test_export_arguments_are_checked(progs):
 def test_program_loads_without_model_code(progs, tmp_path):
     """A fresh process that imports the custom ops' module and no module
     of ``detjax_torch.models`` loads the program and gets the same
-    detections."""
+    detections, at this process's CPU thread count (oneDNN's fp32
+    convolutions round by their thread split)."""
     np.save(tmp_path / "c.npy", progs["canvases"])
     script = (
         "import sys, numpy as np, torch\n"
+        f"torch.set_num_threads({torch.get_num_threads()})\n"
         "import detjax_torch.kernels.ops\n"
         "from detjax_torch.export import load_detect\n"
         f"det = load_detect({progs['paths']['fp_u8']!r})("

@@ -39,6 +39,11 @@ from detjax_torch.utils.logging import MetricsLogger
 from detjax_torch.utils.profiling import trace_context
 from detjax_torch.utils.weights import from_jax
 
+# One intra-op thread a process: pytest-xdist runs several workers on
+# the host's cores, and torch's default of a thread a core in each
+# worker oversubscribes them many times over.
+torch.set_num_threads(1)
+
 HW = (64, 64)
 _SMALL = {"model.image_size": HW, "model.num_classes": 4,
           "model.dtype": "float32", "model.fpn_channels": 32,

@@ -17,6 +17,11 @@ import torch
 import detjax_torch
 from detjax_torch.models.fpn import FPN, stride2_conv
 
+# One intra-op thread a process: pytest-xdist runs several workers on
+# the host's cores, and torch's default of a thread a core in each
+# worker oversubscribes them many times over.
+torch.set_num_threads(1)
+
 R50_CHANNELS = (256, 512, 1024, 2048)
 
 

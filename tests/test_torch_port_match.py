@@ -32,6 +32,11 @@ from detjax_torch.modeling import anchor_config
 from detjax_torch.ops import matching as tmatching
 from detjax_torch.ops.anchors import anchors_for_shape
 
+# One intra-op thread a process: pytest-xdist runs several workers on
+# the host's cores, and torch's default of a thread a core in each
+# worker oversubscribes them many times over.
+torch.set_num_threads(1)
+
 HW = (128, 128)
 ANCHORS = anchors_for_shape(HW, anchor_config(
     detjax_torch.get_config("retinanet_r50_640")))

@@ -27,6 +27,11 @@ from detjax.kernels.stem import max_pool_3x3s2 as j_max_pool_3x3s2
 
 from detjax_torch.kernels import stem as ks
 
+# One intra-op thread a process: pytest-xdist runs several workers on
+# the host's cores, and torch's default of a thread a core in each
+# worker oversubscribes them many times over.
+torch.set_num_threads(1)
+
 NEG_INF_BF16 = np.uint16(0xFF80)
 UNWRITTEN = np.uint16(0x7FC1)  # a NaN no route produces
 

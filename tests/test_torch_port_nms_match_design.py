@@ -37,6 +37,11 @@ from detjax_torch.modeling import anchor_config
 from detjax_torch.ops.anchors import anchors_for_shape
 from detjax_torch.ops.nms import NEG_INF
 
+# One intra-op thread a process: pytest-xdist runs several workers on
+# the host's cores, and torch's default of a thread a core in each
+# worker oversubscribes them many times over.
+torch.set_num_threads(1)
+
 OFFSET = 642.0
 TILE = 64  # candidates a word
 ROUND_WORDS = 1  # words a round

@@ -28,6 +28,11 @@ from detjax_torch.ops import anchors as tanchors
 from detjax_torch.ops import boxes as tboxes
 from detjax_torch.ops import nms as tnms
 
+# One intra-op thread a process: pytest-xdist runs several workers on
+# the host's cores, and torch's default of a thread a core in each
+# worker oversubscribes them many times over.
+torch.set_num_threads(1)
+
 OFFSET = 642.0  # max(640, 640) + 2, the class offset at 640 canvases
 
 

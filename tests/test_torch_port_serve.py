@@ -18,6 +18,11 @@ import torch
 import detjax_torch
 from detjax_torch.serve import DetectionServer, MicroBatcher, Overloaded
 
+# One intra-op thread a process: pytest-xdist runs several workers on
+# the host's cores, and torch's default of a thread a core in each
+# worker oversubscribes them many times over.
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 _OVR = {"model.image_size": (64, 64), "model.num_classes": 4,
         "model.backbone_depth": 18, "model.dtype": "float32",

@@ -26,6 +26,11 @@ import detjax_torch
 from detjax_torch.kernels import stem as ks
 from detjax_torch.utils.weights import from_jax
 
+# One intra-op thread a process: pytest-xdist runs several workers on
+# the host's cores, and torch's default of a thread a core in each
+# worker oversubscribes them many times over.
+torch.set_num_threads(1)
+
 # NHWC (B, 2H, 2W, C); the last has two of detjax's row tiles
 SHAPES = [(2, 16, 16, 4), (2, 16, 24, 8), (1, 128, 128, 8)]
 DTYPES = {"float32": (jnp.float32, torch.float32),

@@ -38,6 +38,11 @@ from detjax_torch.ops.anchors import anchors_for_shape
 from detjax_torch.train import step as tstep
 from detjax_torch.utils.weights import from_jax
 
+# One intra-op thread a process: pytest-xdist runs several workers on
+# the host's cores, and torch's default of a thread a core in each
+# worker oversubscribes them many times over.
+torch.set_num_threads(1)
+
 HW = (128, 128)
 _SMALL = {"model.image_size": HW, "model.num_classes": 6,
           "model.dtype": "float32", "model.fpn_channels": 32,
