@@ -6,6 +6,9 @@ the micro-batching ``DetectionServer``), its training path
 (``make_train_state`` -> ``train_step``, and the loop around it,
 ``fit``: plateau control, checkpoints and resume, periodic evaluation,
 batch-statistics BatchNorm; ``python -m detjax_torch.cli.train``), its
+data parallelism (``detjax_torch.parallel``: ``make_mesh`` over
+torch.distributed, the data-parallel step, ``fit(mesh=)``, sharded
+``evaluate(mesh=)`` and multi-device serving), its
 data pipeline
 (``detjax_torch.data``: COCO and CSV datasets, the threaded batch
 iterator, prefetch to the device) and its evaluation (``evaluate``: COCO

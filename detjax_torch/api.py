@@ -52,7 +52,9 @@ def detect_u8(model, canvases_u8, preset="retinanet_r50_640", **overrides):
 def fit(cfg, train_batches, num_steps, **kwargs):
     """Train for ``num_steps`` steps over ``train_batches`` with periodic
     logging, plateau control, checkpoints (and resume) and evaluation, on
-    ``device`` (default ``cuda``). See :func:`detjax_torch.train.loop.fit`.
+    ``device`` (default ``cuda``), or data-parallel with ``mesh=``
+    (:func:`detjax_torch.parallel.make_mesh`). See
+    :func:`detjax_torch.train.loop.fit`.
     """
     from detjax_torch.train.loop import fit as _impl
 

@@ -6,9 +6,10 @@
 
 ``--engine``: "fp", "int8" (needs ``--int8-calibrate IMAGE...``) or the
 path of a saved detect program (``python -m detjax_torch.cli.export``,
-exported at ``--batch-size``). ``--mesh`` waits for the parallel slice of
-the port; there is no ``--compilation-cache`` flag (nothing here is
-compiled by XLA).
+exported at ``--batch-size``). ``--mesh [N]`` serves over the first N
+local CUDA devices (all without N): one replica of the model on each, every
+batch split between them (fp and int8 engines). There is no
+``--compilation-cache`` flag (nothing here is compiled by XLA).
 """
 
 from __future__ import annotations
@@ -48,7 +49,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "to the smallest canvas that holds it unscaled "
                          "(fp/int8 engines)")
     ap.add_argument("--mesh", type=int, nargs="?", const=0, default=None,
-                    metavar="N", help="multi-device serving (not ported yet)")
+                    metavar="N",
+                    help="serve over N local CUDA devices (all without N), "
+                         "each batch split between them")
     ap.add_argument("--max-wait-ms", type=float, default=2.0,
                     help="request-coalescing window")
     ap.add_argument("--score-threshold", type=float, default=0.3)
@@ -64,10 +67,23 @@ def make_server(args, ap=None):
     from detjax_torch.data.coco import COCO_CLASSES
     from detjax_torch.serve import DetectionServer
 
+    mesh = None
     if args.mesh is not None:
-        raise NotImplementedError(
-            "--mesh is not ported yet; multi-device serving comes with the "
-            "parallel slice of the port (ROADMAP Queue 1 #5, Parallel)")
+        import torch
+
+        from detjax_torch.parallel.mesh import make_mesh
+
+        avail = torch.cuda.device_count()
+        n = avail if args.mesh == 0 else args.mesh
+        if not 0 < n <= avail:
+            # a silent slice would serve on fewer devices than asked for
+            msg = (f"--mesh {args.mesh}: need 1..{avail} "
+                   f"(available CUDA devices: {avail})")
+            if ap is not None:
+                ap.error(msg)
+            raise ValueError(msg)
+        mesh = make_mesh([f"cuda:{i}" for i in range(n)])
+        print(f"serving mesh: {n} device(s)")
     if args.engine == "int8" and not args.int8_calibrate:
         msg = ("--engine int8 requires --int8-calibrate IMAGE... (PTQ "
                "ranges frozen from an arbitrary first request are "
@@ -89,7 +105,7 @@ def make_server(args, ap=None):
         model, cfg, engine=args.engine, batch_size=args.batch_size,
         max_wait_ms=args.max_wait_ms, score_threshold=args.score_threshold,
         class_names=names, calibration=calibration, buckets=args.buckets,
-        int8_calib_mode=args.int8_calib_mode)
+        mesh=mesh, int8_calib_mode=args.int8_calib_mode)
 
 
 def main(argv=None):

@@ -14,9 +14,18 @@ Examples:
       --depth 18 --set model.image_size=(64,64)
 Any config field is overridable: --set train.learning_rate=1e-4
 
+  # data-parallel on 8 cards, one process a card over NCCL
+  python -m torch.distributed.run --nproc_per_node 8 \
+      -m detjax_torch.cli.train --preset coco_v5e8 --dp --synthetic
+
 Runs on ``--device`` (default ``cuda``; without a GPU it stops unless
-given ``--device cpu``). ``--dp`` and ``--spatial`` wait for the parallel
-slice of the port (ROADMAP Queue 1 #5, Parallel). detjax's ``--compile-cache`` has
+given ``--device cpu``). ``--dp`` trains data-parallel
+(``detjax_torch.parallel``): under torchrun, one process a device
+(``cuda:LOCAL_RANK`` over NCCL; gloo with ``--device cpu``), each fed its
+stride of the data (``make_train_iterator(per_host=True)``), and only rank
+0 prints, logs and writes checkpoints; without torchrun, at world size 1
+on ``--device``. ``--spatial K>1`` is not ported yet (ROADMAP Queue 1 #7).
+detjax's ``--compile-cache`` has
 no counterpart: it points XLA's persistent compilation cache at a
 directory, and this package compiles no XLA programs (its CUDA kernels
 build once per checkout, into ``detjax_torch/_build``).
@@ -59,11 +68,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="also write TensorBoard scalars under "
                          "<log-dir>/tb")
     ap.add_argument("--dp", action="store_true",
-                    help="data-parallel over all visible devices (not "
-                         "ported yet)")
+                    help="data-parallel over torch.distributed: one process "
+                         "a device under torchrun, else world size 1")
     ap.add_argument("--spatial", type=int, default=1, metavar="K",
                     help="spatial partitioning over K devices (not ported "
-                         "yet)")
+                         "yet: ROADMAP Queue 1 #7)")
     ap.add_argument("--import-backbone",
                     help="torch state_dict .pt with a pretrained ResNet")
     ap.add_argument("--import-detector",
@@ -98,12 +107,29 @@ def main(argv=None):
         ap.error("--train-ann needs --train-images (or --coco-path)")
     if args.csv_train and not args.csv_classes:
         ap.error("--csv-train needs --csv-classes")
-    if args.dp or args.spatial > 1:
-        raise NotImplementedError(
-            "--dp / --spatial are not ported yet; data-parallel and spatial "
-            "training come with the parallel slice of the port (ROADMAP "
-            "Queue 1 #5, Parallel)")
+    if args.spatial > 1:
+        from detjax_torch.parallel.mesh import SPATIAL_NOT_PORTED
 
+        raise NotImplementedError(SPATIAL_NOT_PORTED)
+
+    mesh, owns_group = None, False
+    if args.dp:
+        import torch.distributed as dist
+
+        from detjax_torch.parallel.mesh import make_mesh
+
+        # under torchrun a bare --device cuda is cuda:LOCAL_RANK
+        had_group = dist.is_initialized()
+        mesh = make_mesh([args.device])
+        owns_group = dist.is_initialized() and not had_group
+    try:
+        return _train(args, mesh)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+
+
+def _train(args, mesh):
     import torch
 
     from detjax_torch.config import get_config
@@ -113,6 +139,9 @@ def main(argv=None):
     from detjax_torch.train import fit, make_train_state
     from detjax_torch.utils.profiling import trace_context
 
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    device = args.device if mesh is None else mesh.device
     if args.debug:
         torch.autograd.set_detect_anomaly(True)
     overrides = parse_overrides(args.overrides)
@@ -136,7 +165,7 @@ def main(argv=None):
         if cfg.model.num_classes != train_ds.num_classes:
             overrides["model.num_classes"] = train_ds.num_classes
             cfg = get_config(args.preset, **overrides)
-            print(f"num_classes={train_ds.num_classes} (from --csv-classes)")
+            say(f"num_classes={train_ds.num_classes} (from --csv-classes)")
     else:
         ann = args.train_ann or os.path.join(
             args.coco_path, "annotations",
@@ -153,7 +182,7 @@ def main(argv=None):
                 val_ann, args.val_images or os.path.join(
                     args.coco_path, cfg.data.eval_split))
 
-    state = make_train_state(cfg, seed=cfg.train.seed, device=args.device)
+    state = make_train_state(cfg, seed=cfg.train.seed, device=device)
     if args.import_backbone or args.import_detector:
         from detjax_torch.utils.torch_import import (
             import_full_detector, import_resnet_backbone,
@@ -165,20 +194,24 @@ def main(argv=None):
                     else import_resnet_backbone)
         importer(state, sd)
         what = "detector" if args.import_detector else "backbone"
-        print(f"imported pretrained {what} from {path}")
+        say(f"imported pretrained {what} from {path}")
 
+    if mesh is not None:
+        say(f"data-parallel mesh: {mesh.world_size} process(es), "
+            f"{mesh.device} on rank {mesh.rank}")
     tracing = (trace_context("detjax-train", args.trace_dir)
                if args.trace_dir else contextlib.nullcontext())
     with tracing:
         result = fit(
-            cfg, make_train_iterator(train_ds, cfg), num_steps=args.steps,
-            state=state, eval_dataset=eval_ds,
+            cfg, make_train_iterator(train_ds, cfg,
+                                     per_host=mesh is not None),
+            num_steps=args.steps, state=state, eval_dataset=eval_ds,
             eval_max_images=args.eval_images,
             checkpoint_dir=args.ckpt_dir or None,
             log_dir=args.log_dir or None, tensorboard=args.tensorboard,
-            device=args.device)
-    print(f"done: step={result.state.step} "
-          f"throughput={result.images_per_sec:.1f} img/s")
+            mesh=mesh, device=args.device if mesh is None else None)
+    say(f"done: step={result.state.step} "
+        f"throughput={result.images_per_sec:.1f} img/s")
     return result
 
 

@@ -18,6 +18,13 @@ makes no host sync of its own.
 Ground truth is built once, before the iterator starts its threads, in
 one annotation-only pass; nothing toggles ``load_images`` while loader
 threads read the dataset.
+
+Sharded over a ``mesh`` (``detjax_torch.parallel``, config 5's periodic
+evaluation): each rank of a multi-process mesh detects its contiguous
+rows of every batch and the fixed-size ``Detections`` are all-gathered
+back into batch order, so that every rank scores the same set; a
+single-process mesh splits every batch over its devices, each with a
+replica of the model, and gathers the slices in order.
 """
 
 from __future__ import annotations
@@ -104,7 +111,9 @@ def iter_detections(model, dataset, cfg: Config,
 
     ``detect_fn(model, images) -> Detections`` overrides the path; it gets
     normalized NHWC images in the model's dtype on the model's device.
-    ``mesh=`` raises NotImplementedError."""
+    ``mesh`` shards every batch over the mesh's data axis (see the module
+    docstring); ``eval.batch_size`` must divide over it. A multi-process
+    mesh takes the model on the rank's device."""
     from detjax_torch.data.pipeline import (
         device_prefetch,
         make_eval_iterator,
@@ -112,24 +121,28 @@ def iter_detections(model, dataset, cfg: Config,
     )
     from detjax_torch.modeling import _model_device, detect_u8
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= evaluation is not ported yet; sharded eval comes with "
-            "the parallel slice of the port (ROADMAP Queue 1 #5, Parallel)")
     dev = _model_device(model, cfg)
 
-    def dispatch(images):
+    def detect_on(replica, images):
         if detect_fn is None:
-            return detect_u8(model, images, cfg)
+            return detect_u8(replica, images, cfg)
         x = normalize_u8(images, cfg.data.mean, cfg.data.std,
-                         model.compute_dtype)
-        return detect_fn(model, x)
+                         replica.compute_dtype)
+        return detect_fn(replica, x)
+
+    batches = make_eval_iterator(dataset, cfg)
+    if mesh is None:
+        def dispatch(images):
+            return detect_on(model, images)
+    else:
+        dispatch, batches = _sharded_dispatch(model, dev, batches, cfg, mesh,
+                                              detect_on)
+    if mesh is None or mesh.multi_process:
+        batches = device_prefetch(batches, dev, keys=("images",))
 
     n_done = 0
     n_dispatched = 0  # images in flight, an upper bound on those to yield
     pending = None
-    batches = device_prefetch(make_eval_iterator(dataset, cfg), dev,
-                              keys=("images",))
     for batch in batches:
         if max_images is not None and n_dispatched >= max_images:
             break  # enough images in flight
@@ -148,6 +161,50 @@ def iter_detections(model, dataset, cfg: Config,
             n_done += 1
             if max_images is not None and n_done >= max_images:
                 return
+
+
+def _sharded_dispatch(model, dev, batches, cfg: Config, mesh, detect_on):
+    """``(dispatch, batches)`` for a sharded evaluation: ``dispatch(images)``
+    gives the whole batch's Detections on ``dev``. A multi-process mesh
+    hands the rank its contiguous rows of each batch (picked on the host,
+    before the copy) and all-gathers the ranks' Detections in rank order;
+    a single-process mesh splits each batch over its devices' replicas
+    and gathers the slices on ``dev`` in order."""
+    from detjax_torch.parallel.mesh import check_mesh, replicate, split_over
+
+    check_mesh(mesh)
+    b = cfg.eval.batch_size
+    if b % mesh.size:
+        raise ValueError(f"eval.batch_size={b} must be divisible by the "
+                         f"mesh's data axis ({mesh.size} devices)")
+    part = b // mesh.size
+    if mesh.multi_process:
+        if dev != mesh.device:
+            raise ValueError(f"the model is on {dev}, this rank's mesh "
+                             f"device is {mesh.device}")
+        lo = mesh.rank * part
+
+        def rows(batches):
+            for batch in batches:
+                yield dict(batch, images=batch["images"][lo:lo + part])
+
+        def dispatch(images):
+            det = detect_on(model, images)
+            return Detections(*(_all_gather(t, mesh) for t in det))
+
+        return dispatch, rows(batches)
+    runs = [(lambda x, rep=rep, d=d: detect_on(rep, torch.as_tensor(x).to(d)))
+            for rep, d in zip(replicate(model, mesh), mesh.devices)]
+    return split_over(dev, runs), batches
+
+
+def _all_gather(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's ``t`` stacked along dim 0, in rank order."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(t) for _ in range(mesh.world_size)]
+    dist.all_gather(parts, t.contiguous(), group=mesh.group)
+    return torch.cat(parts)
 
 
 def run_coco_eval(model, dataset, cfg: Config,

@@ -32,6 +32,7 @@ import threading
 from typing import Dict, List, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -93,18 +94,41 @@ def _recomputing() -> bool:
     return getattr(_RECOMPUTE, "on", False)
 
 
+def _stats_group():
+    """The process group that batch-statistics BatchNorm reduces over on
+    this thread, or None (local statistics)."""
+    return getattr(_RECOMPUTE, "group", None)
+
+
 @contextlib.contextmanager
-def _recompute_context():
-    before = _recomputing()
-    _RECOMPUTE.on = True
+def batch_stats_group(group):
+    """Inside, every batch-statistics :class:`BatchNorm2d` in training
+    takes its statistics over ``group``'s ranks: Sigma x, Sigma x^2 and
+    the count are summed across the group before the mean and variance,
+    as flax's BatchNorm under pjit normalises over the global batch. None
+    keeps each process's own statistics (one process, or world size 1)."""
+    before = _stats_group()
+    _RECOMPUTE.group = group
     try:
         yield
     finally:
-        _RECOMPUTE.on = before
+        _RECOMPUTE.group = before
+
+
+@contextlib.contextmanager
+def _recompute_context(group):
+    before = _recomputing(), _stats_group()
+    _RECOMPUTE.on, _RECOMPUTE.group = True, group
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on, _RECOMPUTE.group = before
 
 
 def _checkpoint_contexts():
-    return contextlib.nullcontext(), _recompute_context()
+    # the recompute runs on the backward's thread: it takes the group the
+    # forward saw, read here, when the checkpoint's forward runs
+    return contextlib.nullcontext(), _recompute_context(_stats_group())
 
 
 def checkpointed(fn, *args):
@@ -308,9 +332,15 @@ class BatchNorm2d(nn.Module):
     take their place. Either way the output is ``(x - mean) * (weight *
     rsqrt(var + eps)) + bias`` in fp32, cast to the activation's dtype.
 
+    Inside :func:`batch_stats_group` (a data-parallel step over more than
+    one rank) the statistics are the global batch's, as under detjax's
+    pjit: Sigma x, Sigma x^2 and the count are summed across the ranks
+    (:func:`_group_moments`), inside autograd.
+
     ``nn.BatchNorm2d`` is not used: it stores the unbiased variance,
     computes the variance another way and keeps a ``num_batches_tracked``
-    buffer that detjax's variables do not have."""
+    buffer that detjax's variables do not have; ``nn.SyncBatchNorm``
+    likewise."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.9):
@@ -325,9 +355,13 @@ class BatchNorm2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.float32)
         if self.training:
-            mean = xf.mean((0, 2, 3))
-            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean,
-                              min=0.0)
+            group = _stats_group()
+            if group is None:
+                mean = xf.mean((0, 2, 3))
+                var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean,
+                                  min=0.0)
+            else:
+                mean, var = _group_moments(xf, group)
             if not _recomputing():  # a checkpoint's recompute: moved once
                 with torch.no_grad():
                     keep = 1.0 - self.momentum
@@ -339,6 +373,39 @@ class BatchNorm2d(nn.Module):
         y = ((xf - mean[None, :, None, None]) * mul[None, :, None, None]
              + self.bias[None, :, None, None])
         return y.to(x.dtype)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """``all_reduce(x, SUM)`` over ``group`` inside autograd: the gradient
+    of a sum over the ranks is the cotangent summed over the ranks."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        dx = dy.contiguous().clone()
+        dist.all_reduce(dx, group=ctx.group)
+        return dx, None
+
+
+def _group_moments(xf: torch.Tensor, group
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mean and flax's fast variance over (N, H, W) of every rank's
+    ``xf``: Sigma x, Sigma x^2 (fp32, per channel) and the count, summed
+    across ``group`` in one all-reduce."""
+    c = xf.shape[1]
+    sums = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                      xf.new_full((1,), float(xf.numel() // c))])
+    sums = _AllReduceSum.apply(sums, group)
+    count = sums[2 * c]
+    mean = sums[:c] / count
+    var = torch.clamp(sums[c:2 * c] / count - mean * mean, min=0.0)
+    return mean, var
 
 
 def batch_norm(num_features: int, frozen: bool) -> nn.Module:

@@ -11,10 +11,13 @@ the host, which waits for the device.
 Three engines behind one callable interface, as in detjax: the live fp
 path (``detect_u8``), the int8 PTQ engine (``quant.detect_int8_u8``,
 calibrated when the server starts) and a saved detect program
-(``export.load_detect``). Not ported yet: multi-device serving over a mesh
-(the parallel slice), which raises ``NotImplementedError``. Request bodies
-are decoded with the in-repo libjpeg binding (``detjax_torch.native``),
-then PIL, as detjax decodes them.
+(``export.load_detect``). Over a single-process mesh
+(``detjax_torch.parallel.make_mesh(devices)``) the fp and int8 engines
+hold one replica of the model (or of the int8 qtree) on each device, split
+every batch into contiguous slices, dispatch each on its device and gather
+the slices in order, as detjax's SPMD serving does. Request bodies are
+decoded with the in-repo libjpeg binding (``detjax_torch.native``), then
+PIL, as detjax decodes them.
 
 HTTP API (stdlib ThreadingHTTPServer; no extra deps):
     POST /detect   body = JPEG/PNG bytes -> {"detections": [{box, score,
@@ -210,19 +213,35 @@ def _build_engine(model, cfg, engine: str, batch_size: int,
     :mod:`detjax_torch.quant`, calibrated on ``calibration``: uint8
     canvases of the served shape, REQUIRED), or the path of a saved detect
     program (:func:`detjax_torch.export.save_detect`, exported for input
-    ``(batch_size, H, W, 3)``). ``mesh`` comes with a later slice.
+    ``(batch_size, H, W, 3)``). ``mesh``: a single-process mesh; each
+    batch is split over its devices (fp and int8 only: a program runs on
+    the one device it was exported for).
     """
     import torch
 
     from detjax_torch.data.pipeline import normalize_u8
     from detjax_torch.modeling import detect_u8
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= serving is not ported yet; multi-device serving comes "
-            "with the parallel slice of the port")
     h, w = cfg.model.image_size
     dev = next(model.parameters()).device
+    if mesh is not None:
+        from detjax_torch.parallel.mesh import (check_mesh, replicate,
+                                                 split_over)
+
+        check_mesh(mesh)
+        if mesh.multi_process:
+            raise ValueError(
+                "mesh= serving runs in one process over its local devices "
+                "(make_mesh(devices) outside torchrun); a multi-process "
+                "mesh trains")
+        if engine not in ("fp", "int8"):
+            raise ValueError(
+                "mesh= requires the fp or int8 engine: a saved detect "
+                "program runs on the one device it was exported for")
+        if batch_size % mesh.size:
+            raise ValueError(
+                f"batch_size={batch_size} must be divisible by the mesh's "
+                f"data axis ({mesh.size} devices)")
 
     def _normalize(canvases_u8, device):  # artifact engine + calibration
         return normalize_u8(torch.as_tensor(canvases_u8).to(device),
@@ -231,6 +250,11 @@ def _build_engine(model, cfg, engine: str, batch_size: int,
     if engine == "fp":
         def run(canvases_u8):
             return detect_u8(model, canvases_u8, cfg)
+
+        if mesh is not None:
+            run = split_over(dev, [
+                (lambda c, m=m: detect_u8(m, c, cfg)) for m in
+                replicate(model, mesh)])
     elif engine == "int8":
         from detjax_torch import quant
 
@@ -254,6 +278,11 @@ def _build_engine(model, cfg, engine: str, batch_size: int,
 
         def run(canvases_u8):
             return quant.detect_int8_u8(qtree, canvases_u8, cfg)
+
+        if mesh is not None:
+            run = split_over(dev, [
+                (lambda c, q=q: quant.detect_int8_u8(q, c, cfg)) for q in
+                replicate(qtree, mesh)])
     else:  # the path of a saved detect program
         from detjax_torch.export import load_detect
 
@@ -320,6 +349,11 @@ class DetectionServer:
     fp and int8 engines only (a program has one input shape); int8
     recalibrates each bucket from the calibration canvases, resized on the
     host.
+
+    ``mesh``: a single-process :class:`detjax_torch.parallel.Mesh` over
+    this host's devices; fp and int8 engines, ``batch_size`` divisible by
+    the devices. Each device holds a replica and detects a contiguous
+    slice of every batch.
     """
 
     def __init__(self, model, cfg, engine: str = "fp",

@@ -30,6 +30,16 @@ What matches detjax, by construction:
   ``(train.seed, step)``. detjax draws it from ``fold_in(PRNGKey(seed),
   step)``, which torch cannot reproduce, so the two packages flip
   different images; tests feed both the same mask.
+
+Under a data-parallel ``mesh`` (``detjax_torch.parallel``) the step takes
+the rank's share of the global batch and computes the single-process step
+on the global batch: the flip mask is drawn for the global batch and the
+rank takes its rows, batch-statistics BatchNorm sums its statistics over
+the group, and between the backward and the clip the gradients are summed
+across the group in one all-reduce and divided by the world size
+(:func:`average_gradients`), the metrics likewise. Every rank then holds
+the same gradients, so the clip, the optimizer and the EMA leave
+bit-equal parameters on every rank.
 """
 
 from __future__ import annotations
@@ -40,10 +50,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from detjax_torch.config import Config
 from detjax_torch.data.pipeline import device_augment
 from detjax_torch.models.detector import Detector
+from detjax_torch.models.resnet import batch_stats_group
 from detjax_torch.modeling import (
     _anchors,
     _config,
@@ -157,7 +169,8 @@ Record = Optional[Callable[[str], None]]
 
 
 def compute_gradients(state: TrainState, batch: Dict,
-                      match_backend: str = "auto", record: Record = None
+                      match_backend: str = "auto", record: Record = None,
+                      mesh=None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Augment, forward, loss and backward over ``batch``, leaving the
     gradients (averaged over ``grad_accum_steps`` micro-batches) in each
@@ -168,7 +181,11 @@ def compute_gradients(state: TrainState, batch: Dict,
     ``gt_boxes`` [B, G, 4] and ``gt_labels`` [B, G] (-1 padding), numpy
     arrays or tensors. ``record(name)``, when given, is called after the
     forward ("forward"), the loss ("loss") and the backward ("backward")
-    of each micro-batch, e.g. to record CUDA events.
+    of each micro-batch, e.g. to record CUDA events. With a multi-process
+    ``mesh``, ``batch`` is this rank's share of the global batch
+    (``Mesh.local_rows``): the flip mask is the global batch's rows, and
+    batch-statistics BatchNorm reduces over the group. The gradients and
+    metrics stay local (:func:`average_gradients`).
     """
     cfg, model = state.cfg, state.model
     t = cfg.train
@@ -184,38 +201,45 @@ def compute_gradients(state: TrainState, batch: Dict,
         raise ValueError(f"train.grad_accum_steps={accum} must divide the "
                          f"batch size ({b})")
     augment = images.dtype == torch.uint8
-    flip = (flip_mask(cfg, state.step, b)
-            if augment and cfg.data.hflip_prob > 0 else None)
+    world = mesh.world_size if mesh is not None else 1
+    flip = None
+    if augment and cfg.data.hflip_prob > 0:
+        flip = flip_mask(cfg, state.step, b * world)
+        if mesh is not None:
+            flip = flip[torch.as_tensor(mesh.local_rows(b * world, accum))]
     anchors = _anchors(cfg.model.image_size, anchor_config(cfg), dev)
     note = record or (lambda name: None)
+    # the world-1 step stays the plain one, bit for bit
+    group = mesh.group if world > 1 else None
 
     model.zero_grad(set_to_none=True)
     mb = b // accum
     loss_sum, metric_sums = None, None
-    for i in range(accum):
-        sl = slice(i * mb, (i + 1) * mb)
-        x, boxes = images[sl], gt_boxes[sl]
-        if augment:
-            x, boxes = device_augment(
-                x, boxes, flip=None if flip is None else flip[sl],
-                hflip_prob=0.0, mean=cfg.data.mean, std=cfg.data.std)
-        cls, box = model(x.permute(0, 3, 1, 2))
-        note("forward")
-        out = detection_loss(
-            cls, box, anchors, boxes, gt_labels[sl],
-            fg_iou_threshold=t.fg_iou_threshold,
-            bg_iou_threshold=t.bg_iou_threshold, alpha=t.focal_alpha,
-            gamma=t.focal_gamma, beta=t.smooth_l1_beta,
-            box_std=cfg.model.box_std, match_backend=match_backend)
-        loss = out.cls_loss + out.reg_loss
-        note("loss")
-        loss.backward()
-        note("backward")
-        loss = loss.detach()
-        loss_sum = loss if loss_sum is None else loss_sum + loss
-        metric_sums = (dict(out.metrics) if metric_sums is None else
-                       {k: v + out.metrics[k]
-                        for k, v in metric_sums.items()})
+    with batch_stats_group(group):
+        for i in range(accum):
+            sl = slice(i * mb, (i + 1) * mb)
+            x, boxes = images[sl], gt_boxes[sl]
+            if augment:
+                x, boxes = device_augment(
+                    x, boxes, flip=None if flip is None else flip[sl],
+                    hflip_prob=0.0, mean=cfg.data.mean, std=cfg.data.std)
+            cls, box = model(x.permute(0, 3, 1, 2))
+            note("forward")
+            out = detection_loss(
+                cls, box, anchors, boxes, gt_labels[sl],
+                fg_iou_threshold=t.fg_iou_threshold,
+                bg_iou_threshold=t.bg_iou_threshold, alpha=t.focal_alpha,
+                gamma=t.focal_gamma, beta=t.smooth_l1_beta,
+                box_std=cfg.model.box_std, match_backend=match_backend)
+            loss = out.cls_loss + out.reg_loss
+            note("loss")
+            loss.backward()
+            note("backward")
+            loss = loss.detach()
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+            metric_sums = (dict(out.metrics) if metric_sums is None else
+                           {k: v + out.metrics[k]
+                            for k, v in metric_sums.items()})
     if accum == 1:
         return loss_sum, metric_sums
     inv = 1.0 / accum
@@ -226,17 +250,48 @@ def compute_gradients(state: TrainState, batch: Dict,
                                        for k, v in metric_sums.items()}
 
 
+def _gradients(state: TrainState) -> List[torch.Tensor]:
+    """Every trainable parameter's gradient, in parameter order."""
+    named = trainable_parameters(state.model)
+    for name, p in named:
+        if p.grad is None:
+            raise RuntimeError(f"no gradient for trainable parameter {name}")
+    return [p.grad for _, p in named]
+
+
+def average_gradients(state: TrainState, mesh) -> None:
+    """Sum every trainable gradient (fp32) across ``mesh``'s group in one
+    coalesced all-reduce, then divide by the world size, in place: what
+    the partitioner inserts into detjax's pjit step. gloo has no AVG op.
+    Every rank then holds the same gradients (x / 1 = x at world 1)."""
+    grads = _gradients(state)
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=mesh.group)
+    flat.div_(mesh.world_size)
+    torch._foreach_copy_(grads, [part.view_as(g) for g, part in zip(
+        grads, flat.split([g.numel() for g in grads]))])
+
+
+def average_metrics(metrics: Dict[str, torch.Tensor], mesh
+                    ) -> Dict[str, torch.Tensor]:
+    """``metrics`` (0-dim fp32 means over the rank's images) averaged over
+    ``mesh``'s group in one all-reduce: the global batch's means, equal on
+    every rank."""
+    keys = list(metrics)  # the same order on every rank
+    flat = torch.stack([metrics[k].to(torch.float32) for k in keys])
+    dist.all_reduce(flat, group=mesh.group)
+    flat.div_(mesh.world_size)
+    return dict(zip(keys, flat.unbind()))
+
+
 def apply_gradients(state: TrainState) -> torch.Tensor:
     """Clip the gradients by their global norm (fp32, no epsilon), step
     the optimizer, update the EMA shadow and count the step. Returns the
     global norm before the clip."""
     cfg = state.cfg
+    grads = _gradients(state)
     named = trainable_parameters(state.model)
-    for name, p in named:
-        if p.grad is None:
-            raise RuntimeError(f"no gradient for trainable parameter {name}")
     params = [p for _, p in named]
-    grads = [p.grad for p in params]
     norm = torch.sqrt(torch.stack(
         [torch.sum(g.to(torch.float32) * g.to(torch.float32))
          for g in grads]).sum())
@@ -262,15 +317,23 @@ def apply_gradients(state: TrainState) -> torch.Tensor:
 
 
 def train_step(state: TrainState, batch: Dict, match_backend: str = "auto",
-               record: Record = None
+               record: Record = None, mesh=None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimization step, in place. Returns ``(state, metrics)`` with
     ``loss``, ``cls_loss``, ``reg_loss``, ``num_pos`` and ``grad_norm`` as
     0-dim fp32 tensors on the model's device (read them with ``float``).
     ``match_backend="torch"`` routes matching through the plain twin;
     ``record`` is :func:`compute_gradients`' and is also called with
-    "update" after the optimizer."""
-    loss, metrics = compute_gradients(state, batch, match_backend, record)
+    "update" after the optimizer. With a multi-process ``mesh``
+    (``detjax_torch.parallel``), ``batch`` is the rank's share of the
+    global batch; the gradients and metrics are averaged over the group
+    before the clip, so the metrics are the global batch's."""
+    loss, metrics = compute_gradients(state, batch, match_backend, record,
+                                      mesh)
+    if mesh is not None and mesh.group is not None:
+        average_gradients(state, mesh)
+        metrics = average_metrics(dict(metrics, loss=loss), mesh)
+        loss = metrics.pop("loss")
     grad_norm = apply_gradients(state)
     if record is not None:
         record("update")

@@ -303,9 +303,18 @@ def test_detect_fn_overrides_and_max_images_caps(carried):
 
 
 def test_mesh_is_not_ported(carried):
+    """evaluate takes a detjax_torch.parallel.Mesh (sharded evaluation is
+    ``tests/test_torch_port_parallel.py``'s): another object is refused,
+    and a mesh with a ``space`` axis names the spatial slice, which is
+    not ported yet."""
+    from detjax_torch.parallel import Mesh
+
     _, tcfg, _, model, (t_ds, _), _ = carried
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
+    with pytest.raises(TypeError, match="Mesh"):
         detjax_torch.evaluate(model, t_ds, tcfg, mesh=object())
+    spatial = Mesh((torch.device("cpu"),) * 2, axis_names=("data", "space"))
+    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
+        detjax_torch.evaluate(model, t_ds, tcfg, mesh=spatial)
 
 
 def test_evaluate_runs_on_the_model_device_only(carried):

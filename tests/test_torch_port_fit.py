@@ -397,7 +397,7 @@ def test_fit_needs_a_gpu_unless_asked_for_the_cpu(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tloop.fit(tcfg, [], 1)
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
+    with pytest.raises(TypeError, match="Mesh"):
         tloop.fit(tcfg, [], 1, mesh=object(), device="cpu")
     _, guard = _cfgs(**{"train.leak_guard_every": 100})
     with pytest.raises(NotImplementedError, match="leak"):
@@ -613,7 +613,8 @@ def test_pickled_module_needs_allow_pickle(tmp_path):
 def test_cli_train_synthetic_on_the_cpu(tmp_path):
     """``python -m detjax_torch.cli.train --synthetic --device cpu`` for 2
     steps at a small size: a state at step 2, its checkpoint, its JSONL;
-    --dp names the parallel slice."""
+    --dp without torchrun trains at world size 1 and equals the plain run
+    in every tensor; --spatial 2 names the spatial slice."""
     args = ["--synthetic", "--device", "cpu", "--steps", "2", "--depth", "18",
             "--ckpt-dir", str(tmp_path / "ck"),
             "--log-dir", str(tmp_path / "log")]
@@ -625,5 +626,11 @@ def test_cli_train_synthetic_on_the_cpu(tmp_path):
     assert res.state.step == 2
     assert os.listdir(tmp_path / "ck") == ["2"]
     assert (tmp_path / "log" / "metrics.jsonl").exists()
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-        cli_train.main(args + ["--dp"])
+    dp_args = [str(tmp_path / "dp") if a.startswith(str(tmp_path)) else a
+               for a in args]
+    dp = cli_train.main(dp_args + ["--dp"])
+    assert dp.state.step == 2
+    for k, v in res.state.model.state_dict().items():
+        assert torch.equal(dp.state.model.state_dict()[k], v), k
+    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
+        cli_train.main(args + ["--dp", "--spatial", "2"])

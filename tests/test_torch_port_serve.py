@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import detjax_torch
+from detjax_torch.parallel import Mesh
 from detjax_torch.serve import DetectionServer, MicroBatcher, Overloaded
 
 # One intra-op thread a process: pytest-xdist runs several workers on
@@ -211,9 +212,14 @@ def test_buckets_route_by_image_size(model):
 
 
 @pytest.mark.parametrize("kw,slice_name", [
-    pytest.param({"mesh": object()}, "parallel", id="kw2-parallel"),
+    pytest.param({"mesh": Mesh((torch.device("cpu"),) * 2,
+                               axis_names=("data", "space"))},
+                 "Queue 1 #7", id="kw2-parallel"),
 ])
 def test_unported_engines_name_their_slice(model, kw, slice_name):
+    """A serving mesh with a ``space`` axis (detjax's spatial partitioning)
+    names the spatial slice, which is not ported yet; a data-parallel
+    mesh serves (``tests/test_torch_port_parallel.py``)."""
     with pytest.raises(NotImplementedError, match=slice_name):
         DetectionServer(model, _cfg(), **kw)
 
@@ -356,7 +362,9 @@ def test_port_never_imports_jax_or_detjax():
             "detjax_torch/kernels/ops.py", "detjax_torch/cli/export.py",
             "detjax_torch/cli/serve.py", "detjax_torch/cli/detect.py",
             "detjax_torch/cli/evaluate.py",
-            "detjax_torch/utils/visualize.py"} <= names
+            "detjax_torch/utils/visualize.py",
+            "detjax_torch/parallel/__init__.py",
+            "detjax_torch/parallel/mesh.py"} <= names
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "flax", "detjax"}
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
