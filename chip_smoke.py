@@ -98,6 +98,24 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def sm_clock():
+    """The card's SM clock now, as ``nvidia-smi --query-gpu=clocks.sm
+    --format=csv,noheader`` gives it (e.g. "1980 MHz"), or None."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    return smi.stdout.strip() if smi.returncode == 0 else None
+
+
+def with_sm_clocks(fn):
+    """``(fn(), clocks)``: the SM clock (sm_clock) sampled just before
+    ``fn`` and just after it, so that no sampling runs beside what ``fn``
+    times."""
+    before = sm_clock()
+    out = fn()
+    return out, [before, sm_clock()]
+
+
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     """Mean ms per call from CUDA events around ``iters`` calls."""
     for _ in range(warmup):
@@ -2031,8 +2049,10 @@ def phase_eval_branch(report: dict, state: dict) -> None:
         nms_args = (top_boxes.reshape(*rows.shape, 4), rows,
                     torch.zeros_like(rows, dtype=torch.int32),
                     e.nms_iou_threshold, 100, 0.0)
-        nms = nms_case("eval_branch_640_rows", nms_args, iters=50)
-        emit({"phase": "eval_branch_nms", "kernel": "nms_cuda", **nms})
+        nms, clocks = with_sm_clocks(
+            lambda: nms_case("eval_branch_640_rows", nms_args, iters=50))
+        emit({"phase": "eval_branch_nms", "kernel": "nms_cuda", **nms,
+              "sm_clock_before_after": clocks})
         fused_ms = cuda_ms(lambda: fused_detect_postprocess(
             box32, anchors, cls32, m.box_std, m.image_size,
             e.score_threshold, e.nms_iou_threshold, e.pre_nms_top_k,
@@ -4859,6 +4879,17 @@ def detect_cell(name: str, cfg, canvases, state: dict) -> dict:
                        "max|twin|; >= 95 % of the twin route's clear kept "
                        "pairs found", "card": state["card"]})
     del on_model
+    undamped = undamped_on_vs_twin(on_cfg, canvases)
+    emit({"phase": f"{name}_fused_undamped", "fused_backbone": "on",
+          "outputs_vs_twin_route": undamped,
+          "tolerance": "logits and deltas within 0.05 x max|twin|, on the "
+                       "seeded weights without damp_residuals_",
+          "card": state["card"]})
+    if not all(e["finite"] and e["max_abs_err"] <= e["tolerance"]
+               for e in undamped.values()):
+        raise SystemExit(f"{name}_fused on undamped weights: the kernel "
+                         f"route's outputs differ from the twin route's: "
+                         f"{undamped}")
     if ((fused_calls, fused_kernels, on_nms) != (5, kb.FWD_KERNELS * 5, 1)
             or on_traced != want_traced):
         raise SystemExit(f"{name}_fused: {fused_calls} fused calls "
@@ -4867,6 +4898,33 @@ def detect_cell(name: str, cfg, canvases, state: dict) -> dict:
                          f"profiler's count {on_traced}")
     check_fused_bars(check)
     return {"model": model, "det": det, "off": off, "on": on, "nms": nms}
+
+
+def undamped_on_vs_twin(on_cfg, canvases) -> dict:
+    """"on" at ``on_cfg`` on the seeded weights without damp_residuals_
+    (desaturated only): the kernel route's logits and deltas against the
+    twin route's (``bottleneck_backend="torch"``, TF32 off) within
+    main_fused's 0.05 x max|twin|, a bar that needs no clear kept pairs
+    (undamped, R101 and SSD-512 have too few for the pairs' bar)."""
+    import detjax_torch
+
+    model = detjax_torch.build_model(on_cfg, seed=0)
+    desaturate_(model, canvases, on_cfg)
+    x = normalized_nchw(model, canvases, on_cfg)
+    with torch.inference_mode():
+        outs = model(x)
+    model.bottleneck_backend = "torch"
+    with tf32_off(), torch.inference_mode():
+        twin = model(x)
+    errs = {}
+    for key, got, want in (("cls", outs[0], twin[0]),
+                           ("box", outs[1], twin[1])):
+        g, w = got.float(), want.float()
+        errs[key] = {"max_abs_err": float((g - w).abs().max()),
+                     "tolerance": 0.05 * float(w.abs().max()),
+                     "finite": bool(torch.isfinite(g).all())}
+    del model
+    return errs
 
 
 def train_cell(name: str, preset: str, state: dict, traced: bool) -> dict:
@@ -6037,25 +6095,74 @@ def swap_halves(batch: dict) -> dict:
     return {k: np.concatenate([v[half:], v[:half]]) for k, v in batch.items()}
 
 
-def grad_check(pair: dict, single: dict, reordered: dict) -> dict:
+@contextlib.contextmanager
+def split_channel_sums(parts: int):
+    """Every ``F.conv2d`` with groups 1 computed as the sum of ``parts``
+    convolutions over consecutive slices of its input channels: the same
+    function, each convolution's sums (forward and backward) in another
+    order and through cuDNN's algorithms for other shapes, as a layout
+    that runs the convolutions on other shapes does."""
+    import torch.nn.functional as F
+
+    plain = F.conv2d
+
+    def split(x, w, b=None, stride=1, padding=0, dilation=1, groups=1):
+        c = x.shape[1]
+        if groups != 1 or c < parts:
+            return plain(x, w, b, stride, padding, dilation, groups)
+        cuts = [c * i // parts for i in range(parts + 1)]
+        out = plain(x[:, :cuts[1]], w[:, :cuts[1]], b, stride, padding,
+                    dilation)
+        for lo, hi in zip(cuts[1:-1], cuts[2:]):
+            out = out + plain(x[:, lo:hi], w[:, lo:hi], None, stride,
+                              padding, dilation)
+        return out
+
+    F.conv2d = split
+    try:
+        yield
+    finally:
+        F.conv2d = plain
+
+
+def _flat_grads(g: dict, keys) -> dict:
+    """``g`` and, under "(all)", every tensor of ``keys`` in one."""
+    return {"(all)": torch.cat([g[k].double().reshape(-1) for k in keys]),
+            **g}
+
+
+def grad_bars(single: dict, reordered) -> tuple:
+    """The single step's gradients (with "(all)") and each one's bar: the
+    larger of GLOO_GRAD_BAR and GLOO_GRAD_ROUNDING x the largest gap that
+    the same step shows with its sums in another order (``reordered``:
+    dp_steps records of such steps), with those gaps."""
+    keys = list(single["grads_step_1"])
+    want = _flat_grads(single["grads_step_1"], keys)
+    gaps = [rel_norm_gaps(_flat_grads(r["grads_step_1"], keys), want)
+            for r in reordered]
+    rounding = {k: max(g[k] for g in gaps) for k in want}
+    return want, {k: max(GLOO_GRAD_BAR, GLOO_GRAD_ROUNDING * rounding[k])
+                  for k in want}, rounding
+
+
+def grad_excess(grads: dict, single: dict, reordered) -> float:
+    """The largest ratio of a gradient's 2-norm gap to its grad_bars bar."""
+    want, bars, _ = grad_bars(single, reordered)
+    gaps = rel_norm_gaps(_flat_grads(grads, single["grads_step_1"]), want)
+    return max(gaps[k] / bars[k] for k in want)
+
+
+def grad_check(pair: dict, single: dict, reordered) -> dict:
     """The pair's step 1 against the single-process step's (dp_steps
     records): the gradients' 2-norm ratio over all of them and over each
-    tensor, each within the larger of GLOO_GRAD_BAR and
-    GLOO_GRAD_ROUNDING x the single step's own gap with its sums
-    reordered (``reordered``), ``grad_excess_step_1`` being the largest
-    ratio of a gap to its bar; the bar of the global norm's gap, likewise
-    from GLOO_FP32_BAR. The five largest gaps are listed beside their
-    rounding."""
-    def flat(g):
-        return {"(all)": torch.cat([g[k].double().reshape(-1)
-                                    for k in single["grads_step_1"]]),
-                **g}
-
-    want = flat(single["grads_step_1"])
-    gaps = rel_norm_gaps(flat(pair["grads_step_1"]), want)
-    rounding = rel_norm_gaps(flat(reordered["grads_step_1"]), want)
-    bars = {k: max(GLOO_GRAD_BAR, GLOO_GRAD_ROUNDING * rounding[k])
-            for k in want}
+    tensor, each within its grad_bars bar (``reordered``: the single
+    step's twins with their sums in another order),
+    ``grad_excess_step_1`` being the largest ratio of a gap to its bar;
+    the bar of the global norm's gap, likewise from GLOO_FP32_BAR. The
+    five largest gaps are listed beside their rounding and bar."""
+    want, bars, rounding = grad_bars(single, reordered)
+    gaps = rel_norm_gaps(_flat_grads(pair["grads_step_1"],
+                                     single["grads_step_1"]), want)
     norm = single["grad_norms"][0]
     top = sorted(gaps, key=gaps.get, reverse=True)[:5]
     return {"grad_excess_step_1": max(gaps[k] / bars[k] for k in want),
@@ -6063,9 +6170,10 @@ def grad_check(pair: dict, single: dict, reordered: dict) -> dict:
             "grad_gap_global_reordered": rounding["(all)"],
             "grad_tensors_over_1e-3": sum(g > GLOO_GRAD_BAR
                                           for g in gaps.values()),
-            "grad_largest_gaps": [[k, gaps[k], rounding[k]] for k in top],
-            "grad_norm_bar": max(GLOO_FP32_BAR, GLOO_GRAD_ROUNDING * abs(
-                reordered["grad_norms"][0] - norm) / norm)}
+            "grad_largest_gaps": [[k, gaps[k], rounding[k], bars[k]]
+                                  for k in top],
+            "grad_norm_bar": max(GLOO_FP32_BAR, GLOO_GRAD_ROUNDING * max(
+                abs(r["grad_norms"][0] - norm) / norm for r in reordered))}
 
 
 def step_gaps(got: dict, want: dict, stats: bool) -> dict:
@@ -6120,7 +6228,7 @@ def detections_gap(got: list, want: list) -> dict:
 
 
 def gloo_row(name: str, g0: dict, g1: dict, w: dict, yardstick: dict,
-             reordered: dict) -> tuple:
+             reordered: list) -> tuple:
     """The pair's row for case ``name`` against the single-process step
     ``w``, and whether it missed a bar. The ranks bit-equal after every
     recorded step; in bf16 (Adam, clip on): the losses within
@@ -6128,16 +6236,18 @@ def gloo_row(name: str, g0: dict, g1: dict, w: dict, yardstick: dict,
     within GLOO_NORM_BAR; in fp32 (TF32 off, sgd, clip off): step 1's loss
     within GLOO_FP32_BAR, the later losses within GLOO_FP32_LATER_BAR, and
     step 1's gradients and their norm as grad_check holds them against
-    the single step's and its reordered twin's (``reordered``: that step
-    with the batch's halves swapped); the parameters after step 1 within
-    2 x lr plus their own rounding (param_excess: the train_routes bar). Batch statistics: each running
-    statistics tensor (2-norm of the difference over the tensor's) in
-    fp32 within GLOO_FP32_BAR after step 1 and GLOO_FP32_LATER_BAR after
-    the last, which checks the reduction; in bf16 within the larger of
-    GLOO_STATS_BAR and the single-process bf16 step's own distance from
-    fp32 (``yardstick``), a precision gap that checks no reduction: bf16
-    convolutions over 8 rows and over 16 may take other cuDNN algorithms,
-    whose rounding reaches the statistics beyond 1e-3."""
+    the single step's and its reordered twins' (``reordered``: that step
+    with the batch's halves swapped, and in the spatial phase with its
+    convolutions' sums split); the parameters after step 1 within 2 x lr
+    plus their own rounding (param_excess: the train_routes bar). Batch
+    statistics: each running statistics tensor (2-norm of the difference
+    over the tensor's) in fp32 within GLOO_FP32_BAR after step 1 and
+    GLOO_FP32_LATER_BAR after the last, which checks the reduction; in
+    bf16 within the larger of GLOO_STATS_BAR and the single-process bf16
+    step's own distance from fp32 (``yardstick``), a precision gap that
+    checks no reduction: bf16 convolutions over 8 rows and over 16 may
+    take other cuDNN algorithms, whose rounding reaches the statistics
+    beyond 1e-3."""
     bn = name.startswith("bn")
     fp32 = "fp32" in name
     bars = {"loss_gap_rel": GLOO_FP32_BAR if fp32 else GLOO_LOSS_BAR,
@@ -6249,7 +6359,7 @@ def dp_gloo_pair(cfg, sd, batches) -> dict:
     yardstick = step_gaps(want["bn"], want.pop(GLOO_YARDSTICK[0]), True)
     for name, w in want.items():
         out[name], missed = gloo_row(name, got[0][name], got[1][name], w,
-                                     yardstick, reordered)
+                                     yardstick, [reordered])
         if missed:
             out["failures"].append(f"gloo pair, {name}")
     out["bn"]["yardstick_single_bf16_vs_fp32"] = yardstick
@@ -6397,6 +6507,413 @@ def phase_parallel(report: dict, state: dict) -> None:
                          "wall_s": wall_s}
 
 
+# -- spatial partitioning (detjax_torch/models/spatial.py) -------------------
+
+# (cell, preset, overrides): R50-1024, whose pyramid stays row-sharded (P7
+# is 8 rows, 4 a rank: the heads run on the ranks' rows), and config 5's
+# R50-640, whose pyramid the layout rule gathers (P7 is 5 rows)
+SPATIAL_CELLS = (("r50_1024", "retinanet_r50_1024", {}),
+                 ("r50_640", "coco_v5e8", {}))
+SPATIAL_BATCH = 8
+SPATIAL_ON_STEPS = 2
+SPATIAL_TRACE_WINDOWS = 3  # traced steps a cell, the first complete one kept
+SPATIAL_FP32 = {"model.dtype": "float32", "train.optimizer": "sgd",
+                "train.learning_rate": GLOO_SGD_LR,
+                "train.grad_clip_norm": 1e9, "data.hflip_prob": 0.0}
+SPATIAL_EVAL_IMAGES = 8
+# the sharded evaluation against the unsharded one (fp32, TF32 off): the
+# detect bars of the CPU tests
+SPATIAL_DET_SCORE_BAR = 2e-5
+SPATIAL_DET_BOX_BAR = 5e-3  # px
+# the fp32 step's yardsticks, beside the batch's halves swapped: the single
+# step with every convolution's channel sum split in this many parts. The
+# pair runs its convolutions on other shapes, whose other sums move the
+# forward by about 5e-6 of each output's largest value and flip a few ReLU
+# masks; the swap keeps every shape and flips none (PERF.md)
+SPATIAL_SPLITS = (2, 4)
+# the gradient check must fail a wrong divisor (the world size in place of
+# the data axis's) and a missing sum over the space group by this much
+SPATIAL_FAULT_EXCESS = 10.0
+SPATIAL_TIMEOUT_S = 600
+FUSED_CUDA_KERNEL_NAMES = tuple(dict.fromkeys(FWD_KERNEL_NAMES
+                                              + BWD_KERNEL_NAMES))
+
+
+def spatial_config(preset: str, **extra):
+    """``preset`` at train batch SPATIAL_BATCH, the smoke's prior, no
+    evaluation or save."""
+    import detjax_torch
+
+    return detjax_torch.get_config(preset, **{
+        "model.prior_prob": PRIOR_PROB, "train.batch_size": SPATIAL_BATCH,
+        "train.checkpoint_every_steps": 10**9,
+        "train.eval_every_steps": 10**9, **extra})
+
+
+def spatial_traced_step(step) -> dict:
+    """``step()`` under torch.profiler (CUDA activity), as profile_calls
+    opens a window; the launches of the matching kernel and of the fused
+    blocks' kernels it recorded, or None. The step runs whatever the
+    profiler does, so that both ranks take the same steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    try:
+        prof.__enter__()
+    except (AssertionError, RuntimeError):
+        prof = None
+    for _ in range(PROFILER_WARMUP_LAUNCHES):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    time.sleep(PROFILER_PAD_S)
+    step()
+    torch.cuda.synchronize()
+    time.sleep(PROFILER_PAD_S)
+    if prof is None:
+        return None
+    try:
+        prof.__exit__(None, None, None)
+        names = [n for n, _ in device_events(prof)]
+    except (AssertionError, RuntimeError):
+        return None
+    return {"match_kernel": sum("match_kernel" in n for n in names),
+            "fused_kernels": sum(any(k in n for k in FUSED_CUDA_KERNEL_NAMES)
+                                 for n in names)}
+
+
+def spatial_rank_cell(preset: str, extra: dict, inputs: dict, mesh) -> dict:
+    """One cell on this rank of the (1, 2) mesh: one fp32 step (TF32 off,
+    sgd, clip off), SPATIAL_ON_STEPS bf16 steps with "on" (launches by the
+    launcher, halo exchanges and gathers, peak memory, ms a step), the
+    same step traced (spatial_traced_step), and the sharded evaluation in
+    fp32 (stats, NMS launches, detections)."""
+    import detjax_torch
+    from detjax_torch.data.synthetic import SyntheticDetectionDataset
+    from detjax_torch.evaluation.evaluator import iter_detections
+    from detjax_torch.kernels import bottleneck as kb
+    from detjax_torch.kernels import matching as km
+    from detjax_torch.kernels import postprocess as pp
+    from detjax_torch.models import spatial
+    from detjax_torch.parallel import make_parallel_train_step, shard_batch
+    from detjax_torch.train import step as tstep
+
+    out = {}
+    batches = inputs["batches"]
+    cfg = spatial_config(preset, **{**extra, **SPATIAL_FP32})
+    train = dp_state(cfg, inputs["sd"])
+    run = make_parallel_train_step(cfg, mesh)
+    run.warmup(train, batches[0])
+    km.match_launches = 0
+    with precision_of(cfg):
+        out["fp32_sgd"] = dp_steps(lambda b: run(train, shard_batch(b, mesh)),
+                                   train, batches[:1])
+    out["fp32_sgd"]["match_launches"] = km.match_launches
+    del train, run
+    # the rank's own gradients, before the sum over the space group: what
+    # a step without that sum would keep
+    train = dp_state(cfg, inputs["sd"])
+    with precision_of(cfg):
+        tstep.compute_gradients(train, shard_batch(batches[0], mesh),
+                                mesh=mesh)
+    out["fp32_local_grads"] = {n: p.grad.to("cpu", copy=True)
+                               for n, p in train.model.named_parameters()
+                               if p.grad is not None}
+    del train
+    torch.cuda.empty_cache()
+
+    cfg = spatial_config(preset, **{**extra, "model.fused_backbone": "on"})
+    train = dp_state(cfg, inputs["sd"])
+    run = make_parallel_train_step(cfg, mesh)
+    local = [shard_batch(b, mesh) for b in batches]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kb.bottleneck_launches = kb.bottleneck_bwd_launches = 0
+    kb.bottleneck_kernel_launches = kb.bottleneck_bwd_kernel_launches = 0
+    km.match_launches = km.match_kernel_launches = 0
+    spatial.exchanges.update(dict.fromkeys(spatial.exchanges, 0))
+    rec = dp_steps(lambda b: run(train, b), train, local)
+    n = len(local)
+    rec["launches_per_step"] = {
+        "match": km.match_launches / n,
+        "bottleneck_fwd": kb.bottleneck_launches / n,
+        "bottleneck_bwd": kb.bottleneck_bwd_launches / n}
+    rec["exchanges_per_step"] = {k: v / n
+                                 for k, v in spatial.exchanges.items()}
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    windows = []
+    for _ in range(SPATIAL_TRACE_WINDOWS):
+        kb.bottleneck_kernel_launches = kb.bottleneck_bwd_kernel_launches = 0
+        km.match_kernel_launches = 0
+        traced = spatial_traced_step(lambda: run(train, local[0]))
+        windows.append({"launcher": {
+            "match_kernel": km.match_kernel_launches,
+            "fused_kernels": (kb.bottleneck_kernel_launches
+                              + kb.bottleneck_bwd_kernel_launches)},
+            "profiler": traced})
+    rec["traced_windows"] = windows
+    out["on_bf16"] = rec
+    del train, run, local
+    torch.cuda.empty_cache()
+
+    cfg = spatial_config(preset, **{**extra, "model.dtype": "float32"})
+    model = detjax_torch.build_model(cfg, seed=0)
+    model.load_state_dict(inputs["sd"], strict=True)
+    ds = SyntheticDetectionDataset(SPATIAL_EVAL_IMAGES, cfg.model.image_size,
+                                   cfg.model.num_classes, max_objects=20,
+                                   seed=7)
+    with tf32_off():
+        torch.cuda.synchronize()
+        pp.nms_launches = 0
+        out["eval"] = detjax_torch.evaluate(model, ds, cfg, mesh=mesh).stats
+        torch.cuda.synchronize()
+        out["eval_nms_launches"] = pp.nms_launches
+        out["dets"] = list(iter_detections(model, ds, cfg, mesh=mesh))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def spatial_rank(rank: int, port: int, root: str) -> None:
+    """One of two gloo ranks on cuda:0 on a (1 data x 2 space) mesh
+    (``make_mesh(["cuda:0"], spatial=2)``): every SPATIAL_CELLS cell
+    (spatial_rank_cell) on the parent's weights and batches; writes
+    ``rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from detjax_torch.parallel import make_mesh
+
+    root = Path(root)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    try:
+        mesh = make_mesh(["cuda:0"], spatial=2)
+        out = {"mesh": [list(mesh.axis_names), mesh.rank, mesh.data_rank,
+                        mesh.space_rank, str(mesh.device)]}
+        for cell, preset, extra in SPATIAL_CELLS:
+            t0 = time.perf_counter()
+            out[cell] = spatial_rank_cell(
+                preset, extra, torch.load(root / f"{cell}.pt",
+                                          weights_only=False), mesh)
+            out[cell]["wall_s"] = time.perf_counter() - t0
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, root / f"rank{rank}.pt")
+
+
+def spatial_references(cell: str, preset: str, extra: dict,
+                       root: Path) -> dict:
+    """The cell's seeded, desaturated weights and SPATIAL_ON_STEPS
+    batches of SPATIAL_BATCH (written for the ranks), and the
+    single-process references on them: the fp32 step and its reordered
+    twins (the batch's halves swapped; SPATIAL_SPLITS), the bf16 steps
+    with "on" (peak memory, ms a step) and the
+    unsharded fp32 evaluation."""
+    import detjax_torch
+    from detjax_torch.data.synthetic import SyntheticDetectionDataset
+    from detjax_torch.evaluation.evaluator import iter_detections
+
+    cfg = spatial_config(preset, **extra)
+    batches = [train_batch(cfg, seed=s) for s in range(SPATIAL_ON_STEPS)]
+    train = detjax_torch.make_train_state(cfg, seed=0)
+    scales = desaturate_(train.model, batches[0]["images"][:4], cfg)
+    sd = {k: v.detach().to("cpu", copy=True)
+          for k, v in train.model.state_dict().items()}
+    del train
+    torch.save({"sd": sd, "batches": batches}, root / f"{cell}.pt")
+    want = {"output_scales": scales}
+    c = spatial_config(preset, **{**extra, **SPATIAL_FP32})
+    for name, batch, scope in (
+            ("fp32_sgd", batches[0], contextlib.nullcontext()),
+            ("reordered", swap_halves(batches[0]), contextlib.nullcontext()),
+            *((f"split_{k}", batches[0], split_channel_sums(k))
+              for k in SPATIAL_SPLITS)):
+        train = dp_state(c, sd)
+        with precision_of(c), scope:
+            want[name] = dp_steps(
+                lambda b: detjax_torch.train_step(train, b), train, [batch])
+        want[name]["lr"] = c.train.learning_rate
+        del train
+    c = spatial_config(preset, **{**extra, "model.fused_backbone": "on"})
+    train = dp_state(c, sd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want["on_bf16"] = dp_steps(lambda b: detjax_torch.train_step(train, b),
+                               train, batches)
+    want["on_bf16"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    want["on_bf16"]["lr"] = c.train.learning_rate
+    del train
+    c = spatial_config(preset, **{**extra, "model.dtype": "float32"})
+    model = detjax_torch.build_model(c, seed=0)
+    model.load_state_dict(sd, strict=True)
+    ds = SyntheticDetectionDataset(SPATIAL_EVAL_IMAGES, c.model.image_size,
+                                   c.model.num_classes, max_objects=20,
+                                   seed=7)
+    with tf32_off():
+        want["eval"] = detjax_torch.evaluate(model, ds, c).stats
+        want["dets"] = list(iter_detections(model, ds, c))
+    want["eval_batches"] = -(-SPATIAL_EVAL_IMAGES // c.eval.batch_size)
+    want["canvas"] = list(c.model.image_size)
+    del model
+    torch.cuda.empty_cache()
+    return want
+
+
+def spatial_cell_row(cell: str, g0: dict, g1: dict, w: dict) -> dict:
+    """A cell's row: the fp32 step and the "on" steps held to gloo_row's
+    bars against the single-process steps, the launches a rank, the
+    traced counts, the exchanges, the memory and the times, the sharded
+    evaluation against the unsharded one; its failures under
+    "failures"."""
+    from detjax_torch.models import spatial
+
+    failures = []
+    row = {"canvas": w["canvas"], "output_scales": w["output_scales"],
+           "pyramid_row_sharded": spatial.pyramid_sharded(
+               w["canvas"][0], range(3, 8), 2)}
+    reordered = [w["reordered"], *(w[f"split_{k}"] for k in SPATIAL_SPLITS)]
+    for name in ("fp32_sgd", "on_bf16"):
+        row[name], missed = gloo_row(name, g0[name], g1[name], w[name], {},
+                                     reordered)
+        if missed:
+            failures.append(f"{cell} {name}: {row[name]['missed']}")
+    # the gradient check's readings of each yardstick alone and of two
+    # faults; a fault must read SPATIAL_FAULT_EXCESS times its bar
+    single = w["fp32_sgd"]
+    fp32 = row["fp32_sgd"]
+    keys = list(single["grads_step_1"])
+    want = _flat_grads(single["grads_step_1"], keys)
+    gaps = {n: rel_norm_gaps(_flat_grads(w[n]["grads_step_1"], keys), want)
+            for n in ("reordered", *(f"split_{k}" for k in SPATIAL_SPLITS))}
+    fp32["yardstick_gaps"] = {
+        "largest": {n: max(g.values()) for n, g in gaps.items()},
+        "at_the_pairs_largest": {t: {n: g[t] for n, g in gaps.items()}
+                                 for t, *_ in fp32["grad_largest_gaps"]}}
+    fp32["fault_excess"] = {
+        "world_divisor": grad_excess(
+            {k: v / 2 for k, v in g0["fp32_sgd"]["grads_step_1"].items()},
+            single, reordered),
+        "no_space_sum": grad_excess(g0["fp32_local_grads"], single,
+                                    reordered)}
+    if min(fp32["fault_excess"].values()) < SPATIAL_FAULT_EXCESS:
+        failures.append(f"{cell} fp32_sgd: a fault reads less than "
+                        f"{SPATIAL_FAULT_EXCESS} bars: "
+                        f"{fp32['fault_excess']}")
+    on = g0["on_bf16"]
+    want_launches = {"match": 1.0, "bottleneck_fwd": 5.0,
+                     "bottleneck_bwd": 5.0}
+    launches = [g["on_bf16"]["launches_per_step"] for g in (g0, g1)]
+    traced = next((t for t in on["traced_windows"]
+                   if t["profiler"] == t["launcher"]), None)
+    row.update({
+        "launches_per_rank_step": launches,
+        "fp32_match_launches_per_rank": [g["fp32_sgd"]["match_launches"]
+                                         for g in (g0, g1)],
+        "traced_windows_rank0": on["traced_windows"],
+        "profiler_equals_launcher": traced is not None,
+        "exchanges_per_rank_step": on["exchanges_per_step"],
+        "peak_gib_per_rank": [g["on_bf16"]["peak_gib"] for g in (g0, g1)],
+        "peak_gib_single_process": w["on_bf16"]["peak_gib"],
+        "ms_per_step_rank0": on["ms"],
+        "ms_per_step_single": w["on_bf16"]["ms"],
+        "rank_wall_s": [g["wall_s"] for g in (g0, g1)]})
+    if any(x != want_launches for x in launches) or any(
+            g["fp32_sgd"]["match_launches"] != 1 for g in (g0, g1)):
+        failures.append(f"{cell}: launches a rank {launches}, expected "
+                        f"{want_launches}")
+    if traced is None:
+        failures.append(f"{cell}: no traced window's counts equal the "
+                        f"launcher's")
+    eval_gap = max(abs(g["eval"][k] - w["eval"][k])
+                   for g in (g0, g1) for k in w["eval"])
+    dets = [detections_gap(g["dets"], w["dets"]) for g in (g0, g1)]
+    row["eval"] = {"images": SPATIAL_EVAL_IMAGES, "stats": g0["eval"],
+                   "stats_unsharded": w["eval"], "max_gap": eval_gap,
+                   "nms_launches_per_rank": [g["eval_nms_launches"]
+                                             for g in (g0, g1)],
+                   "batches": w["eval_batches"], "detections": dets,
+                   "bars": {"stats": 1e-6, "score": SPATIAL_DET_SCORE_BAR,
+                            "box_px": SPATIAL_DET_BOX_BAR}}
+    if not (eval_gap < 1e-6 and all(
+            d["images"] == SPATIAL_EVAL_IMAGES and d["labels_equal"]
+            and d["detections"] > 0
+            and d["max_score_gap"] <= SPATIAL_DET_SCORE_BAR
+            and d["max_box_gap_px"] <= SPATIAL_DET_BOX_BAR for d in dets)
+            and row["eval"]["nms_launches_per_rank"]
+            == [w["eval_batches"]] * 2):
+        failures.append(f"{cell}: sharded evaluation")
+    row["failures"] = failures
+    return row
+
+
+def phase_spatial(report: dict, state: dict) -> None:
+    """Spatial partitioning (``detjax_torch/models/spatial.py``, the
+    ``(data, space)`` mesh) at full width: two gloo ranks sharing cuda:0
+    (NCCL refuses two ranks on one device) split each image's rows on a
+    (1, 2) mesh, at retinanet_r50_1024 (the row-sharded pyramid) and at
+    config 5's R50-640 (the gathered one), 8 images, frozen BN. Against
+    the single-process steps on the same batch, computed here first (the
+    card then holds one side at a time): one fp32 step (TF32 off, sgd,
+    clip off) and two bf16 steps with "on" at gloo_row's bars, 1 matching
+    launch and 5 + 5 fused calls a rank a step by the launcher and by
+    torch.profiler, the halo exchanges and gathers a step, each rank's
+    peak memory beside the single process's, ms a step; the sharded fp32
+    evaluation against the unsharded one (12 stats within 1e-6, each
+    image's detections at the detect bars, 1 NMS launch a rank a batch).
+    Two processes share one card, so their ms a step shows function, not
+    the speed of two cards."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="detjax_sp_")
+    root = Path(tmp.name)
+    want = {cell: spatial_references(cell, preset, extra, root)
+            for cell, preset, extra in SPATIAL_CELLS}
+    refs_s = time.perf_counter() - t0
+    ranks = mp.start_processes(spatial_rank, args=(free_port(), str(root)),
+                               nprocs=2, join=False, start_method="spawn")
+    try:
+        deadline = time.monotonic() + SPATIAL_TIMEOUT_S
+        while not ranks.join(timeout=max(deadline - time.monotonic(), 1)):
+            if time.monotonic() > deadline:
+                raise SystemExit("spatial: the gloo ranks did not finish")
+    finally:
+        for proc in ranks.processes:
+            if proc.is_alive():
+                proc.kill()
+    got = [torch.load(root / f"rank{r}.pt", weights_only=False)
+           for r in range(2)]
+    tmp.cleanup()
+    rows = {cell: spatial_cell_row(cell, got[0][cell], got[1][cell],
+                                   want[cell])
+            for cell, _, _ in SPATIAL_CELLS}
+    failures = [f for r in rows.values() for f in r["failures"]]
+    wall_s = time.perf_counter() - t0
+    for cell, row in rows.items():
+        emit({"phase": f"spatial_{cell}", **row, "card": state["card"]})
+    emit({"phase": "spatial", "meshes": [g["mesh"] for g in got],
+          "references_s": refs_s, "wall_s": wall_s,
+          "failures": failures, "card": state["card"],
+          "note": "two ranks share one card: ms a step and peak memory "
+                  "show the layout's function, not two cards' speed"})
+    if failures:
+        raise SystemExit(f"spatial: {failures}")
+    report["match_iou_cuda"]["launches_spatial_per_rank_step"] = {
+        c: r["launches_per_rank_step"][0]["match"] for c, r in rows.items()}
+    report["nms_cuda"]["launches_spatial_eval_per_rank"] = {
+        c: r["eval"]["nms_launches_per_rank"] for c, r in rows.items()}
+    report["bottleneck_identity_cuda"]["launches_spatial_on_per_rank_step"] \
+        = {c: r["launches_per_rank_step"][0]["bottleneck_fwd"]
+           for c, r in rows.items()}
+    report["bottleneck_identity_bwd_cuda"][
+        "launches_spatial_on_per_rank_step"] = {
+        c: r["launches_per_rank_step"][0]["bottleneck_bwd"]
+        for c, r in rows.items()}
+    state["spatial"] = {"wall_s": wall_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6438,6 +6955,7 @@ def main() -> int:
     phase_knobs(report, state)
     phase_bench(state)
     phase_parallel(report, state)
+    phase_spatial(report, state)
     emit({"kernels": list(report.values())})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

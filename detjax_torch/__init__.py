@@ -8,7 +8,9 @@ the micro-batching ``DetectionServer``), its training path
 batch-statistics BatchNorm; ``python -m detjax_torch.cli.train``), its
 data parallelism (``detjax_torch.parallel``: ``make_mesh`` over
 torch.distributed, the data-parallel step, ``fit(mesh=)``, sharded
-``evaluate(mesh=)`` and multi-device serving), its
+``evaluate(mesh=)`` and multi-device serving) and spatial partitioning
+(``make_mesh(spatial=K)``: each image's rows split over K ranks,
+``detjax_torch/models/spatial.py``), its
 data pipeline
 (``detjax_torch.data``: COCO and CSV datasets, the threaded batch
 iterator, prefetch to the device) and its evaluation (``evaluate``: COCO

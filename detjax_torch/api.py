@@ -53,7 +53,8 @@ def fit(cfg, train_batches, num_steps, **kwargs):
     """Train for ``num_steps`` steps over ``train_batches`` with periodic
     logging, plateau control, checkpoints (and resume) and evaluation, on
     ``device`` (default ``cuda``), or data-parallel with ``mesh=``
-    (:func:`detjax_torch.parallel.make_mesh`). See
+    (:func:`detjax_torch.parallel.make_mesh`; with ``spatial=K`` each
+    image's rows split over K ranks too). See
     :func:`detjax_torch.train.loop.fit`.
     """
     from detjax_torch.train.loop import fit as _impl

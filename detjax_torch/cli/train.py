@@ -18,14 +18,22 @@ Any config field is overridable: --set train.learning_rate=1e-4
   python -m torch.distributed.run --nproc_per_node 8 \
       -m detjax_torch.cli.train --preset coco_v5e8 --dp --synthetic
 
+  # the same 8 cards as a (4 data x 2 space) mesh: each image's rows split
+  # over two cards
+  python -m torch.distributed.run --nproc_per_node 8 \
+      -m detjax_torch.cli.train --preset retinanet_r50_1024 --spatial 2 \
+      --synthetic
+
 Runs on ``--device`` (default ``cuda``; without a GPU it stops unless
 given ``--device cpu``). ``--dp`` trains data-parallel
 (``detjax_torch.parallel``): under torchrun, one process a device
 (``cuda:LOCAL_RANK`` over NCCL; gloo with ``--device cpu``), each fed its
 stride of the data (``make_train_iterator(per_host=True)``), and only rank
 0 prints, logs and writes checkpoints; without torchrun, at world size 1
-on ``--device``. ``--spatial K>1`` is not ported yet (ROADMAP Queue 1 #7).
-detjax's ``--compile-cache`` has
+on ``--device``. ``--spatial K`` (implies ``--dp``) makes the mesh
+``(data, space=K)``: K must divide the world size, the K ranks of a data
+index load the same images and each trains on its block of their rows
+(``detjax_torch/models/spatial.py``). detjax's ``--compile-cache`` has
 no counterpart: it points XLA's persistent compilation cache at a
 directory, and this package compiles no XLA programs (its CUDA kernels
 build once per checkout, into ``detjax_torch/_build``).
@@ -71,8 +79,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="data-parallel over torch.distributed: one process "
                          "a device under torchrun, else world size 1")
     ap.add_argument("--spatial", type=int, default=1, metavar="K",
-                    help="spatial partitioning over K devices (not ported "
-                         "yet: ROADMAP Queue 1 #7)")
+                    help="spatial partitioning: a (data, space=K) mesh, "
+                         "each image's rows split over K ranks (implies "
+                         "--dp; K must divide the world size)")
     ap.add_argument("--import-backbone",
                     help="torch state_dict .pt with a pretrained ResNet")
     ap.add_argument("--import-detector",
@@ -107,20 +116,15 @@ def main(argv=None):
         ap.error("--train-ann needs --train-images (or --coco-path)")
     if args.csv_train and not args.csv_classes:
         ap.error("--csv-train needs --csv-classes")
-    if args.spatial > 1:
-        from detjax_torch.parallel.mesh import SPATIAL_NOT_PORTED
-
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
-
     mesh, owns_group = None, False
-    if args.dp:
+    if args.dp or args.spatial > 1:
         import torch.distributed as dist
 
         from detjax_torch.parallel.mesh import make_mesh
 
         # under torchrun a bare --device cuda is cuda:LOCAL_RANK
         had_group = dist.is_initialized()
-        mesh = make_mesh([args.device])
+        mesh = make_mesh([args.device], spatial=args.spatial)
         owns_group = dist.is_initialized() and not had_group
     try:
         return _train(args, mesh)
@@ -196,7 +200,11 @@ def _train(args, mesh):
         what = "detector" if args.import_detector else "backbone"
         say(f"imported pretrained {what} from {path}")
 
-    if mesh is not None:
+    if mesh is not None and mesh.space > 1:
+        say(f"spatial mesh: {mesh.world_size} process(es) as "
+            f"({mesh.data_size} data x {mesh.space} space), {mesh.device} "
+            f"on rank {mesh.rank}")
+    elif mesh is not None:
         say(f"data-parallel mesh: {mesh.world_size} process(es), "
             f"{mesh.device} on rank {mesh.rank}")
     tracing = (trace_context("detjax-train", args.trace_dir)
@@ -204,7 +212,7 @@ def _train(args, mesh):
     with tracing:
         result = fit(
             cfg, make_train_iterator(train_ds, cfg,
-                                     per_host=mesh is not None),
+                                     per_host=mesh is not None, mesh=mesh),
             num_steps=args.steps, state=state, eval_dataset=eval_ds,
             eval_max_images=args.eval_images,
             checkpoint_dir=args.ckpt_dir or None,

@@ -333,13 +333,19 @@ def _process_shard() -> Tuple[int, int]:
     return 0, 1
 
 
-def make_train_iterator(dataset, cfg: Config, per_host: bool = False
-                        ) -> DetectionIterator:
+def make_train_iterator(dataset, cfg: Config, per_host: bool = False,
+                        mesh=None) -> DetectionIterator:
     """Shuffled, repeating, cropped (``cfg.data.random_crop``) training
     batches of ``cfg.train.batch_size``. ``per_host=True`` gives this
     process its stride of the data and its share of the global batch, by
-    its torch.distributed rank."""
-    shard_index, num_shards = _process_shard() if per_host else (0, 1)
+    its torch.distributed rank, or with a ``mesh``
+    (``detjax_torch.parallel``) by its data index: the S ranks of a space
+    group load the same images, each to take its rows of them."""
+    shard_index, num_shards = (0, 1)
+    if per_host:
+        shard_index, num_shards = (
+            _process_shard() if mesh is None
+            else (mesh.data_rank, mesh.data_size))
     bs = cfg.train.batch_size
     if per_host:
         if bs % num_shards:

@@ -24,7 +24,12 @@ evaluation): each rank of a multi-process mesh detects its contiguous
 rows of every batch and the fixed-size ``Detections`` are all-gathered
 back into batch order, so that every rank scores the same set; a
 single-process mesh splits every batch over its devices, each with a
-replica of the model, and gathers the slices in order.
+replica of the model, and gathers the slices in order. On a ``(data,
+space)`` mesh a rank detects its data index's images cut to its own image
+rows (``models/spatial.py``: halo exchanges, the head outputs gathered
+over the space group, NMS on the gathered candidates on each rank), and
+the Detections are gathered over the data axis only: over every rank
+each image would appear S times.
 """
 
 from __future__ import annotations
@@ -136,7 +141,7 @@ def iter_detections(model, dataset, cfg: Config,
             return detect_on(model, images)
     else:
         dispatch, batches = _sharded_dispatch(model, dev, batches, cfg, mesh,
-                                              detect_on)
+                                              detect_on, detect_fn)
     if mesh is None or mesh.multi_process:
         batches = device_prefetch(batches, dev, keys=("images",))
 
@@ -163,33 +168,45 @@ def iter_detections(model, dataset, cfg: Config,
                 return
 
 
-def _sharded_dispatch(model, dev, batches, cfg: Config, mesh, detect_on):
+def _sharded_dispatch(model, dev, batches, cfg: Config, mesh, detect_on,
+                      detect_fn=None):
     """``(dispatch, batches)`` for a sharded evaluation: ``dispatch(images)``
     gives the whole batch's Detections on ``dev``. A multi-process mesh
-    hands the rank its contiguous rows of each batch (picked on the host,
-    before the copy) and all-gathers the ranks' Detections in rank order;
-    a single-process mesh splits each batch over its devices' replicas
-    and gathers the slices on ``dev`` in order."""
-    from detjax_torch.parallel.mesh import check_mesh, replicate, split_over
+    hands the rank its data index's contiguous rows of each batch (picked
+    on the host, before the copy; cut to its image rows on a ``space``
+    axis) and all-gathers the Detections over the data axis in order; a
+    single-process mesh splits each batch over its devices' replicas and
+    gathers the slices on ``dev`` in order. A ``detect_fn`` (another
+    engine) on a ``space`` axis raises (ROADMAP Queue 1 #8)."""
+    from detjax_torch.models import spatial
+    from detjax_torch.parallel.mesh import (SPACE_SERVING_NOT_PORTED,
+                                             check_mesh, replicate,
+                                             split_over)
 
     check_mesh(mesh)
     b = cfg.eval.batch_size
-    if b % mesh.size:
+    if b % mesh.data_size:
         raise ValueError(f"eval.batch_size={b} must be divisible by the "
-                         f"mesh's data axis ({mesh.size} devices)")
-    part = b // mesh.size
+                         f"mesh's data axis ({mesh.data_size} devices)")
+    part = b // mesh.data_size
+    if mesh.space > 1:
+        if detect_fn is not None:
+            raise NotImplementedError(SPACE_SERVING_NOT_PORTED)
+        spatial.check_canvas_rows(cfg.model.image_size[0], mesh.space)
     if mesh.multi_process:
         if dev != mesh.device:
             raise ValueError(f"the model is on {dev}, this rank's mesh "
                              f"device is {mesh.device}")
-        lo = mesh.rank * part
+        lo = mesh.data_rank * part
+        cut = mesh.image_rows(cfg.model.image_size[0])
 
         def rows(batches):
             for batch in batches:
-                yield dict(batch, images=batch["images"][lo:lo + part])
+                yield dict(batch, images=batch["images"][lo:lo + part, cut])
 
         def dispatch(images):
-            det = detect_on(model, images)
+            with spatial.space_group(mesh.space_context()):
+                det = detect_on(model, images)
             return Detections(*(_all_gather(t, mesh) for t in det))
 
         return dispatch, rows(batches)
@@ -199,11 +216,13 @@ def _sharded_dispatch(model, dev, batches, cfg: Config, mesh, detect_on):
 
 
 def _all_gather(t: torch.Tensor, mesh) -> torch.Tensor:
-    """Every rank's ``t`` stacked along dim 0, in rank order."""
+    """The ``t`` of every rank of the data axis (those of this rank's
+    space index), stacked along dim 0 in data order."""
     import torch.distributed as dist
 
-    parts = [torch.empty_like(t) for _ in range(mesh.world_size)]
-    dist.all_gather(parts, t.contiguous(), group=mesh.group)
+    group = mesh.data_group if mesh.space > 1 else mesh.group
+    parts = [torch.empty_like(t) for _ in range(mesh.data_size)]
+    dist.all_gather(parts, t.contiguous(), group=group)
     return torch.cat(parts)
 
 

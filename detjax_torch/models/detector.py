@@ -41,6 +41,12 @@ exists for tests and ``chip_smoke.py`` to compare whole paths.
 "off", detjax's mapping), ``model.remat_early`` and
 ``model.f8_remat_stages`` go to the backbone as in detjax
 (``models/resnet.py::ResNet``); the FPN and the head do not see them.
+
+Under an active space group (``models/spatial.py``) ``images`` are the
+rank's rows of each image: the backbone and the FPN run on them, the
+heads run on the rank's rows of a pyramid that stays row-sharded and on
+whole rows of one that the layout rule gathered, and the outputs cover
+every anchor of the whole canvas on every rank of the space group.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from typing import List, Tuple
 import torch
 
 from detjax_torch.config import ModelConfig
+from detjax_torch.models import spatial
 from detjax_torch.models.fpn import FPN
 from detjax_torch.models.heads import (
     RetinaNetHead,
@@ -155,11 +162,22 @@ class Detector(ResNet):
                                  dtype=torch.bfloat16)
                   if self.compute_dtype == torch.bfloat16
                   else contextlib.nullcontext())
+        sg = spatial.active()
+        row_sharded = True
+        if sg is not None:  # detjax's layout rule, decided once
+            canvas = images.shape[2] * sg.size
+            spatial.check_canvas_rows(canvas, sg.size)
+            row_sharded = spatial.pyramid_sharded(canvas, range(
+                self.cfg.min_level, self.cfg.max_level + 1), sg.size)
+        full_rows = spatial.gather_rows if sg and row_sharded else None
+        heads_scope = (spatial.replicated() if sg and not row_sharded
+                       else contextlib.nullcontext())
         with region:
             feats = super().forward(images.to(self.compute_dtype))
-            pyramid = self.fpn(feats)
-            if self.cfg.family == "ssd":
-                return self.ssdHead(pyramid)
-            return head_outputs(self.classificationModel,
-                                self.regressionModel, pyramid,
-                                self.cfg.num_classes)
+            pyramid = self.fpn(feats, row_sharded)
+            with heads_scope:
+                if self.cfg.family == "ssd":
+                    return self.ssdHead(pyramid, full_rows)
+                return head_outputs(self.classificationModel,
+                                    self.regressionModel, pyramid,
+                                    self.cfg.num_classes, full_rows)

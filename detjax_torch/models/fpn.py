@@ -5,15 +5,27 @@ backbone levels (``fpn.P{l}_1``), nearest 2x top-down upsample cropped to
 the lateral's size and added, 3x3 output convs (``fpn.P{l}_2``); P6 is a
 3x3 stride-2 conv on **C5** (not on P5, ``fpn.P6``), and P7 = a 3x3
 stride-2 conv on ReLU(P6) (``fpn.P7_2``).
+
+Under an active space group (``models/spatial.py``) the laterals and the
+upsample work on the rank's rows and the ``P{l}_2`` convs exchange halo
+rows. The outputs follow detjax's layout rule, which the detector decides
+once from the canvas (``spatial.pyramid_sharded``, as
+``detjax/models/fpn.py:66-69`` applies ``unshard_tiny_levels``): a
+row-sharded pyramid runs P6 and P7 on the rank's rows too; a gathered one
+gathers P3-P5 and C5 (P6's input) and runs P6 and P7 on whole rows, since
+their strides would not split its shards evenly.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Sequence
 
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from detjax_torch.models import spatial
 
 
 def stride2_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -32,7 +44,7 @@ def stride2_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
             y = F.conv2d(bf(x), bf(conv.weight), bf(conv.bias), conv.stride,
                          conv.padding)
         return y.to(torch.bfloat16)
-    return conv(x)
+    return spatial.conv2d(conv, x)
 
 
 def upsample_nearest_2x(x: torch.Tensor, out_hw) -> torch.Tensor:
@@ -63,16 +75,26 @@ class FPN(nn.Module):
                             padding=1)
         self.P7_2 = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
 
-    def forward(self, feats: Dict[int, torch.Tensor]
-                ) -> Dict[int, torch.Tensor]:
+    def forward(self, feats: Dict[int, torch.Tensor],
+                row_sharded: bool = True) -> Dict[int, torch.Tensor]:
+        """P{min_level}..P7 of the backbone's C2..C5. Under an active space
+        group, ``row_sharded`` is detjax's layout rule's decision for this
+        canvas (``spatial.pyramid_sharded``): True, every level on the
+        rank's rows; False, every level whole (``spatial.
+        unshard_tiny_levels``), P6 and P7 on C5's rows gathered up front."""
         laterals = {lvl: getattr(self, f"P{lvl}_1")(feats[lvl])
                     for lvl in range(self.min_level, 6)}
         merged = {5: laterals[5]}
         for lvl in range(4, self.min_level - 1, -1):
             merged[lvl] = laterals[lvl] + upsample_nearest_2x(
                 merged[lvl + 1], laterals[lvl].shape[-2:])
-        out = {lvl: getattr(self, f"P{lvl}_2")(merged[lvl]) for lvl in merged}
-        out[6] = stride2_conv(self.P6, feats[5])
-        out[7] = stride2_conv(self.P7_2, F.relu(out[6]))
+        out = spatial.unshard_tiny_levels(
+            {lvl: spatial.conv2d(getattr(self, f"P{lvl}_2"), merged[lvl])
+             for lvl in merged}, row_sharded)
+        whole = spatial.active() is not None and not row_sharded
+        c5 = spatial.gather_rows(feats[5]) if whole else feats[5]
+        with spatial.replicated() if whole else contextlib.nullcontext():
+            out[6] = stride2_conv(self.P6, c5)
+            out[7] = stride2_conv(self.P7_2, F.relu(out[6]))
         return {lvl: out[lvl] for lvl in range(self.min_level,
                                                self.max_level + 1)}

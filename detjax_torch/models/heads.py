@@ -13,16 +13,23 @@ box_deltas [B, sum A, 4])`` in the anchor order of
 ``detjax_torch.ops.anchors``: levels ascending, per level row-major over
 (y, x), anchor-minor. That order needs the NCHW head output permuted to
 NHWC before the reshape; otherwise rows no longer line up with anchors.
+
+On a row-sharded pyramid (``models/spatial.py``) the convs exchange halo
+rows and each level's output rows are gathered over the space group
+(``full_rows``) before it is flattened: the shards flattened first would
+interleave the anchors.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from detjax_torch.models import spatial
 
 
 class Tower(nn.Module):
@@ -40,8 +47,8 @@ class Tower(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.num_convs):
-            x = F.relu(getattr(self, f"conv{i + 1}")(x))
-        return self.output(x)
+            x = F.relu(spatial.conv2d(getattr(self, f"conv{i + 1}"), x))
+        return spatial.conv2d(self.output, x)
 
 
 def flatten_level(x: torch.Tensor, channels_out: int) -> torch.Tensor:
@@ -88,14 +95,22 @@ def init_towers_(cls_tower: Tower, box_tower: Tower, prior_prob: float,
         cls_tower.output.bias.fill_(prior_bias(prior_prob))
 
 
+Rows = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
 def head_outputs(cls_tower: Tower, box_tower: Tower,
-                 feats: Dict[int, torch.Tensor], num_classes: int
+                 feats: Dict[int, torch.Tensor], num_classes: int,
+                 full_rows: Rows = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Both towers over every level, flattened and concatenated."""
+    """Both towers over every level, flattened and concatenated;
+    ``full_rows`` (``spatial.gather_rows`` on a row-sharded pyramid) is
+    applied to each level's outputs before the flatten."""
+    rows = full_rows or (lambda t: t)
     cls_all, box_all = [], []
     for lvl in sorted(feats):
-        cls_all.append(flatten_level(cls_tower(feats[lvl]), num_classes))
-        box_all.append(flatten_level(box_tower(feats[lvl]), 4))
+        cls_all.append(flatten_level(rows(cls_tower(feats[lvl])),
+                                     num_classes))
+        box_all.append(flatten_level(rows(box_tower(feats[lvl])), 4))
     return torch.cat(cls_all, dim=1), torch.cat(box_all, dim=1)
 
 
@@ -135,12 +150,15 @@ class SSDHead(nn.Module):
             for m in cls_convs:
                 m.bias.fill_(prior_bias(self.prior_prob))
 
-    def forward(self, feats: Dict[int, torch.Tensor]
+    def forward(self, feats: Dict[int, torch.Tensor], full_rows: Rows = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``full_rows`` as :func:`head_outputs`'."""
+        rows = full_rows or (lambda t: t)
         cls_all, box_all = [], []
         for lvl in sorted(feats):
             x = feats[lvl]
-            cls_all.append(flatten_level(getattr(self, f"cls_p{lvl}")(x),
-                                         self.num_classes))
-            box_all.append(flatten_level(getattr(self, f"box_p{lvl}")(x), 4))
+            cls = spatial.conv2d(getattr(self, f"cls_p{lvl}"), x)
+            box = spatial.conv2d(getattr(self, f"box_p{lvl}"), x)
+            cls_all.append(flatten_level(rows(cls), self.num_classes))
+            box_all.append(flatten_level(rows(box), 4))
         return torch.cat(cls_all, dim=1), torch.cat(box_all, dim=1)

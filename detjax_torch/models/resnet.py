@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from detjax_torch.kernels import ops as kernel_ops
+from detjax_torch.models import spatial
 from detjax_torch.kernels.bottleneck import (
     bottleneck_identity,
     bottleneck_identity_reference,
@@ -116,19 +117,21 @@ def batch_stats_group(group):
 
 
 @contextlib.contextmanager
-def _recompute_context(group):
+def _recompute_context(group, space):
     before = _recomputing(), _stats_group()
     _RECOMPUTE.on, _RECOMPUTE.group = True, group
     try:
-        yield
+        with spatial.space_group(space):
+            yield
     finally:
         _RECOMPUTE.on, _RECOMPUTE.group = before
 
 
 def _checkpoint_contexts():
-    # the recompute runs on the backward's thread: it takes the group the
+    # the recompute runs on the backward's thread: it takes the groups the
     # forward saw, read here, when the checkpoint's forward runs
-    return contextlib.nullcontext(), _recompute_context(_stats_group())
+    return contextlib.nullcontext(), _recompute_context(_stats_group(),
+                                                        spatial.active())
 
 
 def checkpointed(fn, *args):
@@ -462,6 +465,14 @@ def _projection(cin: int, cout: int, stride: int,
     return nn.Sequential(conv, batch_norm(cout, frozen_bn))
 
 
+def _shortcut(downsample, x: torch.Tensor) -> torch.Tensor:
+    """A block's shortcut: x, or its projection (conv, then BatchNorm),
+    the conv on the rank's rows under an active space group."""
+    if downsample is None:
+        return x
+    return downsample[1](spatial.conv2d(downsample[0], x))
+
+
 class BasicBlock(nn.Module):
     """3x3(stride) -> 3x3, expansion 1 (R18/34)."""
 
@@ -478,10 +489,9 @@ class BasicBlock(nn.Module):
                            if stride != 1 or cin != planes else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        idn = x if self.downsample is None else self.downsample(x)
-        return F.relu(y + idn)
+        y = F.relu(self.bn1(spatial.conv2d(self.conv1, x)))
+        y = self.bn2(spatial.conv2d(self.conv2, y))
+        return F.relu(y + _shortcut(self.downsample, x))
 
 
 class Bottleneck(nn.Module):
@@ -526,10 +536,9 @@ class Bottleneck(nn.Module):
         if self.fused and (self.frozen_bn or not self.training):
             return self.fused_forward(x)
         y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
+        y = F.relu(self.bn2(spatial.conv2d(self.conv2, y)))
         y = self.bn3(self.conv3(y))
-        idn = x if self.downsample is None else self.downsample(x)
-        return F.relu(y + idn)
+        return F.relu(y + _shortcut(self.downsample, x))
 
     def folded_weights(self) -> List[torch.Tensor]:
         """``[w1, b1, w2, b2, w3, b3]``: the three convs with their
@@ -572,7 +581,17 @@ class Bottleneck(nn.Module):
         records, through ``bottleneck_identity``'s autograd function (the
         backward kernel); otherwise through the custom op
         ``detjax_torch::bottleneck_identity``, the route an exported
-        program takes too."""
+        program takes too.
+
+        Under an active space group the kernel runs on the rank's rows
+        with one row of each neighbour on the inner edges
+        (``spatial.with_row_halo``) and the halo rows of its output are
+        dropped. At the image's own top and bottom no row is added: there
+        the kernel's zero padding of y1 is the 3x3 conv's padding, where a
+        zero row of x would give y1 = relu(b1), not 0."""
+        return spatial.with_row_halo(self._fused_rows, x, 1)
+
+    def _fused_rows(self, x: torch.Tensor) -> torch.Tensor:
         xh = x.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
         wts = self.folded_weights()
         if self.fused_backend == "torch":
@@ -653,8 +672,8 @@ class ResNet(nn.Module):
     def _early_segment(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """The stem and the first ``remat_early - 1`` stages (detjax's
         ``_early_segment``): (x, C2, ...) of the stages it ran."""
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)  # pads with -inf
+        x = F.relu(self.bn1(spatial.conv2d(self.conv1, x)))
+        x = spatial.max_pool_3x3s2(x)  # pads with -inf
         feats = []
         for s in range(max(0, self.remat_early - 1)):
             x = self._stage(s, x)

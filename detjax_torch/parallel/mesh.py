@@ -8,7 +8,8 @@ what the partitioner does there, so that the step at world size W computes
 the single-process step on the global batch:
 
 - the trainable gradients are summed across the group in one coalesced
-  all-reduce and divided by W (``train/step.py::average_gradients``); the
+  all-reduce and divided by W, the data axis' length
+  (``train/step.py::average_gradients``); the
   model is not wrapped in ``DistributedDataParallel``, so its state-dict
   keys, checkpoints and fused autograd functions stay as they are;
 - the step's metrics are averaged the same way, so that the plateau
@@ -28,9 +29,20 @@ A :class:`Mesh` takes one of two forms:
   process's devices; each holds a replica of the model and detects its
   slice of every batch.
 
-Spatial partitioning (detjax's 2-D ``(data, space)`` mesh, whose
-partitioner inserts halo exchanges into every conv and pool) is not ported
-yet: ``spatial > 1`` and a mesh with a ``space`` axis raise.
+Spatial partitioning (``make_mesh(spatial=S)``, detjax's 2-D ``(data,
+space)`` mesh) is multi-process. Rank r has data index ``r // S`` and
+space index ``r % S``, detjax's grid ``reshape(-1, spatial)``. The S ranks
+of a data index (its **space group**) split the same images by rows: each
+takes its data index's images (``local_rows``) cut to its own block of rows
+(``image_rows``), and the model exchanges halo rows and gathers over the
+space group (``models/spatial.py``). The ranks of a space index (its **data
+group**) hold different images: the sharded evaluation gathers its
+detections over it. Batch-statistics BatchNorm sums over every rank, data
+times space, and the gradients are summed over every rank and divided by
+the data-axis size (``train/step.py``). A single-process mesh cannot
+exchange halos without running its shards in parallel, so serving over a
+space axis, and the int8 and program engines on one, are not ported
+(ROADMAP Queue 1 #8): they raise.
 """
 
 from __future__ import annotations
@@ -46,14 +58,16 @@ import torch.distributed as dist
 
 from detjax_torch.config import Config
 from detjax_torch.modeling import resolve_device
+from detjax_torch.models import spatial
 from detjax_torch.ops.nms import Detections
 from detjax_torch.train.step import TrainState, train_step
 
-SPATIAL_NOT_PORTED = (
-    "spatial partitioning (a 'space' mesh axis: make_mesh(spatial>1), "
-    "--spatial K>1) is not ported yet; it comes with the spatial slice of "
-    "the port (ROADMAP Queue 1 #7): halo-exchanging convolutions and "
-    "max-pools with their gradients, and BatchNorm over both axes")
+SPACE_SERVING_NOT_PORTED = (
+    "a 'space' mesh axis runs multi-process only (one rank a device under "
+    "torch.distributed: fit, the train step, evaluate with the live model "
+    "and --spatial K); serving over a space axis (DetectionServer(mesh=), "
+    "a single-process mesh) and the int8 and program engines on a space "
+    "mesh are not ported yet (ROADMAP Queue 1 #8)")
 
 TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                  "MASTER_PORT")
@@ -61,23 +75,70 @@ TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The data axis of a data-parallel run.
+    """The axes of a data-parallel (and spatially partitioned) run.
 
-    ``devices``: this process's devices on the axis (one in a
-    multi-process mesh); ``group``: the process group, None in a
-    single-process mesh; ``rank`` and ``world_size``: this process's place
-    in the group (0 and 1 in one process)."""
+    ``devices``: this process's devices (one in a multi-process mesh);
+    ``group``: the process group of every rank, None in a single-process
+    mesh; ``rank`` and ``world_size``: this process's place in it (0 and 1
+    in one process); ``axis_name``: the data axis's name. ``space``: the
+    ranks that split an image's rows (1 without a ``space`` axis, which
+    :attr:`axis_names` then leaves out); ``space_group`` and
+    ``data_group``: the process groups of this rank's data index (its S
+    ranks) and of its space index (the data axis' ranks that share it),
+    None without a ``space`` axis."""
 
     devices: Tuple[torch.device, ...]
     group: Any = None
     rank: int = 0
     world_size: int = 1
-    axis_names: Tuple[str, ...] = ("data",)
+    axis_name: str = "data"
+    space: int = 1
+    space_group: Any = None
+    data_group: Any = None
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        """The mesh's axes: the data axis, then "space" where it has one."""
+        return (self.axis_name,) + (("space",) if self.space > 1 else ())
 
     @property
     def size(self) -> int:
-        """The length of the data axis: processes times their devices."""
+        """The number of devices: processes times their devices."""
         return self.world_size * len(self.devices)
+
+    @property
+    def data_size(self) -> int:
+        """The length of the data axis: the devices over ``space``."""
+        return self.size // self.space
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's data index (the images it holds)."""
+        return self.rank // self.space
+
+    @property
+    def space_rank(self) -> int:
+        """This rank's space index (its block of every image's rows)."""
+        return self.rank % self.space
+
+    def space_context(self):
+        """The ``models.spatial.SpaceGroup`` of this rank, None without a
+        ``space`` axis."""
+        if self.space == 1:
+            return None
+        return spatial.SpaceGroup(self.space_group, self.space_rank,
+                                  self.space)
+
+    def image_rows(self, height: int) -> slice:
+        """This rank's rows of an image of ``height`` rows (all of them
+        without a ``space`` axis)."""
+        if self.space == 1:
+            return slice(None)
+        if height % self.space:
+            raise ValueError(f"the canvas height {height} is not divisible "
+                             f"by the space axis ({self.space})")
+        part = height // self.space
+        return slice(self.space_rank * part, (self.space_rank + 1) * part)
 
     @property
     def device(self) -> torch.device:
@@ -92,28 +153,32 @@ class Mesh:
         """This rank's rows of a global batch of ``global_size``: for each
         of the ``accum_steps`` micro-batches, in micro-batch order, the
         rank's contiguous part of that micro-batch (detjax's micro-batch i
-        is global rows ``[i*B/A, (i+1)*B/A)``, sharded over ``data``)."""
-        w, accum = self.world_size, max(int(accum_steps), 1)
+        is global rows ``[i*B/A, (i+1)*B/A)``, sharded over ``data``). The
+        S ranks of a space group take the same rows, their data index's."""
+        # a single-process mesh holds every row (its devices split them)
+        w = self.data_size if self.multi_process else 1
+        accum = max(int(accum_steps), 1)
         if global_size % (accum * w):
             raise ValueError(
                 f"a global batch of {global_size} does not split into "
                 f"{accum} micro-batches over {w} ranks")
         mb = global_size // accum
         part = mb // w
+        d = self.data_rank
         return np.concatenate([
-            np.arange(i * mb + self.rank * part,
-                      i * mb + (self.rank + 1) * part)
+            np.arange(i * mb + d * part, i * mb + (d + 1) * part)
             for i in range(accum)])
 
 
 def check_mesh(mesh) -> Mesh:
     """``mesh`` if it is a :class:`Mesh` this package can run; TypeError
-    for another object, NotImplementedError for a ``space`` axis."""
+    for another object, NotImplementedError for a ``space`` axis on a
+    single-process mesh (ROADMAP Queue 1 #8)."""
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a detjax_torch.parallel.Mesh "
                         f"(make_mesh), got {type(mesh).__name__}")
-    if "space" in mesh.axis_names:
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
+    if mesh.space > 1 and not mesh.multi_process:
+        raise NotImplementedError(SPACE_SERVING_NOT_PORTED)
     return mesh
 
 
@@ -173,9 +238,12 @@ def make_mesh(devices: Optional[Sequence[Any]] = None,
     default every visible CUDA device. Without CUDA and without an
     explicit CPU device it raises.
 
-    ``spatial > 1`` raises NotImplementedError (the spatial slice, ROADMAP
-    Queue 1 #7), after detjax's ValueError when ``spatial`` does not
-    divide the devices."""
+    ``spatial > 1`` makes the mesh ``(data, space)``: rank r has data
+    index ``r // spatial`` and space index ``r % spatial``, and every rank
+    creates every data and space group (``dist.new_group``) in the same
+    order. detjax's ValueError when ``spatial`` does not divide the
+    devices; NotImplementedError for a single-process mesh (ROADMAP Queue
+    1 #8)."""
     if _distributed_launch():
         rank = (dist.get_rank() if dist.is_initialized()
                 else int(os.environ["RANK"]))
@@ -187,14 +255,24 @@ def make_mesh(devices: Optional[Sequence[Any]] = None,
                 "nccl" if device.type == "cuda" else "gloo",
                 init_method="env://")
         mesh = Mesh((device,), dist.group.WORLD, dist.get_rank(),
-                    dist.get_world_size(), (axis_name,))
+                    dist.get_world_size(), axis_name)
     else:
-        mesh = Mesh(tuple(_local_devices(devices)), axis_names=(axis_name,))
+        mesh = Mesh(tuple(_local_devices(devices)), axis_name=axis_name)
     if spatial > 1:
         if mesh.size % spatial:
             raise ValueError(
                 f"spatial={spatial} does not divide {mesh.size} devices")
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
+        if not mesh.multi_process:
+            raise NotImplementedError(SPACE_SERVING_NOT_PORTED)
+        w = mesh.world_size
+        space_groups = [dist.new_group(list(range(d, d + spatial)))
+                        for d in range(0, w, spatial)]
+        data_groups = [dist.new_group(list(range(s, w, spatial)))
+                       for s in range(spatial)]
+        mesh = dataclasses.replace(
+            mesh, space=spatial,
+            space_group=space_groups[mesh.rank // spatial],
+            data_group=data_groups[mesh.rank % spatial])
     return mesh
 
 
@@ -335,12 +413,22 @@ def split_over(dev: torch.device, runs: Sequence[Callable]) -> Callable:
 
 # -- batches -----------------------------------------------------------------
 
+def cut_image_rows(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
+    """``batch`` with ``images`` [B, H, W, 3] cut to this rank's rows on a
+    ``space`` axis (detjax's ``P('data', 'space')``), the rest as it is."""
+    if mesh.space == 1 or "images" not in batch:
+        return batch
+    images = batch["images"]
+    return dict(batch, images=images[:, mesh.image_rows(images.shape[1])])
+
+
 def shard_batch(batch: Dict[str, Any], mesh: Mesh,
                 accum_steps: int = 1) -> Dict[str, Any]:
     """This rank's rows of a **global** batch, where they lie (host or
     device; the step copies them to the rank's device): for each of
     ``accum_steps`` micro-batches, the rank's part of that micro-batch,
-    in micro-batch order (:meth:`Mesh.local_rows`)."""
+    in micro-batch order (:meth:`Mesh.local_rows`); on a ``space`` axis
+    its data index's images cut to its own image rows, the GT whole."""
     rows = mesh.local_rows(len(next(iter(batch.values()))), accum_steps)
     out = {}
     for k, v in batch.items():
@@ -348,18 +436,19 @@ def shard_batch(batch: Dict[str, Any], mesh: Mesh,
             out[k] = v[torch.as_tensor(rows, device=v.device)]
         else:
             out[k] = np.asarray(v)[rows]
-    return out
+    return cut_image_rows(out, mesh)
 
 
 def global_batch_from_local(batch: Dict[str, Any], mesh: Mesh
                             ) -> Dict[str, torch.Tensor]:
-    """A rank's **local** batch as it is (e.g. from
-    ``make_train_iterator(per_host=True)``), on the rank's device: under
+    """A rank's **local** batch (e.g. from ``make_train_iterator(
+    per_host=True, mesh=mesh)``: its data index's images), on the rank's
+    device, the images cut to its own rows on a ``space`` axis: under
     torch.distributed each rank holds only its shard, which is what
     detjax's ``make_array_from_process_local_data`` assembles."""
     _one_device(mesh)
     return {k: torch.as_tensor(v).to(mesh.device, non_blocking=True)
-            for k, v in batch.items()}
+            for k, v in cut_image_rows(batch, mesh).items()}
 
 
 def _one_device(mesh: Mesh) -> None:

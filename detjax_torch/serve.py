@@ -15,7 +15,10 @@ calibrated when the server starts) and a saved detect program
 (``detjax_torch.parallel.make_mesh(devices)``) the fp and int8 engines
 hold one replica of the model (or of the int8 qtree) on each device, split
 every batch into contiguous slices, dispatch each on its device and gather
-the slices in order, as detjax's SPMD serving does. Request bodies are
+the slices in order, as detjax's SPMD serving does. A mesh with a
+``space`` axis raises: detjax's server splits rows over local chips in one
+process, which the port's single-process mesh cannot do without a
+shard-parallel forward (ROADMAP Queue 1 #8). Request bodies are
 decoded with the in-repo libjpeg binding (``detjax_torch.native``), then
 PIL, as detjax decodes them.
 
@@ -225,10 +228,13 @@ def _build_engine(model, cfg, engine: str, batch_size: int,
     h, w = cfg.model.image_size
     dev = next(model.parameters()).device
     if mesh is not None:
-        from detjax_torch.parallel.mesh import (check_mesh, replicate,
+        from detjax_torch.parallel.mesh import (SPACE_SERVING_NOT_PORTED,
+                                                 check_mesh, replicate,
                                                  split_over)
 
         check_mesh(mesh)
+        if mesh.space > 1:
+            raise NotImplementedError(SPACE_SERVING_NOT_PORTED)
         if mesh.multi_process:
             raise ValueError(
                 "mesh= serving runs in one process over its local devices "

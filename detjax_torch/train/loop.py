@@ -20,7 +20,8 @@ which updates the state in place on the device:
   steps and keeps prefetch only where the copy can hide.
 
 - ``mesh=`` (a :class:`detjax_torch.parallel.Mesh`): data parallel over
-  torch.distributed, as detjax's ``fit(mesh=)``; see :func:`fit`.
+  torch.distributed, and on a ``(data, space)`` mesh spatially
+  partitioned, as detjax's ``fit(mesh=)``; see :func:`fit`.
 
 Left out, with its reason: detjax's transfer-leak guard
 (``train.leak_guard_every``, ``detjax/train/loop.py:121-138``) works around
@@ -126,12 +127,15 @@ def fit(
     make_parallel_train_step`) on the mesh's device, the state made rank
     0's after the restore, which every rank makes. A batch of
     ``train.batch_size`` is global and gives the rank its rows
-    (``shard_batch``'s order); one of ``train.batch_size / W`` is the
-    rank's own (``make_train_iterator(per_host=True)``). The images/s
-    count the global batch. Only rank 0 logs, prints and writes
+    (``shard_batch``'s order); one of ``train.batch_size / D`` (D the
+    data-axis size, the world size without a ``space`` axis) is the
+    rank's data index's own (``make_train_iterator(per_host=True,
+    mesh=mesh)``). On a ``(data, space)`` mesh the rank then takes its
+    rows of those images (``_rank_share``). The images/s count the
+    global batch. Only rank 0 logs, prints and writes
     checkpoints; every rank waits for its last save. The periodic
     evaluation is sharded over the mesh when ``eval.batch_size`` divides
-    over it, else every rank runs it whole (detjax's rule)."""
+    over its data axis, else every rank runs it whole (detjax's rule)."""
     from detjax_torch.data.pipeline import (
         device_prefetch,
         prefetch_is_profitable,
@@ -305,20 +309,21 @@ def fit(
 def _rank_share(batch: Dict[str, Any], mesh, cfg: Config
                 ) -> Dict[str, Any]:
     """``batch`` as this rank's share, where it lies: one of
-    ``train.batch_size / W`` rows is the rank's own already; one of
+    ``train.batch_size / D`` images is the rank's data index's own
+    already (cut to the rank's image rows on a ``space`` axis); one of
     ``train.batch_size`` is global and gives the rank its rows
     (``shard_batch``, in ``train.grad_accum_steps`` micro-batch order)."""
-    from detjax_torch.parallel.mesh import shard_batch
+    from detjax_torch.parallel.mesh import cut_image_rows, shard_batch
 
-    w, bs = mesh.world_size, cfg.train.batch_size
+    d, bs = mesh.data_size, cfg.train.batch_size
     b = len(next(iter(batch.values())))
-    if bs % w == 0 and b == bs // w:
-        return batch
+    if bs % d == 0 and b == bs // d:
+        return cut_image_rows(batch, mesh)
     if b == bs:
         return shard_batch(batch, mesh, cfg.train.grad_accum_steps)
     raise ValueError(f"a batch of {b} is neither the global batch "
                      f"(train.batch_size={bs}) nor a rank's share of it "
-                     f"over {w} ranks")
+                     f"over {d} data ranks")
 
 
 def _periodic_eval(state: TrainState, dataset, cfg: Config,
@@ -331,7 +336,7 @@ def _periodic_eval(state: TrainState, dataset, cfg: Config,
     stopping a long run at its first evaluation (detjax's rule)."""
     from detjax_torch.evaluation.evaluator import run_coco_eval
 
-    if mesh is not None and cfg.eval.batch_size % mesh.size:
+    if mesh is not None and cfg.eval.batch_size % mesh.data_size:
         mesh = None
     res = run_coco_eval(state.model, dataset, cfg, max_images=max_images,
                         mesh=mesh)

@@ -40,6 +40,17 @@ across the group in one all-reduce and divided by the world size
 (:func:`average_gradients`), the metrics likewise. Every rank then holds
 the same gradients, so the clip, the optimizer and the EMA leave
 bit-equal parameters on every rank.
+
+On a ``(data, space)`` mesh each rank holds its data index's images cut to
+its own rows, and the forward runs under the mesh's space group
+(``models/spatial.py``): halo exchanges in every conv and pool, the head
+outputs gathered over the space group, so that the loss, matching (one
+launch a rank) and everything after the gather are computed alike on the
+S ranks of a space group. Each rank's objective is its data group's loss
+divided by S; the gathers' backwards sum over the space group, and
+:func:`average_gradients` sums every rank's gradients and divides by the
+data-axis size. The metrics are the unscaled ones, averaged over every
+rank. The flip mask follows the data index.
 """
 
 from __future__ import annotations
@@ -55,6 +66,7 @@ import torch.distributed as dist
 from detjax_torch.config import Config
 from detjax_torch.data.pipeline import device_augment
 from detjax_torch.models.detector import Detector
+from detjax_torch.models import spatial
 from detjax_torch.models.resnet import batch_stats_group
 from detjax_torch.modeling import (
     _anchors,
@@ -202,20 +214,23 @@ def compute_gradients(state: TrainState, batch: Dict,
                          f"batch size ({b})")
     augment = images.dtype == torch.uint8
     world = mesh.world_size if mesh is not None else 1
+    space = mesh.space if mesh is not None else 1
+    data = mesh.data_size if world > 1 else 1  # the data axis' ranks
     flip = None
     if augment and cfg.data.hflip_prob > 0:
-        flip = flip_mask(cfg, state.step, b * world)
+        flip = flip_mask(cfg, state.step, b * data)
         if mesh is not None:
-            flip = flip[torch.as_tensor(mesh.local_rows(b * world, accum))]
+            flip = flip[torch.as_tensor(mesh.local_rows(b * data, accum))]
     anchors = _anchors(cfg.model.image_size, anchor_config(cfg), dev)
     note = record or (lambda name: None)
     # the world-1 step stays the plain one, bit for bit
     group = mesh.group if world > 1 else None
+    rows = mesh.space_context() if mesh is not None else None
 
     model.zero_grad(set_to_none=True)
     mb = b // accum
     loss_sum, metric_sums = None, None
-    with batch_stats_group(group):
+    with batch_stats_group(group), spatial.space_group(rows):
         for i in range(accum):
             sl = slice(i * mb, (i + 1) * mb)
             x, boxes = images[sl], gt_boxes[sl]
@@ -233,7 +248,8 @@ def compute_gradients(state: TrainState, batch: Dict,
                 box_std=cfg.model.box_std, match_backend=match_backend)
             loss = out.cls_loss + out.reg_loss
             note("loss")
-            loss.backward()
+            # S ranks compute the same loss after the gathers
+            (loss / space if space > 1 else loss).backward()
             note("backward")
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
@@ -261,13 +277,14 @@ def _gradients(state: TrainState) -> List[torch.Tensor]:
 
 def average_gradients(state: TrainState, mesh) -> None:
     """Sum every trainable gradient (fp32) across ``mesh``'s group in one
-    coalesced all-reduce, then divide by the world size, in place: what
-    the partitioner inserts into detjax's pjit step. gloo has no AVG op.
-    Every rank then holds the same gradients (x / 1 = x at world 1)."""
+    coalesced all-reduce, then divide by the data-axis size (the world
+    size without a ``space`` axis), in place: what the partitioner inserts
+    into detjax's pjit step. gloo has no AVG op. Every rank then holds the
+    same gradients (x / 1 = x at world 1)."""
     grads = _gradients(state)
     flat = torch.cat([g.reshape(-1) for g in grads])
     dist.all_reduce(flat, group=mesh.group)
-    flat.div_(mesh.world_size)
+    flat.div_(mesh.data_size)
     torch._foreach_copy_(grads, [part.view_as(g) for g, part in zip(
         grads, flat.split([g.numel() for g in grads]))])
 
@@ -276,7 +293,8 @@ def average_metrics(metrics: Dict[str, torch.Tensor], mesh
                     ) -> Dict[str, torch.Tensor]:
     """``metrics`` (0-dim fp32 means over the rank's images) averaged over
     ``mesh``'s group in one all-reduce: the global batch's means, equal on
-    every rank."""
+    every rank (on a ``space`` axis each data index counts S times, once
+    a rank of its space group)."""
     keys = list(metrics)  # the same order on every rank
     flat = torch.stack([metrics[k].to(torch.float32) for k in keys])
     dist.all_reduce(flat, group=mesh.group)

@@ -304,17 +304,31 @@ def test_detect_fn_overrides_and_max_images_caps(carried):
 
 def test_mesh_is_not_ported(carried):
     """evaluate takes a detjax_torch.parallel.Mesh (sharded evaluation is
-    ``tests/test_torch_port_parallel.py``'s): another object is refused,
-    and a mesh with a ``space`` axis names the spatial slice, which is
-    not ported yet."""
+    ``tests/test_torch_port_parallel.py``'s, over a space axis
+    ``tests/test_torch_port_spatial.py``'s): another object is refused; a
+    space axis over one process's devices, and another engine
+    (``detect_fn``) on a space axis, name ROADMAP Queue 1 #8; a canvas
+    that the space axis cannot split through the backbone is refused
+    before any collective."""
+    import dataclasses
+
     from detjax_torch.parallel import Mesh
 
     _, tcfg, _, model, (t_ds, _), _ = carried
     with pytest.raises(TypeError, match="Mesh"):
         detjax_torch.evaluate(model, t_ds, tcfg, mesh=object())
-    spatial = Mesh((torch.device("cpu"),) * 2, axis_names=("data", "space"))
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
-        detjax_torch.evaluate(model, t_ds, tcfg, mesh=spatial)
+    local = Mesh((torch.device("cpu"),) * 2, space=2)
+    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
+        detjax_torch.evaluate(model, t_ds, tcfg, mesh=local)
+    ranks = Mesh((torch.device("cpu"),), group=object(), world_size=2,
+                 space=2)
+    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
+        list(t_evaluator.iter_detections(model, t_ds, tcfg, mesh=ranks,
+                                         detect_fn=lambda m, x: None))
+    odd = dataclasses.replace(tcfg, model=dataclasses.replace(
+        tcfg.model, image_size=(96, 96)))
+    with pytest.raises(ValueError, match="32 x space"):
+        detjax_torch.evaluate(model, t_ds, odd, mesh=ranks)
 
 
 def test_evaluate_runs_on_the_model_device_only(carried):

@@ -614,7 +614,9 @@ def test_cli_train_synthetic_on_the_cpu(tmp_path):
     """``python -m detjax_torch.cli.train --synthetic --device cpu`` for 2
     steps at a small size: a state at step 2, its checkpoint, its JSONL;
     --dp without torchrun trains at world size 1 and equals the plain run
-    in every tensor; --spatial 2 names the spatial slice."""
+    in every tensor; --spatial 2 needs two ranks to split rows over (the
+    run under torchrun is ``tests/test_torch_port_spatial.py``'s) and one
+    process refuses it, as detjax does."""
     args = ["--synthetic", "--device", "cpu", "--steps", "2", "--depth", "18",
             "--ckpt-dir", str(tmp_path / "ck"),
             "--log-dir", str(tmp_path / "log")]
@@ -632,5 +634,5 @@ def test_cli_train_synthetic_on_the_cpu(tmp_path):
     assert dp.state.step == 2
     for k, v in res.state.model.state_dict().items():
         assert torch.equal(dp.state.model.state_dict()[k], v), k
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
+    with pytest.raises(ValueError, match="spatial=2 does not divide 1"):
         cli_train.main(args + ["--dp", "--spatial", "2"])

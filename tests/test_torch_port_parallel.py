@@ -44,6 +44,7 @@ from detjax_torch.parallel import (
     replicate,
     shard_batch,
 )
+from detjax_torch.parallel.mesh import check_mesh
 from detjax_torch.train import step as tstep
 from detjax_torch.train.checkpoint import Checkpointer
 
@@ -725,10 +726,20 @@ def test_make_mesh_forms_and_refusals(monkeypatch):
     mesh = make_mesh(["cpu", "cpu", "cpu"])
     assert (mesh.size, mesh.world_size, mesh.group) == (3, 1, None)
     assert mesh.axis_names == ("data",)
+    assert (mesh.space, mesh.data_size, mesh.space_context()) == (1, 3, None)
     with pytest.raises(ValueError, match="does not divide"):
         make_mesh(["cpu", "cpu"], spatial=3)
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
+    # a space axis is multi-process (tests/test_torch_port_spatial.py);
+    # over one process's devices it is the serving slice, Queue 1 #8
+    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
         make_mesh(["cpu", "cpu"], spatial=2)
+    rank_1 = Mesh((torch.device("cpu"),), group=object(), rank=1,
+                  world_size=2, space=2,
+                  space_group=object())
+    assert check_mesh(rank_1) is rank_1
+    assert (rank_1.data_size, rank_1.data_rank, rank_1.space_rank) == (1, 0, 1)
+    assert rank_1.space_context().index == 1
+    assert rank_1.image_rows(64) == slice(32, 64)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_mesh()
@@ -785,7 +796,12 @@ def test_cli_train_under_torch_distributed_run(work):
 
 
 def test_cli_spatial_names_its_slice(tmp_path):
+    """``--spatial K`` builds a (data, space=K) mesh (implying --dp); K
+    must divide the world, as in detjax: one process without torchrun
+    refuses K = 2. The two-rank run is
+    ``tests/test_torch_port_spatial.py``'s."""
     from detjax_torch.cli import train as cli_train
 
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
-        cli_train.main(_cli_args(tmp_path, "--dp", "--spatial", "2"))
+    assert "(data, space=K) mesh" in cli_train.build_parser().format_help()
+    with pytest.raises(ValueError, match="spatial=2 does not divide 1"):
+        cli_train.main(_cli_args(tmp_path, "--spatial", "2"))

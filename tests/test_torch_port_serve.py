@@ -211,15 +211,25 @@ def test_buckets_route_by_image_size(model):
     srv.shutdown()
 
 
+_SPACE_RANKS = Mesh((torch.device("cpu"),), group=object(), world_size=2,
+                    space=2)
+
+
 @pytest.mark.parametrize("kw,slice_name", [
-    pytest.param({"mesh": Mesh((torch.device("cpu"),) * 2,
-                               axis_names=("data", "space"))},
-                 "Queue 1 #7", id="kw2-parallel"),
+    pytest.param({"mesh": Mesh((torch.device("cpu"),) * 2, space=2)},
+                 "Queue 1 #8", id="kw2-parallel"),
+    pytest.param({"mesh": _SPACE_RANKS}, "Queue 1 #8", id="space-ranks"),
+    pytest.param({"mesh": _SPACE_RANKS, "engine": "int8"}, "Queue 1 #8",
+                 id="space-int8"),
+    pytest.param({"mesh": _SPACE_RANKS, "engine": "some_program.pt2"},
+                 "Queue 1 #8", id="space-program"),
 ])
 def test_unported_engines_name_their_slice(model, kw, slice_name):
-    """A serving mesh with a ``space`` axis (detjax's spatial partitioning)
-    names the spatial slice, which is not ported yet; a data-parallel
-    mesh serves (``tests/test_torch_port_parallel.py``)."""
+    """Serving over a ``space`` axis (detjax's server splits rows over
+    local chips in one process), with any engine, names ROADMAP Queue 1
+    #8, the one item left: the port's space axis is multi-process
+    (training and evaluation, ``tests/test_torch_port_spatial.py``); a
+    data-parallel mesh serves (``tests/test_torch_port_parallel.py``)."""
     with pytest.raises(NotImplementedError, match=slice_name):
         DetectionServer(model, _cfg(), **kw)
 
@@ -364,7 +374,8 @@ def test_port_never_imports_jax_or_detjax():
             "detjax_torch/cli/evaluate.py",
             "detjax_torch/utils/visualize.py",
             "detjax_torch/parallel/__init__.py",
-            "detjax_torch/parallel/mesh.py"} <= names
+            "detjax_torch/parallel/mesh.py",
+            "detjax_torch/models/spatial.py"} <= names
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "flax", "detjax"}
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
