@@ -41,7 +41,13 @@ NCCL group bit-equal to ``fit`` without a mesh and timed in turns with
 it, two gloo ranks sharing the card against the single-process steps in
 bf16 and fp32 and a sharded evaluation, mesh serving, and the train CLI
 under ``torch.distributed.run``; config 5's scaling over 8 cards cannot
-be measured on one card).
+be measured on one card); then spatial partitioning over two gloo ranks
+sharing the card (``spatial``) and serving and evaluation over a
+single-process (data, space) mesh, two shard threads on two streams of
+the card (``space_serve``: R50-1024 "off" and "on", R50-640 and its int8
+engine against the same servers with no mesh, R50-1024 and R50-640 in
+fp32 at the detect bars, a sharded ``evaluate``).
+Each phase's wall time prints on a line of its own.
 Builds every CUDA kernel of those paths from ``detjax_torch/csrc/`` (one
 nvcc per source, all started together; also, from ``smoke_prior/``, the
 fused forward as it stood at commit 2503cdf, one kernel on wmma, timed in
@@ -1276,6 +1282,10 @@ FUSED_SHAPES = (("layer1", 8, 160, 160, 64, 2), ("layer2", 8, 80, 80, 128, 3))
 # Held to the twin too, outside the per-forward totals: layer2 of a 608x832
 # canvas (W = 104: 128-pixel tiles straddle rows).
 EXTRA_FUSED_SHAPES = (("tail_608x832_layer2", 2, 76, 104, 128, None),)
+# and the row shards the space_serve phase gives it: R50 at 1024 px, eval
+# batch 8, over two shards, each with one halo row (spatial.with_row_halo)
+SHARD_FUSED_SHAPES = (("r50_1024_shard_layer1", 8, 129, 256, 64, None),
+                      ("r50_1024_shard_layer2", 8, 65, 128, 128, None))
 # the CUDA kernels of one call of the fused forward, and of the prior one
 FWD_KERNEL_NAMES = ("y1_kernel", "fwd_tile_kernel")
 PRIOR_FWD_KERNEL_NAMES = ("bottleneck_fwd_kernel",)
@@ -1321,7 +1331,8 @@ def tf32_off():
 def phase_bottleneck_kernel(report: dict) -> None:
     """The fused forward against its twin (fp32 convs, TF32 off) at the two
     shapes R50's fused blocks have at 640 px, eval batch 8 and train batch
-    16, and at a 104-px tail, with detjax's bars (tests/test_kernels.py:
+    16, at a 104-px tail and at the halo'd row shards of R50 at 1024 px
+    (space_serve), with detjax's bars (tests/test_kernels.py:
     175-177); two runs bit-equal. At the 640 shapes, in turns in one call:
     the forward, the prior one-kernel wmma forward (PRIOR_FWD) and the
     port's unfused block (cuDNN, bf16 autocast); beside them the twin and
@@ -1343,9 +1354,10 @@ def phase_bottleneck_kernel(report: dict) -> None:
     if len(ptxas) != 2 * len(kb.WIDTHS) or spills:
         raise SystemExit(f"the forward's kernels spill or are missing from "
                          f"the ptxas log: {ptxas}")
-    # seeds 10 + i in this order: the eval and tail shapes keep theirs
+    # seeds 10 + i in this order: the earlier shapes keep theirs
     groups = {"eval_bs8": FUSED_SHAPES, "extra": EXTRA_FUSED_SHAPES,
-              "train_bs16": FUSED_TRAIN_SHAPES}
+              "train_bs16": FUSED_TRAIN_SHAPES,
+              "space_shard": SHARD_FUSED_SHAPES}
     rows = {g: [] for g in groups}
     for i, (group, (name, b, h, w, m, n_fwd)) in enumerate(
             (g, shape) for g, shapes in groups.items() for shape in shapes):
@@ -1395,7 +1407,7 @@ def phase_bottleneck_kernel(report: dict) -> None:
         def unfused():
             with torch.autocast(x.device.type, dtype=torch.bfloat16):
                 return block(x_nchw)
-        if group != "extra":
+        if group in ("eval_bs8", "train_bs16"):
             # in turns in one call: prior, current, cuDNN, then back
             calls = {"current": current, PRIOR_FWD: prior_fwd_call(x, wts),
                      "unfused_cudnn": unfused}
@@ -1462,7 +1474,8 @@ def phase_bottleneck_kernel(report: dict) -> None:
                "launches",
         "train_bs16_per_step": total["train_bs16"],
         "shapes": per_shape,
-        "extra_shapes": rows["train_bs16"] + rows["extra"]}
+        "extra_shapes": rows["train_bs16"] + rows["extra"]
+        + rows["space_shard"]}
 
 
 # The identity bottlenecks that fuse in R50 at 640 px, train batch 16:
@@ -2744,6 +2757,9 @@ def phase_int8(report: dict, state: dict) -> None:
     state["int8"] = {"qtree": qtree, "calib_u8": calib_u8}
 
 
+# python -c ARTIFACT_LOADER canvases.npy program.pt2 det.pt [program2 ...]:
+# loads and runs each program in turn in this fresh process, one JSON line
+# a program
 ARTIFACT_LOADER = r"""
 import json, sys, time
 t0 = time.perf_counter()
@@ -2753,32 +2769,37 @@ import detjax_torch.kernels.ops  # registers the custom ops
 from detjax_torch.export import load_detect
 from detjax_torch.kernels import bottleneck as kb
 from detjax_torch.kernels import postprocess as pp
-path, canvases_path, out_path = sys.argv[1:4]
-run = load_detect(path)
-load_s = time.perf_counter() - t0
-canvases = torch.from_numpy(np.load(canvases_path)).cuda()
-run(canvases)
-torch.cuda.synchronize()
-pp.nms_launches = pp.nms_kernel_launches = 0
-kb.bottleneck_launches = kb.bottleneck_kernel_launches = 0
-det = run(canvases)
-torch.cuda.synchronize()
-counts = {"nms_launches": pp.nms_launches,
-          "nms_cuda_kernels": pp.nms_kernel_launches,
-          "bottleneck_launches": kb.bottleneck_launches,
-          "bottleneck_cuda_kernels": kb.bottleneck_kernel_launches}
-t0 = time.perf_counter()
-for _ in range(10):
-    [t.cpu() for t in run(canvases)]
-ms = (time.perf_counter() - t0) / 10 * 1e3
-loaded = sorted(m for m in sys.modules
-                if m.startswith(("detjax_torch.models", "detjax_torch.quant",
-                                 "detjax_torch.modeling", "jax"))
-                or m == "detjax" or m.startswith("detjax."))
-torch.save(tuple(t.cpu() for t in det), out_path)
-print(json.dumps({"load_s": load_s, "ms_per_batch": ms, "loaded": loaded,
-                  "in_shape": list(run.in_shape), "in_dtype": str(run.in_dtype),
-                  **counts}))
+import_s = time.perf_counter() - t0
+canvases = torch.from_numpy(np.load(sys.argv[1])).cuda()
+for path, out_path in zip(sys.argv[2::2], sys.argv[3::2]):
+    t0 = time.perf_counter()
+    run = load_detect(path)
+    load_s = time.perf_counter() - t0
+    run(canvases)
+    torch.cuda.synchronize()
+    pp.nms_launches = pp.nms_kernel_launches = 0
+    kb.bottleneck_launches = kb.bottleneck_kernel_launches = 0
+    det = run(canvases)
+    torch.cuda.synchronize()
+    counts = {"nms_launches": pp.nms_launches,
+              "nms_cuda_kernels": pp.nms_kernel_launches,
+              "bottleneck_launches": kb.bottleneck_launches,
+              "bottleneck_cuda_kernels": kb.bottleneck_kernel_launches}
+    t0 = time.perf_counter()
+    for _ in range(10):
+        [t.cpu() for t in run(canvases)]
+    ms = (time.perf_counter() - t0) / 10 * 1e3
+    loaded = sorted(m for m in sys.modules
+                    if m.startswith(("detjax_torch.models",
+                                     "detjax_torch.quant",
+                                     "detjax_torch.modeling", "jax"))
+                    or m == "detjax" or m.startswith("detjax."))
+    torch.save(tuple(t.cpu() for t in det), out_path)
+    print(json.dumps({"import_s": import_s, "load_s": load_s,
+                      "ms_per_batch": ms, "loaded": loaded,
+                      "in_shape": list(run.in_shape),
+                      "in_dtype": str(run.in_dtype), **counts}), flush=True)
+    del run, det
 """
 
 
@@ -2797,8 +2818,9 @@ def within_detect_bars(got, want) -> dict:
 def phase_export(report: dict, state: dict) -> None:
     """Detect programs at full width (R50-640, bs 8, uint8 input): the fp
     engine "off" and "on" (same weights) and the int8 engine (phase_int8's
-    qtree), each exported, saved, and loaded and run in a fresh process
-    that imports detjax_torch.kernels.ops and no model module; each
+    qtree), each exported and saved, then loaded and run in turn in one
+    fresh process that imports detjax_torch.kernels.ops and no model
+    module; each
     program's detections against its live engine's; launches through the
     program: 1 NMS a batch, and 10 fused-forward CUDA kernels with "on"."""
     import tempfile
@@ -2835,33 +2857,38 @@ def phase_export(report: dict, state: dict) -> None:
         nodes = [str(n.target) for n in prog.graph.nodes
                  if n.op == "call_function"]
         del prog
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-c", ARTIFACT_LOADER, str(path),
-             str(root / "canvases.npy"), str(root / f"det_{name}.pt")],
-            capture_output=True, text=True, timeout=600,
-            cwd=str(Path(__file__).resolve().parent))
-        sub_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            emit({"phase": "export", "program": name,
-                  "loader_stderr": proc.stderr[-3000:]})
-            raise SystemExit(f"the {name} program did not load and run in "
-                             f"a fresh process")
-        sub = json.loads(proc.stdout.strip().splitlines()[-1])
-        from detjax_torch.ops.nms import Detections
-
-        got = Detections(*torch.load(root / f"det_{name}.pt"))
-        cmp = within_detect_bars(got, live[name])
-        want_fused = 5 if name == "on" else 0
         rows[name] = {"export_s": export_s, "save_s": save_s,
-                      "subprocess_s": sub_s,
                       "file_mb": path.stat().st_size / 1e6,
                       "graph_nodes": len(nodes),
                       "nms_ops_in_graph": nodes.count(
                           "detjax_torch.nms.default"),
                       "bottleneck_ops_in_graph": nodes.count(
-                          "detjax_torch.bottleneck_identity.default"),
-                      **sub, **cmp}
+                          "detjax_torch.bottleneck_identity.default")}
+    # the three programs in one fresh process, in turn
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", ARTIFACT_LOADER, str(root / "canvases.npy"),
+         *(str(root / f"{kind}_{name}.{ext}") for name in rows
+           for kind, ext in (("detect", "pt2"), ("det", "pt")))],
+        capture_output=True, text=True, timeout=600,
+        cwd=str(Path(__file__).resolve().parent))
+    loader_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        emit({"phase": "export", "loader_stderr": proc.stderr[-3000:]})
+        raise SystemExit("the programs did not load and run in a fresh "
+                         "process")
+    subs = [json.loads(line) for line in proc.stdout.strip().splitlines()
+            if line.startswith("{")][-len(rows):]
+    if len(subs) != len(rows):
+        raise SystemExit(f"the loader ran {len(subs)} of {len(rows)} "
+                         f"programs")
+    from detjax_torch.ops.nms import Detections
+
+    for (name, row), sub in zip(rows.items(), subs):
+        got = Detections(*torch.load(root / f"det_{name}.pt"))
+        cmp = within_detect_bars(got, live[name])
+        want_fused = 5 if name == "on" else 0
+        row.update({**sub, **cmp})
         if not cmp["ok"]:
             fails.append(f"{name}: detections off the live engine's {cmp}")
         if sub["loaded"]:
@@ -2876,8 +2903,9 @@ def phase_export(report: dict, state: dict) -> None:
                          f"batch through the program, expected {want_fused}")
     state["artifact"] = {"tmp": tmp, "off": str(root / "detect_off.pt2")}
     emit({"phase": "export", "batch": b, "input_format": "u8",
-          "programs": rows, "tolerance": "keep-sets equal, scores 2e-5, "
-          "boxes 5e-3 (tests/test_torch_port_detect.py)",
+          "programs": rows, "loader_process_s": loader_s,
+          "tolerance": "keep-sets equal, scores 2e-5, boxes 5e-3 "
+          "(tests/test_torch_port_detect.py)",
           "card": state["card"]})
     if fails:
         raise SystemExit("; ".join(fails))
@@ -4243,13 +4271,13 @@ def phase_train_data(report: dict, state: dict) -> None:
 COCO_TYPICAL_SIZES = ((640, 480), (480, 640), (500, 375), (427, 640),
                       (612, 612), (640, 426), (333, 500), (375, 500))
 MID_GATE_AP = 0.6768  # detjax bf16 (GATES_r05.json, torchref-mid)
-FIT_STEPS = 300
-FIT_CKPT_EVERY = 100
-FIT_EVAL_EVERY = 150
-FIT_RESUME_FROM = 200
-FIT_LOG_EVERY = 50
-FIT_WINDOW_STEPS = 20  # a timed steady-state window (no eval, no save)
-FIT_TRACE_STEPS = 10  # a traced window (its export is slow)
+FIT_STEPS = 150
+FIT_CKPT_EVERY = 50
+FIT_EVAL_EVERY = 75
+FIT_RESUME_FROM = 100
+FIT_LOG_EVERY = 25
+FIT_WINDOW_STEPS = 10  # a timed steady-state window (no eval, no save)
+FIT_TRACE_STEPS = 5  # a traced window (its export is slow)
 FIT_WARMUP_STEPS = 3  # before each window: cuDNN's choice for the mode
 FIT_RESUME_BAR = 0.02  # of a tensor's change since the resume, if an op
 #                        has no deterministic version
@@ -5118,8 +5146,8 @@ def phase_ssd(report: dict, state: dict) -> None:
     save_detect(str(path), model, cfg, batch_size=b, input_format="u8")
     export_s = time.perf_counter() - t0
     proc = subprocess.run(
-        [sys.executable, "-c", ARTIFACT_LOADER, str(path),
-         str(root / "canvases.npy"), str(root / "det.pt")],
+        [sys.executable, "-c", ARTIFACT_LOADER, str(root / "canvases.npy"),
+         str(path), str(root / "det.pt")],
         capture_output=True, text=True, timeout=600,
         cwd=str(Path(__file__).resolve().parent))
     if proc.returncode != 0:
@@ -5322,8 +5350,8 @@ KNOB_CASES = (
                                    "model.frozen_backbone_bn": False},
      "batch_stats"),
 )
-KNOB_WINDOWS = 5  # timed windows a config, in turns
-KNOB_WINDOW_STEPS = 4
+KNOB_WINDOWS = 3  # timed windows a config, in turns
+KNOB_WINDOW_STEPS = 2
 KNOB_BAR_DOT = 0.05  # of max |baseline gradient|, DotConv1x1 weights
 STEM_PREFIXES = ("conv1.", "bn1.")
 
@@ -6516,7 +6544,7 @@ SPATIAL_CELLS = (("r50_1024", "retinanet_r50_1024", {}),
                  ("r50_640", "coco_v5e8", {}))
 SPATIAL_BATCH = 8
 SPATIAL_ON_STEPS = 2
-SPATIAL_TRACE_WINDOWS = 3  # traced steps a cell, the first complete one kept
+SPATIAL_TRACE_WINDOWS = 2  # traced steps a cell, the first complete one kept
 SPATIAL_FP32 = {"model.dtype": "float32", "train.optimizer": "sgd",
                 "train.learning_rate": GLOO_SGD_LR,
                 "train.grad_clip_norm": 1e9, "data.hflip_prob": 0.0}
@@ -6914,6 +6942,417 @@ def phase_spatial(report: dict, state: dict) -> None:
     state["spatial"] = {"wall_s": wall_s}
 
 
+# -- serving over a single-process (data, space) mesh -----------------------
+
+# (cell, preset, overrides), bf16: R50-1024, whose pyramid stays row-sharded
+# (P7 8 rows, 4 a shard), "off" and "on", and R50-640, whose pyramid the
+# layout rule gathers (P7 5 rows)
+SPACE_SERVE_CELLS = (("r50_1024_off", "retinanet_r50_1024", {}),
+                     ("r50_1024_on", "retinanet_r50_1024",
+                      {"model.fused_backbone": "on"}),
+                     ("r50_640_off", "retinanet_r50_640", {}))
+SPACE_SERVE_BATCH = 8
+SPACE_SERVE_TIMED = 3  # batches timed a route, split and unsplit in turns
+# the split route must find this share of the unsplit route's clear kept
+# pairs (main_fused's bar for routes that differ in summation order)
+SPACE_SERVE_CLEAR_SHARE = 0.95
+
+
+def space_serve_config(preset: str, **extra):
+    import detjax_torch
+
+    return detjax_torch.get_config(preset, **{
+        "model.prior_prob": PRIOR_PROB, "eval.batch_size": SPACE_SERVE_BATCH,
+        **extra})
+
+
+def slots_to_detections(slots, dev):
+    """A server's per-slot answers as one ``Detections`` on ``dev``."""
+    from detjax_torch.ops.nms import Detections
+
+    return Detections(*(torch.as_tensor(np.stack([s[j] for s in slots])).to(
+        dev) for j in range(3)), torch.tensor([s[3] for s in slots],
+                                              device=dev))
+
+
+def slots_bit_equal(a, b) -> int:
+    """Slots whose answers are bit-equal."""
+    return sum(all(np.array_equal(u, v) for u, v in zip(x[:3], y[:3]))
+               and x[3] == y[3] for x, y in zip(a, b))
+
+
+def clear_pairs_check(ref, logits, cfg, routes: dict) -> dict:
+    """The reference route's kept (class, box) pairs found by each of
+    ``routes`` (name -> Detections) at IoU >= 0.9, same class, among the
+    pairs clear by CLEAR_STEPS bf16 steps (clear_margins, on the
+    candidates of the reference's ``logits``), and among all."""
+    from detjax_torch.modeling import _anchors, anchor_config
+    from detjax_torch.ops import nms as ops_nms
+
+    e = cfg.eval
+    cls, box = logits
+    with torch.inference_mode():
+        cand = ops_nms._select_candidates(
+            box.float(), _anchors(cfg.model.image_size, anchor_config(cfg),
+                                  box.device),
+            cls, cfg.model.box_std, cfg.model.image_size, e.score_threshold,
+            e.pre_nms_top_k, e.exact_candidates, True)
+    margins = clear_margins(ref, cand, e.nms_iou_threshold)
+    sel = [mg >= CLEAR_STEPS for mg in margins]
+    out = {"pairs": kept_pairs_found(ref, ref)[1],
+           "clear_pairs": kept_pairs_found(ref, ref, select=sel)[1]}
+    for name, det in routes.items():
+        out[name] = {"clear_found": kept_pairs_found(ref, det,
+                                                     select=sel)[0],
+                     "all_found": kept_pairs_found(ref, det)[0]}
+    return out
+
+
+def clear_pairs_missed(check: dict, route: str) -> bool:
+    clear = check["clear_pairs"]
+    return (clear < 0.05 * check["pairs"] or check[route]["clear_found"]
+            < SPACE_SERVE_CLEAR_SHARE * clear)
+
+
+def in_turns_ms(calls: dict, rounds: int) -> dict:
+    """Host ms of each call (name -> fn, which ends on the host), timed in
+    turns over ``rounds`` rounds: the list, and its median."""
+    ms = {name: [] for name in calls}
+    for _ in range(rounds):
+        for name, fn in calls.items():
+            t0 = time.perf_counter()
+            fn()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: {"ms": v, "median_ms": float(np.median(v))}
+            for name, v in ms.items()}
+
+
+def space_serve_cell(name: str, preset: str, extra: dict, mesh) -> dict:
+    """One cell: ``DetectionServer(mesh=)`` on the (1 x 2) mesh against the
+    same server with no mesh on 8 seeded canvases (bf16, desaturated
+    weights): the unsplit route's clear kept pairs found by the split
+    route, beside the yardstick of the unsplit route with every conv's
+    channel sum split in 2 (split_channel_sums); NMS launches and fused
+    calls a batch by the launcher and by torch.profiler; one batch's wall
+    time in turns."""
+    import detjax_torch
+    from detjax_torch.kernels import bottleneck as kb
+    from detjax_torch.kernels import postprocess as pp
+    from detjax_torch.models import spatial
+    from detjax_torch.serve import DetectionServer
+
+    cfg = space_serve_config(preset, **extra)
+    on = cfg.model.fused_backbone == "on"
+    model = detjax_torch.build_model(cfg, seed=0)
+    canvases = seeded_canvases(11, SPACE_SERVE_BATCH, cfg.model.image_size)
+    desaturate_(model, canvases[:4], cfg)
+    kw = dict(batch_size=SPACE_SERVE_BATCH, score_threshold=0.0)
+    plain = DetectionServer(model, cfg, **kw)
+    split = DetectionServer(model, cfg, mesh=mesh, **kw)
+    try:
+        plain.warmup()
+        split.warmup()
+        torch.cuda.synchronize()
+        want = plain._runs[0](canvases)
+        pp.nms_launches = kb.bottleneck_launches = 0
+        kb.bottleneck_kernel_launches = 0
+        got = split._runs[0](canvases)
+        launcher = {"nms": pp.nms_launches, "fused_calls":
+                    kb.bottleneck_launches, "fused_cuda_kernels":
+                    kb.bottleneck_kernel_launches}
+        with split_channel_sums(2):
+            yard = plain._runs[0](canvases)
+        with torch.inference_mode():
+            logits = model(normalized_nchw(model, canvases, cfg))
+        dev = logits[0].device
+        check = clear_pairs_check(
+            slots_to_detections(want, dev), logits, cfg,
+            {"split": slots_to_detections(got, dev),
+             "yardstick_split_channel_sums_2": slots_to_detections(yard,
+                                                                   dev)})
+        want_traced = {"nms_kernel": 2.0}
+        if on:
+            want_traced.update({k: 10.0 for k in FWD_KERNEL_NAMES})
+        traced = kernel_launches_traced(lambda: split._runs[0](canvases),
+                                        want_traced, f"space_serve {name}")
+        times = in_turns_ms({"unsplit": lambda: plain._runs[0](canvases),
+                             "split": lambda: split._runs[0](canvases)},
+                            SPACE_SERVE_TIMED)
+    finally:
+        plain.shutdown()
+        split.shutdown()
+    want_launcher = {"nms": 2, "fused_calls": 10 if on else 0,
+                     "fused_cuda_kernels": 20 if on else 0}
+    failures = []
+    if clear_pairs_missed(check, "split"):
+        failures.append(f"{name}: clear kept pairs {check}")
+    if launcher != want_launcher or traced != want_traced:
+        failures.append(f"{name}: launches a batch {launcher} (want "
+                        f"{want_launcher}), traced {traced} (want "
+                        f"{want_traced})")
+    return {"canvas": list(cfg.model.image_size),
+            "pyramid_row_sharded": spatial.pyramid_sharded(
+                cfg.model.image_size[0], range(cfg.model.min_level,
+                                               cfg.model.max_level + 1),
+                mesh.space),
+            "kept_pairs": check, "slots_bit_equal": slots_bit_equal(got,
+                                                                    want),
+            "launches_per_batch": launcher, "traced_per_batch": traced,
+            "batch_ms": times, "failures": failures}
+
+
+# fp32 split head outputs against unsplit ones: each level's largest
+# |difference| over its largest |unsplit output|. Summation order alone
+# (cuDNN's fp32 algorithms differ by shape) read 4.7e-6 (classes) and
+# 6.1e-6 (boxes) at R50-1024 (PERF.md, the space_serve cell); a wrong
+# halo row moves the rows it feeds by the order of that largest value
+SPACE_SERVE_HEAD_BAR = 1e-4
+# (preset, canvas seed) of the fp32 comparison: R50-1024 (the heads
+# row-sharded: every halo and gather of the heads held at the detect bars)
+# and R50-640 (the pyramid gathered at the FPN), last: the sharded
+# evaluation reuses its model
+SPACE_SERVE_FP32 = (("retinanet_r50_1024", 15), ("retinanet_r50_640", 12))
+
+
+def order_ties(got: list, want: list) -> tuple:
+    """Two ``iter_detections``-style lists with each run of exactly equal
+    scores of ``want``'s image sorted by (label, box) on both sides, at
+    those positions: fp32 scores near 1 tie exactly, and NMS keeps tied
+    detections in their candidates' order, which the logits' summation
+    noise may change. Every other position stays where it is."""
+    def sort_runs(det, runs):
+        i, b, s, lab = (np.array(a, copy=True) if j else a
+                        for j, a in enumerate(det))
+        for lo, hi in runs:
+            order = lo + np.lexsort((*b[lo:hi].T[::-1], lab[lo:hi]))
+            b[lo:hi], s[lo:hi], lab[lo:hi] = b[order], s[order], lab[order]
+        return i, b, s, lab
+
+    out_g, out_w = [], []
+    for g, w in zip(got, want):
+        scores = w[2]
+        cuts = [0, *(np.nonzero(scores[1:] != scores[:-1])[0] + 1),
+                len(scores)]
+        runs = [(lo, hi) for lo, hi in zip(cuts, cuts[1:]) if hi - lo > 1]
+        out_g.append(sort_runs(g, runs))
+        out_w.append(sort_runs(w, runs))
+    return out_g, out_w
+
+
+def head_gaps(model, cfg, canvases, mesh) -> dict:
+    """The model's head outputs on ``canvases`` through a ``RowRunner`` on
+    ``mesh`` (the split serving route's exchanges) against the model with
+    no mesh: for classes and boxes, each level's largest |difference| over
+    its largest |unsplit output|, and the largest of them."""
+    import collections
+
+    from detjax_torch.data.pipeline import normalize_u8
+    from detjax_torch.parallel.mesh import RowRunner, replicate
+
+    heads = collections.namedtuple("Heads", "cls box")
+
+    def forward(m, block):
+        x = torch.as_tensor(block).to(next(m.parameters()).device)
+        x = normalize_u8(x, cfg.data.mean, cfg.data.std, m.compute_dtype)
+        return heads(*m(x.permute(0, 3, 1, 2)))
+
+    dev = next(model.parameters()).device
+    runner = RowRunner(dev, mesh, forward, replicate(model, mesh))
+    try:
+        got = runner(canvases)
+    finally:
+        runner.close()
+    with torch.inference_mode():
+        want = model(normalized_nchw(model, canvases, cfg))
+    out = {}
+    for name, g, w in zip(heads._fields, got, want):
+        gaps = [float((a - b).abs().max() / b.abs().max()) for a, b in
+                zip(g.split(level_rows(cfg), 1), w.split(level_rows(cfg), 1))]
+        out[name] = {"per_level": gaps, "max": max(gaps)}
+    return out
+
+
+def space_serve_fp32(mesh) -> dict:
+    """fp32 (TF32 off) on 8 seeded canvases: for R50-1024 and R50-640 the
+    split head outputs against the unsplit ones (SPACE_SERVE_HEAD_BAR of
+    each level's largest value) and the split server against the unsplit
+    one at the detect bars of the sharded evaluation (labels equal, scores
+    2e-5, boxes 5e-3 px; runs of tied scores in (label, box) order), then
+    one sharded ``evaluate`` of R50-640 over 8 synthetic scenes against
+    the unsharded one (12 stats within 1e-6, each image's detections at
+    the same bars, one NMS launch a shard a batch)."""
+    import detjax_torch
+    from detjax_torch.data.synthetic import SyntheticDetectionDataset
+    from detjax_torch.evaluation.evaluator import iter_detections
+    from detjax_torch.kernels import postprocess as pp
+    from detjax_torch.serve import DetectionServer
+
+    def dets(slots):
+        return [(i, b[:n], s[:n], lab[:n])
+                for i, (b, s, lab, n) in enumerate(slots)]
+
+    out = {"heads": {}, "serve": {}, "serve_slots_bit_equal": {}}
+    with tf32_off():
+        for preset, seed in SPACE_SERVE_FP32:
+            cfg = space_serve_config(preset, **{"model.dtype": "float32"})
+            model = detjax_torch.build_model(cfg, seed=0)
+            canvases = seeded_canvases(seed, SPACE_SERVE_BATCH,
+                                       cfg.model.image_size)
+            desaturate_(model, canvases[:4], cfg)
+            out["heads"][preset] = head_gaps(model, cfg, canvases, mesh)
+            kw = dict(batch_size=SPACE_SERVE_BATCH, score_threshold=0.0)
+            plain = DetectionServer(model, cfg, **kw)
+            split = DetectionServer(model, cfg, mesh=mesh, **kw)
+            try:
+                want = plain._runs[0](canvases)
+                got = split._runs[0](canvases)
+            finally:
+                plain.shutdown()
+                split.shutdown()
+            out["serve"][preset] = detections_gap(
+                *order_ties(dets(got), dets(want)))
+            out["serve_slots_bit_equal"][preset] = slots_bit_equal(got, want)
+        ds = SyntheticDetectionDataset(SPATIAL_EVAL_IMAGES,
+                                       cfg.model.image_size,
+                                       cfg.model.num_classes, max_objects=20,
+                                       seed=7)
+        torch.cuda.synchronize()
+        pp.nms_launches = 0
+        stats = detjax_torch.evaluate(model, ds, cfg, mesh=mesh).stats
+        torch.cuda.synchronize()
+        nms = pp.nms_launches
+        plain_stats = detjax_torch.evaluate(model, ds, cfg).stats
+        out["eval"] = {
+            "preset": preset,
+            "stats": stats, "max_gap": max(abs(stats[k] - plain_stats[k])
+                                           for k in stats),
+            "nms_launches": nms,
+            "batches": -(-SPATIAL_EVAL_IMAGES // cfg.eval.batch_size),
+            "detections": detections_gap(
+                list(iter_detections(model, ds, cfg, mesh=mesh)),
+                list(iter_detections(model, ds, cfg)))}
+    failures = [f"fp32 head outputs {p}: {g}"
+                for p, g in out["heads"].items()
+                if max(g["cls"]["max"], g["box"]["max"])
+                > SPACE_SERVE_HEAD_BAR]
+    for what, gap in (*((f"serve {p}", g) for p, g in out["serve"].items()),
+                      ("evaluate", out["eval"]["detections"])):
+        if not (gap["labels_equal"] and gap["detections"] > 0
+                and gap["max_score_gap"] <= SPATIAL_DET_SCORE_BAR
+                and gap["max_box_gap_px"] <= SPATIAL_DET_BOX_BAR):
+            failures.append(f"fp32 {what}: {gap}")
+    if not (out["eval"]["max_gap"] < 1e-6
+            and out["eval"]["nms_launches"] == 2 * out["eval"]["batches"]):
+        failures.append(f"fp32 evaluate: {out['eval']}")
+    out["bars"] = {"heads": SPACE_SERVE_HEAD_BAR,
+                   "score": SPATIAL_DET_SCORE_BAR,
+                   "box_px": SPATIAL_DET_BOX_BAR, "stats": 1e-6}
+    out["failures"] = failures
+    return out
+
+
+def space_serve_int8(mesh) -> dict:
+    """R50-640's int8 engine through the mesh against the int8 engine with
+    no mesh, both calibrated on the same 8 canvases ("absmax", whole
+    images): clear kept pairs on the int8 traversal's own logits, bit-equal
+    slots, one NMS launch a shard a batch; then HTTP requests to the split
+    int8 server, each answer equal to its direct answer."""
+    import detjax_torch
+    from detjax_torch import quant
+    from detjax_torch.data.pipeline import normalize_u8
+    from detjax_torch.kernels import postprocess as pp
+    from detjax_torch.serve import DetectionServer
+
+    cfg = space_serve_config("retinanet_r50_640")
+    model = detjax_torch.build_model(cfg, seed=0)
+    canvases = seeded_canvases(13, SPACE_SERVE_BATCH, cfg.model.image_size)
+    desaturate_(model, canvases[:4], cfg)
+    calib = seeded_canvases(14, SPACE_SERVE_BATCH, cfg.model.image_size)
+    kw = dict(batch_size=SPACE_SERVE_BATCH, score_threshold=0.0,
+              engine="int8", calibration=calib)
+    plain = DetectionServer(model, cfg, **kw)
+    split = DetectionServer(model, cfg, mesh=mesh, **kw)
+    try:
+        want = plain._runs[0](canvases)
+        pp.nms_launches = 0
+        got = split._runs[0](canvases)
+        nms = pp.nms_launches
+        # the servers' calibration (serve.py::_build_engine) and input
+        dev = next(model.parameters()).device
+        qtree = quant.quantize_model(model, cfg, normalize_u8(
+            torch.as_tensor(calib).to(dev), cfg.data.mean, cfg.data.std))
+        x = normalized_nchw(model, canvases, cfg).permute(0, 2, 3, 1)
+        logits = quant.forward_int8(qtree, cfg, x)
+        check = clear_pairs_check(slots_to_detections(want, dev), logits, cfg,
+                                  {"split": slots_to_detections(got, dev)})
+        outs, _, wall_s = http_answers(split, canvases)
+        http_bad = answers_mismatch(outs, got)
+    finally:
+        plain.shutdown()
+        split.shutdown()
+    failures = []
+    if clear_pairs_missed(check, "split") or nms != 2:
+        failures.append(f"int8: clear kept pairs {check}, NMS launches {nms}")
+    if http_bad:
+        failures.append(f"int8 over HTTP: {http_bad} answers differ")
+    return {"kept_pairs": check, "slots_bit_equal": slots_bit_equal(got,
+                                                                    want),
+            "nms_launches_per_batch": nms, "http_requests": len(outs),
+            "http_answers_mismatched": http_bad, "http_wall_s": wall_s,
+            "failures": failures}
+
+
+def phase_space_serve(report: dict, state: dict) -> None:
+    """Serving and evaluation over a single-process (data, space) mesh
+    (``parallel/mesh.py::RowRunner``): ``make_mesh(["cuda:0", "cuda:0"],
+    spatial=2)`` runs two row shards of each image on two threads and two
+    CUDA streams of the one card, exchanging halo rows in process. R50-1024
+    "off" and "on" and R50-640 "off" through ``DetectionServer(mesh=)``
+    against the same server with no mesh (space_serve_cell), R50-1024 and
+    R50-640 in fp32 and a sharded ``evaluate`` (space_serve_fp32), R50-640's
+    int8
+    engine and HTTP (space_serve_int8). Two shards share one card, so the
+    batch times show function, not scaling."""
+    from detjax_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mesh = make_mesh(["cuda:0", "cuda:0"], spatial=2)
+    rows = {}
+    for cell, preset, extra in SPACE_SERVE_CELLS:
+        rows[cell] = space_serve_cell(cell, preset, extra, mesh)
+        emit({"phase": f"space_serve_{cell}", **rows[cell],
+              "card": state["card"]})
+        torch.cuda.empty_cache()
+    rows["fp32"] = space_serve_fp32(mesh)
+    emit({"phase": "space_serve_fp32", **rows["fp32"], "card": state["card"]})
+    torch.cuda.empty_cache()
+    rows["int8"] = space_serve_int8(mesh)
+    emit({"phase": "space_serve_int8", **rows["int8"], "card": state["card"]})
+    failures = [f for r in rows.values() for f in r["failures"]]
+    wall_s = time.perf_counter() - t0
+    emit({"phase": "space_serve", "mesh": [list(mesh.axis_names),
+                                           [str(d) for d in mesh.devices]],
+          "wall_s": wall_s, "failures": failures, "card": state["card"],
+          "note": "two shards share one card: batch times show function, "
+                  "not scaling"})
+    if failures:
+        raise SystemExit(f"space_serve: {failures}")
+    report["nms_cuda"]["launches_space_serve_per_batch"] = {
+        **{c: rows[c]["traced_per_batch"]["nms_kernel"]
+           for c, _, _ in SPACE_SERVE_CELLS},
+        "int8": rows["int8"]["nms_launches_per_batch"],
+        "fp32_evaluate": rows["fp32"]["eval"]["nms_launches"]
+        / rows["fp32"]["eval"]["batches"]}
+    report["bottleneck_identity_cuda"]["launches_space_serve_per_batch"] = {
+        "r50_1024_on": {
+            "calls": rows["r50_1024_on"]["launches_per_batch"]["fused_calls"],
+            "cuda_kernels": sum(rows["r50_1024_on"]["traced_per_batch"][k]
+                                for k in FWD_KERNEL_NAMES)}}
+    state["space_serve"] = {"wall_s": wall_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6925,37 +7364,47 @@ def main() -> int:
 
     report: dict = {}
     state: dict = {"card": card}
-    phase_build()
-    phase_kernel(report)
-    phase_decode_kernel(report)
-    phase_match_kernel(report)
-    phase_bottleneck_kernel(report)
-    phase_bottleneck_bwd_kernel(report)
-    phase_reference()
-    phase_main(report, state)
-    phase_eval_branch(report, state)
-    phase_main_fused(report, state)
-    phase_serve(state)
-    phase_int8(report, state)
-    phase_export(report, state)
-    phase_serve_engines(state)
+    t_start = time.perf_counter()
+
+    def run(phase, *args):
+        t0 = time.perf_counter()
+        phase(*args)
+        emit({"phase_wall_s": phase.__name__[len("phase_"):],
+              "s": time.perf_counter() - t0,
+              "since_start_s": time.perf_counter() - t_start})
+
+    run(phase_build)
+    run(phase_kernel, report)
+    run(phase_decode_kernel, report)
+    run(phase_match_kernel, report)
+    run(phase_bottleneck_kernel, report)
+    run(phase_bottleneck_bwd_kernel, report)
+    run(phase_reference)
+    run(phase_main, report, state)
+    run(phase_eval_branch, report, state)
+    run(phase_main_fused, report, state)
+    run(phase_serve, state)
+    run(phase_int8, report, state)
+    run(phase_export, report, state)
+    run(phase_serve_engines, state)
     state.pop("int8")
-    phase_train(report, state)
-    phase_train_fused(report, state)
-    phase_data(state)
-    phase_evaluate(report, state)
-    phase_evaluate_protocol(state)
-    phase_train_data(report, state)
+    run(phase_train, report, state)
+    run(phase_train_fused, report, state)
+    run(phase_data, state)
+    run(phase_evaluate, report, state)
+    run(phase_evaluate_protocol, state)
+    run(phase_train_data, report, state)
     state.pop("eval_set")["tmp"].cleanup()
-    phase_fit(report, state)
-    phase_maxpool_bwd_kernel(report)
-    phase_stem(report, state)
-    phase_ssd(report, state)
-    phase_r101(report, state)
-    phase_knobs(report, state)
-    phase_bench(state)
-    phase_parallel(report, state)
-    phase_spatial(report, state)
+    run(phase_fit, report, state)
+    run(phase_maxpool_bwd_kernel, report)
+    run(phase_stem, report, state)
+    run(phase_ssd, report, state)
+    run(phase_r101, report, state)
+    run(phase_knobs, report, state)
+    run(phase_bench, state)
+    run(phase_parallel, report, state)
+    run(phase_spatial, report, state)
+    run(phase_space_serve, report, state)
     emit({"kernels": list(report.values())})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

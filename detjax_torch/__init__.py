@@ -9,7 +9,8 @@ batch-statistics BatchNorm; ``python -m detjax_torch.cli.train``), its
 data parallelism (``detjax_torch.parallel``: ``make_mesh`` over
 torch.distributed, the data-parallel step, ``fit(mesh=)``, sharded
 ``evaluate(mesh=)`` and multi-device serving) and spatial partitioning
-(``make_mesh(spatial=K)``: each image's rows split over K ranks,
+(``make_mesh(spatial=K)``: each image's rows split over K ranks, or over
+K devices of one process for serving and evaluation,
 ``detjax_torch/models/spatial.py``), its
 data pipeline
 (``detjax_torch.data``: COCO and CSV datasets, the threaded batch

@@ -29,7 +29,11 @@ space)`` mesh a rank detects its data index's images cut to its own image
 rows (``models/spatial.py``: halo exchanges, the head outputs gathered
 over the space group, NMS on the gathered candidates on each rank), and
 the Detections are gathered over the data axis only: over every rank
-each image would appear S times.
+each image would appear S times. A single-process ``(data, space)`` mesh
+does the same with a thread a device (``parallel/mesh.py::RowRunner``).
+Another engine (``detect_fn``, e.g. the evaluate CLI's int8 engine) runs
+on the rows too: the int8 traversal exchanges its own halos
+(``quant.py``).
 """
 
 from __future__ import annotations
@@ -136,15 +140,25 @@ def iter_detections(model, dataset, cfg: Config,
         return detect_fn(replica, x)
 
     batches = make_eval_iterator(dataset, cfg)
+    close = None
     if mesh is None:
         def dispatch(images):
             return detect_on(model, images)
     else:
         dispatch, batches = _sharded_dispatch(model, dev, batches, cfg, mesh,
-                                              detect_on, detect_fn)
+                                              detect_on)
+        close = getattr(dispatch, "close", None)
     if mesh is None or mesh.multi_process:
         batches = device_prefetch(batches, dev, keys=("images",))
+    try:
+        yield from _detections(batches, dispatch, max_images)
+    finally:
+        if close is not None:
+            close()
 
+
+def _detections(batches, dispatch, max_images):
+    """iter_detections' loop: dispatch batch N+1 before reading N."""
     n_done = 0
     n_dispatched = 0  # images in flight, an upper bound on those to yield
     pending = None
@@ -168,20 +182,19 @@ def iter_detections(model, dataset, cfg: Config,
                 return
 
 
-def _sharded_dispatch(model, dev, batches, cfg: Config, mesh, detect_on,
-                      detect_fn=None):
+def _sharded_dispatch(model, dev, batches, cfg: Config, mesh, detect_on):
     """``(dispatch, batches)`` for a sharded evaluation: ``dispatch(images)``
     gives the whole batch's Detections on ``dev``. A multi-process mesh
     hands the rank its data index's contiguous rows of each batch (picked
     on the host, before the copy; cut to its image rows on a ``space``
     axis) and all-gathers the Detections over the data axis in order; a
     single-process mesh splits each batch over its devices' replicas and
-    gathers the slices on ``dev`` in order. A ``detect_fn`` (another
-    engine) on a ``space`` axis raises (ROADMAP Queue 1 #8)."""
+    gathers the slices on ``dev`` in order, on a ``space`` axis through a
+    ``RowRunner`` (whose ``close`` the caller calls). The canvas is
+    checked against the space axis before any exchange."""
     from detjax_torch.models import spatial
-    from detjax_torch.parallel.mesh import (SPACE_SERVING_NOT_PORTED,
-                                             check_mesh, replicate,
-                                             split_over)
+    from detjax_torch.parallel.mesh import (RowRunner, check_mesh,
+                                             replicate, split_over)
 
     check_mesh(mesh)
     b = cfg.eval.batch_size
@@ -190,8 +203,6 @@ def _sharded_dispatch(model, dev, batches, cfg: Config, mesh, detect_on,
                          f"mesh's data axis ({mesh.data_size} devices)")
     part = b // mesh.data_size
     if mesh.space > 1:
-        if detect_fn is not None:
-            raise NotImplementedError(SPACE_SERVING_NOT_PORTED)
         spatial.check_canvas_rows(cfg.model.image_size[0], mesh.space)
     if mesh.multi_process:
         if dev != mesh.device:
@@ -210,8 +221,13 @@ def _sharded_dispatch(model, dev, batches, cfg: Config, mesh, detect_on,
             return Detections(*(_all_gather(t, mesh) for t in det))
 
         return dispatch, rows(batches)
+    replicas = replicate(model, mesh)
+    if mesh.space > 1:
+        return RowRunner(dev, mesh, lambda rep, x: detect_on(
+            rep, torch.as_tensor(x).to(next(rep.parameters()).device)),
+            replicas), batches
     runs = [(lambda x, rep=rep, d=d: detect_on(rep, torch.as_tensor(x).to(d)))
-            for rep, d in zip(replicate(model, mesh), mesh.devices)]
+            for rep, d in zip(replicas, mesh.devices)]
     return split_over(dev, runs), batches
 
 

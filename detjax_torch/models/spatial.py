@@ -49,6 +49,16 @@ gloo's ``send``/``recv`` take CPU tensors only, and the all-gather works on
 gloo (CPU, and CUDA tensors) and NCCL alike. A halo exchange moves S times
 the rows it needs, two rows' worth at S = 2. The counters in
 :data:`exchanges` count the collectives.
+
+The group is either a process group (one rank a device, the multi-process
+mesh) or a :class:`LocalGroup`: the S shard threads of one data index in
+one process (a single-process mesh, ``parallel/mesh.py::RowRunner``), each
+on its own device and CUDA stream. Its all-gather hands each thread every
+shard's tensor copied onto that thread's device, ordered by CUDA events
+both ways, over two barriers with a finite timeout; a shard that raises
+aborts the barrier, so that its peers raise too. A single-process mesh
+serves and evaluates but does not train, so a LocalGroup has no
+all-reduce.
 """
 
 from __future__ import annotations
@@ -70,9 +80,18 @@ MIN_ROWS_PER_SHARD = 2
 BACKBONE_STRIDE = 32
 
 # Collectives issued on this process: "halo" and "gather" forwards, and
-# their backwards "halo_grad" and "gather_grad". Reset them by assignment.
+# their backwards "halo_grad" and "gather_grad". Reset them by assignment;
+# shard threads add under _COUNT_LOCK.
 exchanges: Dict[str, int] = {"halo": 0, "halo_grad": 0, "gather": 0,
                              "gather_grad": 0}
+_COUNT_LOCK = threading.Lock()
+# How long a shard thread waits at a LocalGroup's barrier for its peers
+SHARD_TIMEOUT_S = 300.0
+
+
+def _count(kind: str) -> None:
+    with _COUNT_LOCK:
+        exchanges[kind] += 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +103,76 @@ class SpaceGroup:
     group: Any
     index: int
     size: int
+
+
+class ShardAborted(RuntimeError):
+    """A peer of this shard's :class:`LocalGroup` failed or timed out."""
+
+
+class LocalGroup:
+    """The S shard threads of one data index in one process: the
+    in-process transport of a single-process ``(data, space)`` mesh.
+
+    :meth:`all_gather` publishes the thread's tensor with an event of its
+    current stream (CUDA) and waits at a barrier for every shard's. Each
+    thread then copies every peer's tensor onto its own device, on a
+    stream that first waits on the peer's event, records an event after
+    the copy, and waits at a second barrier. Last, each thread's stream
+    waits on its readers' events: whatever the producer does next to its
+    tensor (an in-place write, or the caching allocator handing the
+    freed block out again on that stream) runs after every copy of it.
+    Each barrier waits at most SHARD_TIMEOUT_S; :meth:`abort` (a shard
+    that raised) or a timeout breaks it and every waiting peer raises
+    :class:`ShardAborted`. A group serves one call: a broken barrier
+    stays broken."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self._barrier = threading.Barrier(size, timeout=SHARD_TIMEOUT_S)
+        self._slots: List[Any] = [None] * size
+
+    def abort(self) -> None:
+        self._barrier.abort()
+
+    def _wait(self) -> None:
+        try:
+            self._barrier.wait()
+        except threading.BrokenBarrierError:
+            raise ShardAborted("a shard of this space group failed or "
+                               "timed out") from None
+
+    def all_gather(self, t: torch.Tensor, index: int) -> List[torch.Tensor]:
+        done = None
+        if t.is_cuda:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(t.device))
+        read: List[Any] = []  # the events after the peers' copies of t
+        self._slots[index] = (t, done, read)
+        self._wait()
+        parts = [t if j == index else _copy_from_peer(*slot, t.device)
+                 for j, slot in enumerate(self._slots)]
+        self._wait()
+        for ev in read:
+            torch.cuda.current_stream(t.device).wait_event(ev)
+        return parts
+
+
+def _copy_from_peer(src: torch.Tensor, done, read: list,
+                    device: torch.device) -> torch.Tensor:
+    """A copy of a peer's ``src`` on ``device``, ordered after the peer's
+    event ``done`` (None on the CPU, where the copy is synchronous); the
+    event after the copy goes to the peer's ``read``."""
+    if done is None:
+        return src.to(device, copy=True)
+    # PyTorch copies between devices on the source device's current
+    # stream, and orders the destination's current stream after it
+    stream = torch.cuda.current_stream(src.device)
+    stream.wait_event(done)
+    out = src.to(device, copy=True)
+    copied = torch.cuda.Event()
+    copied.record(stream)
+    read.append(copied)
+    return out
 
 
 _LOCAL = threading.local()
@@ -168,12 +257,17 @@ def _cat_rows(pieces: List[torch.Tensor], like: torch.Tensor
 
 
 def _all_gather(t: torch.Tensor, sg: SpaceGroup) -> List[torch.Tensor]:
+    if isinstance(sg.group, LocalGroup):
+        return sg.group.all_gather(t, sg.index)
     parts = [torch.empty_like(t) for _ in range(sg.size)]
     dist.all_gather(parts, t, group=sg.group)
     return parts
 
 
 def _all_reduce(t: torch.Tensor, sg: SpaceGroup) -> torch.Tensor:
+    if isinstance(sg.group, LocalGroup):
+        raise TypeError("a single-process space mesh serves and evaluates; "
+                        "it does not train")
     dist.all_reduce(t, group=sg.group)
     return t
 
@@ -195,7 +289,7 @@ class _Halo(torch.autograd.Function):
         i, last = sg.index, sg.size - 1
         ctx.lo = top if (i > 0 or fill is not None) else 0
         ctx.hi = bottom if (i < last or fill is not None) else 0
-        exchanges["halo"] += 1
+        _count("halo")
         send = torch.cat([x[:, :, :bottom], x[:, :, h - top:]], 2)
         parts = _all_gather(send.contiguous(), sg)
         pieces = []
@@ -216,7 +310,7 @@ class _Halo(torch.autograd.Function):
         top, bottom, sg = ctx.top, ctx.bottom, ctx.sg
         i, last = sg.index, sg.size - 1
         h = g.shape[2] - ctx.lo - ctx.hi
-        exchanges["halo_grad"] += 1
+        _count("halo_grad")
         gx = g[:, :, ctx.lo:ctx.lo + h].clone()
         # what the rank above owes this rank's first `bottom` rows, and
         # the rank below its last `top` rows
@@ -252,13 +346,13 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, sg: SpaceGroup):
         ctx.sg, ctx.h = sg, x.shape[2]
-        exchanges["gather"] += 1
+        _count("gather")
         return _cat_rows(_all_gather(x.contiguous(), sg), x)
 
     @staticmethod
     def backward(ctx, g):
         sg, h = ctx.sg, ctx.h
-        exchanges["gather_grad"] += 1
+        _count("gather_grad")
         # a buffer of its own: g may be autograd's, and fp32 already
         total = torch.empty(g.shape, dtype=torch.float32, device=g.device)
         total = _all_reduce(total.copy_(g), sg)
@@ -275,6 +369,30 @@ def gather_rows(x: torch.Tensor, sg: Optional[SpaceGroup] = None
 
 def _pad_rows(k: int, s: int, p: int) -> Tuple[int, int]:
     return p, max(k - p - s, 0)
+
+
+def rows_for_op(x: torch.Tensor, k: int, s: int, p: int, fill
+                ) -> Tuple[torch.Tensor, int]:
+    """NHWC ``x`` made ready for a k x k / stride s op that pads its rows
+    by ``p``: ``(x, p)`` without an active space group (or for a 1x1
+    stride-1 op); with one, this rank's rows with the halo of
+    :func:`_pad_rows` (``fill`` at the image's edges, the op's padding)
+    and row padding 0. Raises where the rank's rows do not split under
+    the stride."""
+    sg = active()
+    if sg is None or (k == 1 and s == 1):
+        return x, p
+    if x.shape[1] % s:
+        raise ValueError(f"{x.shape[1]} rows a rank do not split under "
+                         f"stride {s}")
+    top, bottom = _pad_rows(k, s, p)
+    return halo(x.permute(0, 3, 1, 2), top, bottom, fill,
+                sg).permute(0, 2, 3, 1), 0
+
+
+def gather_rows_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """:func:`gather_rows` of an NHWC x (its rows are dim 1)."""
+    return gather_rows(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 def conv2d(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:

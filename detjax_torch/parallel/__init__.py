@@ -6,11 +6,11 @@ rank 0's on every rank, each rank fed its shard of the global batch, and
 the gradient all-reduce written into the step (``train/step.py``) rather
 than inserted by a partitioner. One process over several local devices
 serves and evaluates (a single-process :class:`Mesh`).
-``make_mesh(spatial=K)`` makes detjax's ``(data, space)`` mesh over the
-ranks: each image's rows split over the K ranks of its space group, the
-halo exchanges and gathers written into the model
-(``detjax_torch/models/spatial.py``). Serving over a space axis is not
-ported (ROADMAP Queue 1 #8).
+``make_mesh(spatial=K)`` makes detjax's ``(data, space)`` mesh: each
+image's rows split over the K ranks (or, in one process, the K devices)
+of its space group, the halo exchanges and gathers written into the model
+(``detjax_torch/models/spatial.py``); in one process the shards run on
+threads of a ``RowRunner`` (serving and evaluation).
 """
 
 from detjax_torch.parallel.mesh import (

@@ -30,23 +30,32 @@ A :class:`Mesh` takes one of two forms:
   slice of every batch.
 
 Spatial partitioning (``make_mesh(spatial=S)``, detjax's 2-D ``(data,
-space)`` mesh) is multi-process. Rank r has data index ``r // S`` and
-space index ``r % S``, detjax's grid ``reshape(-1, spatial)``. The S ranks
-of a data index (its **space group**) split the same images by rows: each
-takes its data index's images (``local_rows``) cut to its own block of rows
-(``image_rows``), and the model exchanges halo rows and gathers over the
-space group (``models/spatial.py``). The ranks of a space index (its **data
-group**) hold different images: the sharded evaluation gathers its
-detections over it. Batch-statistics BatchNorm sums over every rank, data
-times space, and the gradients are summed over every rank and divided by
-the data-axis size (``train/step.py``). A single-process mesh cannot
-exchange halos without running its shards in parallel, so serving over a
-space axis, and the int8 and program engines on one, are not ported
-(ROADMAP Queue 1 #8): they raise.
+space)`` mesh) takes both forms. Device (or rank) k has data index
+``k // S`` and space index ``k % S``, detjax's grid ``reshape(-1,
+spatial)``. The S devices of a data index (its **space group**) split the
+same images by rows, each its own block (``image_rows``), and the model
+exchanges halo rows and gathers over the space group
+(``models/spatial.py``).
+
+- **multi-process** (training, evaluation): each rank takes its data
+  index's images (``local_rows``) cut to its rows; the space and data
+  groups are process groups. The ranks of a space index (its **data
+  group**) hold different images: the sharded evaluation gathers its
+  detections over it. Batch-statistics BatchNorm sums over every rank,
+  data times space, and the gradients are summed over every rank and
+  divided by the data-axis size (``train/step.py``).
+- **single-process** (serving and evaluation, fp and int8 engines, as
+  detjax's ``DetectionServer(mesh=)`` and ``run_coco_eval(mesh=)`` over
+  one host's chips): :class:`RowRunner` runs the S shards of each data
+  index on threads of one pool, each on its device's replica and its own
+  CUDA stream, exchanging through a ``spatial.LocalGroup``. It does not
+  train: a training mesh holds one device a process.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import os
@@ -57,17 +66,10 @@ import torch
 import torch.distributed as dist
 
 from detjax_torch.config import Config
-from detjax_torch.modeling import resolve_device
+from detjax_torch.modeling import eval_mode, resolve_device
 from detjax_torch.models import spatial
 from detjax_torch.ops.nms import Detections
 from detjax_torch.train.step import TrainState, train_step
-
-SPACE_SERVING_NOT_PORTED = (
-    "a 'space' mesh axis runs multi-process only (one rank a device under "
-    "torch.distributed: fit, the train step, evaluate with the live model "
-    "and --spatial K); serving over a space axis (DetectionServer(mesh=), "
-    "a single-process mesh) and the int8 and program engines on a space "
-    "mesh are not ported yet (ROADMAP Queue 1 #8)")
 
 TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                  "MASTER_PORT")
@@ -81,11 +83,12 @@ class Mesh:
     ``group``: the process group of every rank, None in a single-process
     mesh; ``rank`` and ``world_size``: this process's place in it (0 and 1
     in one process); ``axis_name``: the data axis's name. ``space``: the
-    ranks that split an image's rows (1 without a ``space`` axis, which
+    devices that split an image's rows (1 without a ``space`` axis, which
     :attr:`axis_names` then leaves out); ``space_group`` and
     ``data_group``: the process groups of this rank's data index (its S
     ranks) and of its space index (the data axis' ranks that share it),
-    None without a ``space`` axis."""
+    None without a ``space`` axis and in a single-process mesh, whose
+    shards exchange through :class:`RowRunner`'s groups."""
 
     devices: Tuple[torch.device, ...]
     group: Any = None
@@ -171,14 +174,10 @@ class Mesh:
 
 
 def check_mesh(mesh) -> Mesh:
-    """``mesh`` if it is a :class:`Mesh` this package can run; TypeError
-    for another object, NotImplementedError for a ``space`` axis on a
-    single-process mesh (ROADMAP Queue 1 #8)."""
+    """``mesh`` if it is a :class:`Mesh`; TypeError for another object."""
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a detjax_torch.parallel.Mesh "
                         f"(make_mesh), got {type(mesh).__name__}")
-    if mesh.space > 1 and not mesh.multi_process:
-        raise NotImplementedError(SPACE_SERVING_NOT_PORTED)
     return mesh
 
 
@@ -238,12 +237,13 @@ def make_mesh(devices: Optional[Sequence[Any]] = None,
     default every visible CUDA device. Without CUDA and without an
     explicit CPU device it raises.
 
-    ``spatial > 1`` makes the mesh ``(data, space)``: rank r has data
-    index ``r // spatial`` and space index ``r % spatial``, and every rank
-    creates every data and space group (``dist.new_group``) in the same
-    order. detjax's ValueError when ``spatial`` does not divide the
-    devices; NotImplementedError for a single-process mesh (ROADMAP Queue
-    1 #8)."""
+    ``spatial > 1`` makes the mesh ``(data, space)``: device (or rank) k
+    has data index ``k // spatial`` and space index ``k % spatial``. In a
+    multi-process mesh every rank creates every data and space group
+    (``dist.new_group``) in the same order; a single-process mesh's data
+    index d holds ``devices[d*spatial:(d+1)*spatial]`` (a device may
+    repeat: two shards on one card). detjax's ValueError when ``spatial``
+    does not divide the devices."""
     if _distributed_launch():
         rank = (dist.get_rank() if dist.is_initialized()
                 else int(os.environ["RANK"]))
@@ -263,7 +263,7 @@ def make_mesh(devices: Optional[Sequence[Any]] = None,
             raise ValueError(
                 f"spatial={spatial} does not divide {mesh.size} devices")
         if not mesh.multi_process:
-            raise NotImplementedError(SPACE_SERVING_NOT_PORTED)
+            return dataclasses.replace(mesh, space=spatial)
         w = mesh.world_size
         space_groups = [dist.new_group(list(range(d, d + spatial)))
                         for d in range(0, w, spatial)]
@@ -409,6 +409,135 @@ def split_over(dev: torch.device, runs: Sequence[Callable]) -> Callable:
                             for field in zip(*dets)))
 
     return run
+
+
+class RowRunner:
+    """``run(images)`` for a single-process ``(data, space)`` mesh:
+    detjax's ``P('data', 'space')`` serving and evaluation in one process.
+
+    Each call cuts data slice d of a host batch (contiguous, as
+    :func:`split_over`) into S blocks of rows and runs ``fn(replicas[k],
+    block)`` for device k = d*S + s on a thread of the runner's pool, under
+    the ``SpaceGroup`` of a fresh ``spatial.LocalGroup`` of the data
+    index's S shards, in ``torch.inference_mode()``, on the device's own
+    CUDA stream (made once, like the pool), which first waits on the
+    calling thread's stream. Module replicas are held in eval mode for the
+    call, and their fused blocks' folds are made on the calling thread
+    first, so that no shard thread writes a module. Space index 0's
+    result of each data index (``Detections``, or another named tuple of
+    tensors with the batch first; every shard of a group holds the same)
+    is gathered on ``dev`` in order, behind its stream's event. A shard
+    that raises aborts its group, so that its peers raise
+    ``spatial.ShardAborted``; the call re-raises the first error that is
+    not an abort. A call that has not finished within
+    ``spatial.SHARD_TIMEOUT_S`` aborts every group and raises
+    TimeoutError. :meth:`close` ends the pool's threads."""
+
+    def __init__(self, dev: torch.device, mesh: Mesh, fn: Callable,
+                 replicas: Sequence):
+        if mesh.multi_process or mesh.space == 1:
+            raise ValueError("RowRunner runs a single-process mesh with a "
+                             "'space' axis")
+        self.dev, self.mesh, self.fn = dev, mesh, fn
+        self.replicas = list(replicas)
+        self.streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                        for d in mesh.devices]
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            mesh.size, thread_name_prefix="detjax-shard")
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=True)
+
+    def _shard(self, k: int, sg: spatial.SpaceGroup, block, ready):
+        dev = self.mesh.devices[k]
+        with contextlib.ExitStack() as scope:
+            if dev.type == "cuda":
+                torch.cuda.set_device(dev)
+                scope.enter_context(torch.cuda.stream(self.streams[k]))
+                self.streams[k].wait_event(ready[dev])
+            scope.enter_context(torch.inference_mode())
+            scope.enter_context(spatial.space_group(sg))
+            try:
+                det = self.fn(self.replicas[k], block)
+            except BaseException:
+                sg.group.abort()
+                raise
+            done = None
+            if dev.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(self.streams[k])
+        return det, done
+
+    def __call__(self, images):
+        if isinstance(images, torch.Tensor) and images.device.type != "cpu":
+            raise TypeError("RowRunner takes a host batch (numpy or a CPU "
+                            "tensor); each shard copies its rows to its "
+                            "device")
+        mesh, n_sp = self.mesh, self.mesh.space
+        if len(images) % mesh.data_size:
+            raise ValueError(f"a batch of {len(images)} does not split over "
+                             f"the mesh's data axis ({mesh.data_size})")
+        part = len(images) // mesh.data_size
+        height = images.shape[1]
+        spatial.check_canvas_rows(height, n_sp)
+        rows = height // n_sp
+        with contextlib.ExitStack() as modes:
+            for m in {id(r): r for r in self.replicas
+                      if isinstance(r, torch.nn.Module)}.values():
+                modes.enter_context(eval_mode(m))
+                _fold_fused_blocks(m)
+            ready = {d: torch.cuda.Event() for d in set(mesh.devices)
+                     if d.type == "cuda"}
+            for d, ev in ready.items():
+                ev.record(torch.cuda.current_stream(d))
+            timeout = spatial.SHARD_TIMEOUT_S
+            groups = [spatial.LocalGroup(n_sp)
+                      for _ in range(mesh.data_size)]
+            futures = []
+            for k in range(mesh.size):
+                d, s = divmod(k, n_sp)
+                block = images[d * part:(d + 1) * part,
+                               s * rows:(s + 1) * rows]
+                futures.append(self._pool.submit(
+                    self._shard, k, spatial.SpaceGroup(groups[d], s, n_sp),
+                    block, ready))
+            _, pending = concurrent.futures.wait(futures,
+                                                 timeout=timeout)
+            if pending:
+                for g in groups:
+                    g.abort()
+                raise TimeoutError(
+                    f"{len(pending)} of {len(futures)} row shards did not "
+                    f"finish within {timeout} s")
+        errors = [f.exception() for f in futures if f.exception()]
+        if errors:
+            raise next((e for e in errors
+                        if not isinstance(e, spatial.ShardAborted)),
+                       errors[0])
+        outs = []
+        for k in range(0, mesh.size, n_sp):
+            det, done = futures[k].result()
+            if done is not None:
+                # the gather to dev reads det on the source device's
+                # current stream of this thread: after the shard's work,
+                # and before the shard's stream may reuse det's blocks
+                stream = torch.cuda.current_stream(mesh.devices[k])
+                stream.wait_event(done)
+                for t in det:
+                    t.record_stream(stream)
+            outs.append(det)
+        return type(outs[0])(*(torch.cat([t.to(self.dev) for t in field])
+                               for field in zip(*outs)))
+
+
+def _fold_fused_blocks(model: torch.nn.Module) -> None:
+    """Make (or check) the BN fold of every fused block of ``model`` on
+    this thread, so that its shard threads only read it."""
+    with torch.no_grad():
+        for block in model.modules():
+            if getattr(block, "fused", False) and hasattr(block,
+                                                          "folded_weights"):
+                block.folded_weights()
 
 
 # -- batches -----------------------------------------------------------------

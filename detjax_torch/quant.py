@@ -27,6 +27,15 @@ builds it:
    detect path's postprocess, whose NMS is the CUDA kernel on a GPU
    (through the custom op ``detjax_torch::nms``).
 
+Under an active space group (``models/spatial.py``: a row shard of a
+``(data, space)`` mesh) the traversal runs on the shard's rows: each k x k
+conv and each pool takes its halo rows by ``spatial.rows_for_op`` (the
+fill the op's padding: int8 zero, ``int8(-128)``, ``-inf``) and pads no
+rows itself, and the FPN and heads follow the layout rule of
+``models/detector.py`` (a gathered pyramid, or each head level gathered
+before the flatten). Calibration runs on whole images, outside the mesh,
+as detjax's.
+
 The qtree is ``{"weights": {path: {"w", "ws", "b"} or {"w16", "b"}},
 "act_scales": {site: sx}}`` of tensors on the model's device, keyed by
 detjax's own path and site names (``"backbone/layer1_block0/conv1"``,
@@ -45,6 +54,7 @@ padded with zeros and the result sliced. ``F.unfold`` and
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, NamedTuple, Tuple, Union
 
 import numpy as np
@@ -52,6 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from detjax_torch.config import Config, get_config
+from detjax_torch.models import spatial
 from detjax_torch.models.resnet import RESNET_SPECS
 from detjax_torch.utils.weights import _head_key_map, _resnet_key_map
 
@@ -82,9 +93,22 @@ def module_names(model_cfg) -> Dict[str, str]:
 
 def _conv(x: torch.Tensor, w_oihw: torch.Tensor, stride: int = 1
           ) -> torch.Tensor:
-    """NHWC conv with symmetric k//2 padding, in x's dtype."""
+    """NHWC conv with symmetric k//2 padding, in x's dtype; under an
+    active space group on this rank's rows (``spatial.rows_for_op``)."""
     k = w_oihw.shape[-1]
-    y = F.conv2d(x.permute(0, 3, 1, 2), w_oihw, stride=stride, padding=k // 2)
+    x, pad_rows = spatial.rows_for_op(x, k, stride, k // 2, 0.0)
+    x = x.permute(0, 3, 1, 2)
+    one_column = (x.shape[3] + 2 * (k // 2) - k) // stride == 0
+    if (x.device.type == "cpu" and x.dtype == torch.bfloat16 and stride == 2
+            and one_column):
+        # PyTorch's CPU bf16 conv reads uninitialised memory for a stride-2
+        # conv whose output is one column wide (P6 and P7 of a narrow
+        # canvas): an fp32 conv of the bf16 operands, rounded to bf16, as
+        # models/fpn.py::stride2_conv computes it
+        return F.conv2d(x.float(), w_oihw.float(), stride=stride,
+                        padding=(pad_rows, k // 2)).to(
+            torch.bfloat16).permute(0, 2, 3, 1)
+    y = F.conv2d(x, w_oihw, stride=stride, padding=(pad_rows, k // 2))
     return y.permute(0, 2, 3, 1)
 
 
@@ -109,9 +133,11 @@ def _pool_windows(xp: torch.Tensor, k: int, stride: int, ho: int, wo: int):
             for dy in range(k) for dx in range(k)]
 
 
-def _out_hw(h: int, w: int, k: int, stride: int) -> Tuple[int, int]:
+def _out_hw(h: int, w: int, k: int, stride: int, pad_rows: int
+            ) -> Tuple[int, int]:
     p = k // 2
-    return (h + 2 * p - k) // stride + 1, (w + 2 * p - k) // stride + 1
+    return ((h + 2 * pad_rows - k) // stride + 1,
+            (w + 2 * p - k) // stride + 1)
 
 
 def conv_int8(xq: torch.Tensor, w: torch.Tensor, stride: int = 1
@@ -120,22 +146,27 @@ def conv_int8(xq: torch.Tensor, w: torch.Tensor, stride: int = 1
     symmetric k//2 zero padding -> int32 [B, Ho, Wo, N], the sums exact:
     detjax's ``_conv(xq, w, stride, preferred_element_type=jnp.int32)``.
     A patch matrix [B*Ho*Wo, k*k*C] (rows of (dy, dx, c), HWIO's order)
-    times ``w`` as [k*k*C, N] through ``torch._int_mm``."""
+    times ``w`` as [k*k*C, N] through ``torch._int_mm``. Under an active
+    space group on this rank's rows: int8 zero halo rows, no row
+    padding (``spatial.rows_for_op``)."""
     if xq.dtype != torch.int8 or w.dtype != torch.int8:
         raise TypeError(f"conv_int8 takes int8 operands, got {xq.dtype} and "
                         f"{w.dtype}")
     k, c, n = w.shape[0], w.shape[2], w.shape[3]
-    b, h, wd, cx = xq.shape
-    if cx != c or w.shape[1] != k:
-        raise ValueError(f"x [.., {cx}] and w {tuple(w.shape)} disagree")
-    ho, wo = _out_hw(h, wd, k, stride)
+    if xq.shape[3] != c or w.shape[1] != k:
+        raise ValueError(f"x [.., {xq.shape[3]}] and w {tuple(w.shape)} "
+                         f"disagree")
+    p = k // 2
+    xq, pad_rows = spatial.rows_for_op(xq, k, stride, p, 0)
+    b, h, wd, _ = xq.shape
+    ho, wo = _out_hw(h, wd, k, stride, pad_rows)
     if k == 1 and stride == 1:
         patches = xq.reshape(-1, c)
     else:
         # the k*k windows as one strided view of the padded tensor,
         # [B, Ho, Wo, k, k, C], copied out as rows of (dy, dx, c)
-        p = k // 2
-        xp = F.pad(xq, (0, 0, p, p, p, p)) if p else xq
+        xp = (F.pad(xq, (0, 0, p, p, pad_rows, pad_rows))
+              if p or pad_rows else xq)
         if not xp.is_contiguous():
             xp = xp.contiguous()
         sb, sh, sw, sc = xp.stride()
@@ -159,31 +190,34 @@ def conv_int8_reference(xq: torch.Tensor, w: torch.Tensor, stride: int = 1
                         ) -> torch.Tensor:
     """Plain version of :func:`conv_int8`: an fp64 conv of the integer
     values, exact (every sum stays below 127**2 * 9 * 512 < 2**53),
-    rounded back to int32."""
+    rounded back to int32; on this rank's rows as :func:`conv_int8`."""
     k = w.shape[0]
+    xq, pad_rows = spatial.rows_for_op(xq, k, stride, k // 2, 0)
     y = F.conv2d(xq.to(torch.float64).permute(0, 3, 1, 2),
                  w.to(torch.float64).permute(3, 2, 0, 1), stride=stride,
-                 padding=k // 2)
+                 padding=(pad_rows, k // 2))
     return torch.round(y).to(torch.int32).permute(0, 2, 3, 1)
 
 
 def max_pool_int8(q: torch.Tensor) -> torch.Tensor:
     """3x3 / stride 2 / pad 1 max-pool of int8 NHWC ``q``, padded with
     -128: detjax's ``reduce_window(q, int8(-128), max, ...)`` as a max over
-    nine strided slices."""
+    nine strided slices; under an active space group on this rank's rows
+    (a halo row above, -128 at the image's top)."""
+    q, pad_rows = spatial.rows_for_op(q, 3, 2, 1, -128)
     b, h, w, c = q.shape
-    ho, wo = _out_hw(h, w, 3, 2)
+    ho, wo = _out_hw(h, w, 3, 2, pad_rows)
     out = None
-    for win in _pool_windows(F.pad(q, (0, 0, 1, 1, 1, 1), value=-128), 3, 2,
-                             ho, wo):
+    for win in _pool_windows(F.pad(q, (0, 0, 1, 1, pad_rows, pad_rows),
+                                   value=-128), 3, 2, ho, wo):
         out = win if out is None else torch.maximum(out, win)
     return out
 
 
 def _max_pool_fp(x: torch.Tensor) -> torch.Tensor:
-    """3x3 / stride 2 max-pool of NHWC ``x``, padded with -inf."""
-    return F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2,
-                        padding=1).permute(0, 2, 3, 1)
+    """3x3 / stride 2 max-pool of NHWC ``x``, padded with -inf (on this
+    rank's rows under an active space group)."""
+    return spatial.max_pool_3x3s2(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 def _relu(x: torch.Tensor) -> torch.Tensor:
@@ -364,9 +398,20 @@ def _backbone_forward(mode, cfg: Config, images: torch.Tensor):
     return feats
 
 
-def _fpn_forward(mode, cfg: Config, feats):
+def _gather_rows(x: Union[torch.Tensor, QTensor]
+                 ) -> Union[torch.Tensor, QTensor]:
+    """The whole image's rows of a row-sharded NHWC activation (a
+    QTensor's int8 values, its scale kept)."""
+    if isinstance(x, QTensor):
+        return QTensor(spatial.gather_rows_nhwc(x.q), x.s)
+    return spatial.gather_rows_nhwc(x)
+
+
+def _fpn_forward(mode, cfg: Config, feats, row_sharded: bool = True):
     """detjax's ``_fpn_forward``: laterals, top-down sum, outputs, P6 on
-    C5, P7 on ReLU(P6)."""
+    C5, P7 on ReLU(P6). Under an active space group, ``row_sharded`` is
+    the layout rule's decision (``models/fpn.py``): False gathers the
+    outputs and C5 and runs P6 and P7 on whole rows."""
     m = cfg.model
     feats = {lvl: f for lvl, f in feats.items() if lvl >= m.min_level}
     levels = sorted(feats)
@@ -379,13 +424,18 @@ def _fpn_forward(mode, cfg: Config, feats):
         merged[lvl] = laterals[lvl] + up
     out = {lvl: mode.conv(f"fpn/output_p{lvl}", f"fpn/output_p{lvl}",
                           merged[lvl]) for lvl in merged}
-    if m.max_level >= top + 1:
-        out[top + 1] = mode.conv(f"fpn/output_p{top + 1}",
-                                 f"fpn/output_p{top + 1}", feats[top],
-                                 stride=2)
-    for lvl in range(top + 2, m.max_level + 1):
-        out[lvl] = mode.conv(f"fpn/output_p{lvl}", f"fpn/output_p{lvl}",
-                             _relu(out[lvl - 1]), stride=2)
+    c5 = feats[top]
+    whole = spatial.active() is not None and not row_sharded
+    if whole:
+        out = {lvl: _gather_rows(x) for lvl, x in out.items()}
+        c5 = _gather_rows(c5)
+    with spatial.replicated() if whole else contextlib.nullcontext():
+        if m.max_level >= top + 1:
+            out[top + 1] = mode.conv(f"fpn/output_p{top + 1}",
+                                     f"fpn/output_p{top + 1}", c5, stride=2)
+        for lvl in range(top + 2, m.max_level + 1):
+            out[lvl] = mode.conv(f"fpn/output_p{lvl}", f"fpn/output_p{lvl}",
+                                 _relu(out[lvl - 1]), stride=2)
     return {lvl: out[lvl] for lvl in range(m.min_level, m.max_level + 1)}
 
 
@@ -393,19 +443,22 @@ def _flatten_level(x: torch.Tensor, c: int) -> torch.Tensor:
     return x.reshape(x.shape[0], -1, c)
 
 
-def _head_forward(mode, cfg: Config, pyramid):
+def _head_forward(mode, cfg: Config, pyramid, full_rows=None):
     """detjax's ``_head_forward``. SSD: one predictor pair a level, each
     its own site. RetinaNet: the towers' weights are shared over the
-    levels, each (conv, level) site has its own scale."""
+    levels, each (conv, level) site has its own scale. ``full_rows``
+    (:func:`_gather_rows` on a row-sharded pyramid) is applied to each
+    level's outputs before the flatten."""
     m = cfg.model
+    rows = full_rows or (lambda t: t)
     cls_all, box_all = [], []
     if m.family == "ssd":
         for level in sorted(pyramid):
             x = pyramid[level]
             cls = mode.conv(f"head/cls_p{level}", f"head/cls_p{level}", x)
             box = mode.conv(f"head/box_p{level}", f"head/box_p{level}", x)
-            cls_all.append(_flatten_level(cls, m.num_classes))
-            box_all.append(_flatten_level(box, 4))
+            cls_all.append(_flatten_level(rows(cls), m.num_classes))
+            box_all.append(_flatten_level(rows(box), 4))
         return torch.cat(cls_all, dim=1), torch.cat(box_all, dim=1)
     for level in sorted(pyramid):
         x = pyramid[level]
@@ -414,19 +467,35 @@ def _head_forward(mode, cfg: Config, pyramid):
             c = _relu(mode.conv(f"head/cls_conv{i}",
                                 f"head/cls_conv{i}@p{level}", c))
         cls = mode.conv("head/cls_out", f"head/cls_out@p{level}", c)
-        cls_all.append(_flatten_level(cls, m.num_classes))
+        cls_all.append(_flatten_level(rows(cls), m.num_classes))
         b = x
         for i in range(m.num_head_convs):
             b = _relu(mode.conv(f"head/box_conv{i}",
                                 f"head/box_conv{i}@p{level}", b))
         box = mode.conv("head/box_out", f"head/box_out@p{level}", b)
-        box_all.append(_flatten_level(box, 4))
+        box_all.append(_flatten_level(rows(box), 4))
     return torch.cat(cls_all, dim=1), torch.cat(box_all, dim=1)
 
 
 def _forward(mode, cfg: Config, images: torch.Tensor):
+    """The traversal; under an active space group on this rank's rows of
+    ``images`` with the layout rule of ``models/detector.py``, decided
+    once from the canvas, and outputs over the whole canvas."""
+    m = cfg.model
+    sg = spatial.active()
+    row_sharded = True
+    if sg is not None:
+        canvas = images.shape[1] * sg.size
+        spatial.check_canvas_rows(canvas, sg.size)
+        row_sharded = spatial.pyramid_sharded(
+            canvas, range(m.min_level, m.max_level + 1), sg.size)
     feats = _backbone_forward(mode, cfg, images)
-    return _head_forward(mode, cfg, _fpn_forward(mode, cfg, feats))
+    pyramid = _fpn_forward(mode, cfg, feats, row_sharded)
+    whole = sg is not None and not row_sharded
+    with spatial.replicated() if whole else contextlib.nullcontext():
+        return _head_forward(mode, cfg, pyramid,
+                             _gather_rows if sg is not None and row_sharded
+                             else None)
 
 
 def _images(images, device) -> torch.Tensor:

@@ -15,10 +15,12 @@ calibrated when the server starts) and a saved detect program
 (``detjax_torch.parallel.make_mesh(devices)``) the fp and int8 engines
 hold one replica of the model (or of the int8 qtree) on each device, split
 every batch into contiguous slices, dispatch each on its device and gather
-the slices in order, as detjax's SPMD serving does. A mesh with a
-``space`` axis raises: detjax's server splits rows over local chips in one
-process, which the port's single-process mesh cannot do without a
-shard-parallel forward (ROADMAP Queue 1 #8). Request bodies are
+the slices in order, as detjax's SPMD serving does. On a ``(data,
+space)`` mesh (``make_mesh(devices, spatial=S)``) each slice's image rows
+are split over the S devices of its data index as well, detjax's
+``P('data', 'space')``: the shards run on threads, each on its own device
+and CUDA stream, exchanging halo rows in process
+(``parallel/mesh.py::RowRunner``). Request bodies are
 decoded with the in-repo libjpeg binding (``detjax_torch.native``), then
 PIL, as detjax decodes them.
 
@@ -211,14 +213,19 @@ def _build_engine(model, cfg, engine: str, batch_size: int,
                   calib_mode: str = "absmax"):
     """One detect engine at ``cfg.model.image_size``.
 
-    Returns ``(dispatch, finalize, run_batch)``, the MicroBatcher trio.
-    ``engine``: "fp" (the live model), "int8" (the PTQ engine,
-    :mod:`detjax_torch.quant`, calibrated on ``calibration``: uint8
-    canvases of the served shape, REQUIRED), or the path of a saved detect
-    program (:func:`detjax_torch.export.save_detect`, exported for input
+    Returns ``(dispatch, finalize, run_batch, close)``, the MicroBatcher
+    trio and what ends the engine's shard threads. ``engine``: "fp" (the
+    live model), "int8" (the PTQ engine, :mod:`detjax_torch.quant`,
+    calibrated on ``calibration``: uint8 canvases of the served shape,
+    REQUIRED, on whole images on the model's device, as detjax calibrates
+    outside the mesh), or the path of a saved detect program
+    (:func:`detjax_torch.export.save_detect`, exported for input
     ``(batch_size, H, W, 3)``). ``mesh``: a single-process mesh; each
-    batch is split over its devices (fp and int8 only: a program runs on
-    the one device it was exported for).
+    batch is split over its data axis, and on a ``space`` axis each
+    image's rows over the space axis (fp and int8 only: a program runs on
+    the one device it was exported for). detjax's order of checks: the
+    engine, the batch over the data axis, the canvas over the space axis
+    (here its height divisible by 32 x S, ``spatial.check_canvas_rows``).
     """
     import torch
 
@@ -228,26 +235,32 @@ def _build_engine(model, cfg, engine: str, batch_size: int,
     h, w = cfg.model.image_size
     dev = next(model.parameters()).device
     if mesh is not None:
-        from detjax_torch.parallel.mesh import (SPACE_SERVING_NOT_PORTED,
-                                                 check_mesh, replicate,
-                                                 split_over)
+        from detjax_torch.models import spatial
+        from detjax_torch.parallel.mesh import (RowRunner, check_mesh,
+                                                 replicate, split_over)
 
         check_mesh(mesh)
+        if engine not in ("fp", "int8"):
+            raise ValueError(
+                "mesh= requires the fp or int8 engine: a saved detect "
+                "program runs on the one device it was exported for")
+        if batch_size % mesh.data_size:
+            raise ValueError(
+                f"batch_size={batch_size} must be divisible by the mesh's "
+                f"data axis ({mesh.data_size} devices)")
         if mesh.space > 1:
-            raise NotImplementedError(SPACE_SERVING_NOT_PORTED)
+            spatial.check_canvas_rows(h, mesh.space)
         if mesh.multi_process:
             raise ValueError(
                 "mesh= serving runs in one process over its local devices "
                 "(make_mesh(devices) outside torchrun); a multi-process "
                 "mesh trains")
-        if engine not in ("fp", "int8"):
-            raise ValueError(
-                "mesh= requires the fp or int8 engine: a saved detect "
-                "program runs on the one device it was exported for")
-        if batch_size % mesh.size:
-            raise ValueError(
-                f"batch_size={batch_size} must be divisible by the mesh's "
-                f"data axis ({mesh.size} devices)")
+
+        def over_mesh(fn, replicas):
+            if mesh.space > 1:
+                return RowRunner(dev, mesh, fn, replicas)
+            return split_over(dev, [(lambda c, r=r: fn(r, c))
+                                    for r in replicas])
 
     def _normalize(canvases_u8, device):  # artifact engine + calibration
         return normalize_u8(torch.as_tensor(canvases_u8).to(device),
@@ -258,9 +271,8 @@ def _build_engine(model, cfg, engine: str, batch_size: int,
             return detect_u8(model, canvases_u8, cfg)
 
         if mesh is not None:
-            run = split_over(dev, [
-                (lambda c, m=m: detect_u8(m, c, cfg)) for m in
-                replicate(model, mesh)])
+            run = over_mesh(lambda m, c: detect_u8(m, c, cfg),
+                            replicate(model, mesh))
     elif engine == "int8":
         from detjax_torch import quant
 
@@ -286,9 +298,8 @@ def _build_engine(model, cfg, engine: str, batch_size: int,
             return quant.detect_int8_u8(qtree, canvases_u8, cfg)
 
         if mesh is not None:
-            run = split_over(dev, [
-                (lambda c, q=q: quant.detect_int8_u8(q, c, cfg)) for q in
-                replicate(qtree, mesh)])
+            run = over_mesh(lambda q, c: quant.detect_int8_u8(q, c, cfg),
+                            replicate(qtree, mesh))
     else:  # the path of a saved detect program
         from detjax_torch.export import load_detect
 
@@ -323,7 +334,8 @@ def _build_engine(model, cfg, engine: str, batch_size: int,
         return finalize_batch(dispatch_batch(canvases_u8),
                               canvases_u8.shape[0])
 
-    return dispatch_batch, finalize_batch, run_batch
+    return (dispatch_batch, finalize_batch, run_batch,
+            getattr(run, "close", lambda: None))
 
 
 def _resize_canvases_u8(canvases: np.ndarray, size_hw) -> np.ndarray:
@@ -358,8 +370,10 @@ class DetectionServer:
 
     ``mesh``: a single-process :class:`detjax_torch.parallel.Mesh` over
     this host's devices; fp and int8 engines, ``batch_size`` divisible by
-    the devices. Each device holds a replica and detects a contiguous
-    slice of every batch.
+    the mesh's data axis. Each device holds a replica and detects a
+    contiguous slice of every batch; on a ``(data, space)`` mesh
+    (``make_mesh(devices, spatial=S)``) its block of the slice's image
+    rows, the canvas height divisible by 32 x S.
     """
 
     def __init__(self, model, cfg, engine: str = "fp",
@@ -386,6 +400,7 @@ class DetectionServer:
             sizes = [None]  # one bucket at cfg.model.image_size
         self._buckets = []  # [(canvas_hw, MicroBatcher)], ascending size
         self._runs = []  # per-bucket run_batch, for warmup()
+        self._closers = []  # per-bucket engine close (its shard threads)
         for s in sizes:
             cfg_b = cfg if s is None else dataclasses.replace(
                 cfg, model=dataclasses.replace(cfg.model, image_size=(s, s)))
@@ -395,9 +410,10 @@ class DetectionServer:
                     cfg_b.model.image_size:
                 cal_b = _resize_canvases_u8(
                     np.asarray(calibration, np.uint8), cfg_b.model.image_size)
-            dispatch, finalize, run_batch = _build_engine(
+            dispatch, finalize, run_batch, close = _build_engine(
                 model, cfg_b, engine, batch_size, cal_b, mesh=mesh,
                 calib_mode=int8_calib_mode)
+            self._closers.append(close)
             batcher = MicroBatcher(
                 run_batch, batch_size, cfg_b.model.image_size, max_wait_ms,
                 max_queue_batches=max_queue_batches,
@@ -531,3 +547,5 @@ class DetectionServer:
             self._httpd.shutdown()
         for _, batcher in self._buckets:
             batcher.close()
+        for close in self._closers:
+            close()

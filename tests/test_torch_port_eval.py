@@ -305,11 +305,13 @@ def test_detect_fn_overrides_and_max_images_caps(carried):
 def test_mesh_is_not_ported(carried):
     """evaluate takes a detjax_torch.parallel.Mesh (sharded evaluation is
     ``tests/test_torch_port_parallel.py``'s, over a space axis
-    ``tests/test_torch_port_spatial.py``'s): another object is refused; a
-    space axis over one process's devices, and another engine
-    (``detect_fn``) on a space axis, name ROADMAP Queue 1 #8; a canvas
-    that the space axis cannot split through the backbone is refused
-    before any collective."""
+    ``tests/test_torch_port_spatial.py``'s and
+    ``tests/test_torch_port_space_serve.py``'s): another object is
+    refused; a space axis over one process's devices evaluates, with the
+    live model and with another engine (``detect_fn``), each image's
+    detections within 1e-6 (scores) and 1e-4 (boxes) of the unsharded
+    run's; a canvas that the space axis cannot split through the backbone
+    is refused before any collective, ``detect_fn`` or not."""
     import dataclasses
 
     from detjax_torch.parallel import Mesh
@@ -318,17 +320,30 @@ def test_mesh_is_not_ported(carried):
     with pytest.raises(TypeError, match="Mesh"):
         detjax_torch.evaluate(model, t_ds, tcfg, mesh=object())
     local = Mesh((torch.device("cpu"),) * 2, space=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        detjax_torch.evaluate(model, t_ds, tcfg, mesh=local)
+
+    def twin_route(m, x):
+        return detjax_torch.detect(m, x, tcfg, nms_backend="torch")
+
+    for fn in (None, twin_route):
+        got = list(t_evaluator.iter_detections(model, t_ds, tcfg,
+                                               detect_fn=fn, mesh=local))
+        want = list(t_evaluator.iter_detections(model, t_ds, tcfg,
+                                                detect_fn=fn))
+        assert [g[0] for g in got] == [w[0] for w in want]
+        for (_, gb, gs, gl), (_, wb, ws, wl) in zip(got, want):
+            np.testing.assert_array_equal(gl, wl)
+            np.testing.assert_allclose(gs, ws, rtol=0, atol=1e-6)
+            np.testing.assert_allclose(gb, wb, rtol=0, atol=1e-4)
+        assert sum(len(w[3]) for w in want) > 10
     ranks = Mesh((torch.device("cpu"),), group=object(), world_size=2,
                  space=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        list(t_evaluator.iter_detections(model, t_ds, tcfg, mesh=ranks,
-                                         detect_fn=lambda m, x: None))
     odd = dataclasses.replace(tcfg, model=dataclasses.replace(
         tcfg.model, image_size=(96, 96)))
     with pytest.raises(ValueError, match="32 x space"):
         detjax_torch.evaluate(model, t_ds, odd, mesh=ranks)
+    with pytest.raises(ValueError, match="32 x space"):
+        list(t_evaluator.iter_detections(model, t_ds, odd, mesh=ranks,
+                                         detect_fn=lambda m, x: None))
 
 
 def test_evaluate_runs_on_the_model_device_only(carried):

@@ -729,10 +729,13 @@ def test_make_mesh_forms_and_refusals(monkeypatch):
     assert (mesh.space, mesh.data_size, mesh.space_context()) == (1, 3, None)
     with pytest.raises(ValueError, match="does not divide"):
         make_mesh(["cpu", "cpu"], spatial=3)
-    # a space axis is multi-process (tests/test_torch_port_spatial.py);
-    # over one process's devices it is the serving slice, Queue 1 #8
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        make_mesh(["cpu", "cpu"], spatial=2)
+    # over one process's devices a space axis serves and evaluates
+    # (tests/test_torch_port_space_serve.py); detjax's grid, reshape(-1, 2)
+    local = make_mesh(["cpu"] * 4, spatial=2)
+    assert local.axis_names == ("data", "space")
+    assert (local.size, local.data_size, local.space) == (4, 2, 2)
+    assert (local.multi_process, local.space_group) == (False, None)
+    assert check_mesh(local) is local
     rank_1 = Mesh((torch.device("cpu"),), group=object(), rank=1,
                   world_size=2, space=2,
                   space_group=object())

@@ -86,8 +86,12 @@ def test_microbatcher_pads_and_coalesces():
     mb.close()
     assert sorted(results) == [10.0, 20.0, 30.0]
     assert all(b.shape == (4, 8, 8, 3) for b in seen)
-    with pytest.raises(ValueError, match="canvas must be uint8"):
-        MicroBatcher(run_batch, 2, (8, 8)).submit(np.zeros((8, 8, 3)))
+    other = MicroBatcher(run_batch, 2, (8, 8))
+    try:
+        with pytest.raises(ValueError, match="canvas must be uint8"):
+            other.submit(np.zeros((8, 8, 3)))
+    finally:
+        other.close()
 
 
 def test_microbatcher_sheds_load_when_full():
@@ -215,23 +219,39 @@ _SPACE_RANKS = Mesh((torch.device("cpu"),), group=object(), world_size=2,
                     space=2)
 
 
-@pytest.mark.parametrize("kw,slice_name", [
+@pytest.mark.parametrize("kw,error,match", [
     pytest.param({"mesh": Mesh((torch.device("cpu"),) * 2, space=2)},
-                 "Queue 1 #8", id="kw2-parallel"),
-    pytest.param({"mesh": _SPACE_RANKS}, "Queue 1 #8", id="space-ranks"),
-    pytest.param({"mesh": _SPACE_RANKS, "engine": "int8"}, "Queue 1 #8",
-                 id="space-int8"),
+                 None, None, id="kw2-parallel"),
+    pytest.param({"mesh": _SPACE_RANKS}, ValueError, "multi-process",
+                 id="space-ranks"),
+    pytest.param({"mesh": _SPACE_RANKS, "engine": "int8"}, ValueError,
+                 "multi-process", id="space-int8"),
     pytest.param({"mesh": _SPACE_RANKS, "engine": "some_program.pt2"},
-                 "Queue 1 #8", id="space-program"),
+                 ValueError, "requires the fp or int8 engine",
+                 id="space-program"),
 ])
-def test_unported_engines_name_their_slice(model, kw, slice_name):
-    """Serving over a ``space`` axis (detjax's server splits rows over
-    local chips in one process), with any engine, names ROADMAP Queue 1
-    #8, the one item left: the port's space axis is multi-process
-    (training and evaluation, ``tests/test_torch_port_spatial.py``); a
-    data-parallel mesh serves (``tests/test_torch_port_parallel.py``)."""
-    with pytest.raises(NotImplementedError, match=slice_name):
-        DetectionServer(model, _cfg(), **kw)
+def test_unported_engines_name_their_slice(model, kw, error, match):
+    """Serving over a ``space`` axis, detjax's order of checks: a
+    single-process (data, space) mesh serves (its answers equal the
+    unsplit server's; the whole comparison with detjax's spatial server
+    is ``tests/test_torch_port_space_serve.py``'s); a multi-process mesh
+    is refused as serving (it trains), with any engine; a saved program
+    on any mesh gets detjax's ValueError before anything else."""
+    if error is not None:
+        with pytest.raises(error, match=match):
+            DetectionServer(model, _cfg(), **kw)
+        return
+    canvases = _canvases(8, seed=3)
+    split = DetectionServer(model, _cfg(), score_threshold=0.0, **kw)
+    try:
+        got = split._runs[0](canvases)
+    finally:
+        split.shutdown()
+    want = detjax_torch.detect_u8(model, canvases, _cfg())
+    assert int(want.num_valid.sum()) > 10
+    for i, g in enumerate(got):
+        _assert_same(g, tuple(t[i].numpy() for t in want[:3])
+                     + (int(want.num_valid[i]),))
 
 
 def _http_answers(srv, canvases):

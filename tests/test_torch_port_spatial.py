@@ -205,6 +205,9 @@ def _pair_main(rank: int, port: int, root: str) -> None:
         ds = SyntheticDetectionDataset(**EVAL_DS)
         out["eval"] = detjax_torch.evaluate(model, ds, ecfg, mesh=mesh).stats
         out["dets"] = list(iter_detections(model, ds, ecfg, mesh=mesh))
+        int8 = _int8_detect_fn(model, ecfg)
+        out["dets_int8"] = list(iter_detections(model, ds, ecfg, mesh=mesh,
+                                                detect_fn=int8))
         inputs = _wait_for(root / "inputs.pt")
         for name in ("frozen_128", "frozen_512"):
             cfg = _cfg(name)
@@ -227,7 +230,20 @@ def _pair_main(rank: int, port: int, root: str) -> None:
             out[f"single_fused_{fb}"] = _record(state, m, True)
         out["eval_plain"] = detjax_torch.evaluate(model, ds, ecfg).stats
         out["dets_plain"] = list(iter_detections(model, ds, ecfg))
+        out["dets_int8_plain"] = list(iter_detections(
+            model, ds, ecfg, detect_fn=int8))
     torch.save(out, root / f"pair{rank}.pt")
+
+
+def _int8_detect_fn(model, cfg):
+    """The evaluate CLI's int8 engine as a ``detect_fn``: a qtree
+    calibrated on two seeded whole images (the same on every rank)."""
+    from detjax_torch import quant
+
+    x = np.random.default_rng(3).normal(0, 1, (2, 64, 64, 3)).astype(
+        np.float32)
+    qtree = quant.quantize_model(model, cfg, x)
+    return lambda m, images: quant.detect_int8(qtree, images, cfg)
 
 
 def _quad_main(rank: int, port: int, root: str) -> None:
@@ -575,6 +591,21 @@ def test_sharded_evaluation_equals_unsharded(work):
         assert sum(len(w[3]) for w in want) > 10
 
 
+def test_sharded_int8_evaluation_equals_unsharded(work):
+    """``iter_detections(mesh=, detect_fn=)`` with the int8 engine on the
+    (1, 2) mesh: the int8 traversal exchanges its own halos over the
+    ranks, and each image's detections are bit-equal to the unsharded
+    int8 run's (integer sums are exact; the bf16 steps elementwise)."""
+    want = work["pair"][0]["dets_int8_plain"]
+    assert sum(len(w[3]) for w in want) > 10
+    for r in work["pair"]:
+        got = r["dets_int8"]
+        assert [g[0] for g in got] == [w[0] for w in want]
+        for g, w in zip(got, want):
+            for a, b in zip(g[1:], w[1:]):
+                np.testing.assert_array_equal(a, b)
+
+
 def test_cli_train_spatial_under_torch_distributed_run(work):
     """``python -m torch.distributed.run --nproc_per_node 2 -m
     detjax_torch.cli.train --spatial 2 --device cpu --synthetic --steps
@@ -758,7 +789,8 @@ def test_row_halo_adds_rows_on_inner_edges_only(monkeypatch):
 
 def test_mesh_axes_and_rows(monkeypatch):
     """A (data, space) Mesh's indices, its rows of a global batch and of an
-    image, and the single-process refusal naming ROADMAP Queue 1 #8."""
+    image, and the single-process form: the devices grouped as detjax's
+    grid, ``reshape(-1, spatial)``, one device repeated allowed."""
     for v in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
               "MASTER_PORT"):
         monkeypatch.delenv(v, raising=False)
@@ -777,5 +809,11 @@ def test_mesh_axes_and_rows(monkeypatch):
     local = shard_batch(batch, ranks[2])
     assert local["images"].shape == (4, 32, 80, 3)
     assert local["gt_boxes"].shape == (4, 4, 4)
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        make_mesh(["cpu", "cpu"], spatial=2)
+    one = make_mesh(["cpu", "cpu"], spatial=2)
+    assert one.axis_names == ("data", "space")
+    assert (one.size, one.data_size, one.space, one.world_size) == (2, 1, 2,
+                                                                   1)
+    assert one.devices == (torch.device("cpu"),) * 2
+    assert not one.multi_process
+    with pytest.raises(ValueError, match="does not divide"):
+        make_mesh(["cpu"] * 3, spatial=2)
