@@ -1,0 +1,8 @@
+"""idle_pct.train: One minus the union of device operations' intervals over
+the window."""
+
+from benchmark.metrics import _read
+
+
+def read(rec):
+    return _read.idle(rec)

@@ -1,0 +1,7 @@
+"""loss_ms.train: Mean ms of the loss and matching, by CUDA events."""
+
+from benchmark.metrics import _read
+
+
+def read(rec):
+    return _read.span_ms(rec, "loss")

@@ -1,0 +1,8 @@
+"""nms_roofline.serve_rate: the NMS kernel's bound (a lower one: the
+pairs each kept detection needed) over nms_kernel time."""
+
+from benchmark.metrics import _read
+
+
+def read(rec):
+    return _read.nms_roofline(rec)
