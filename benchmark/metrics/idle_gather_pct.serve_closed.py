@@ -1,0 +1,9 @@
+"""idle_gather_pct.serve_closed: Percent of the traced window in which the
+device ran nothing and the server's worker waited in its queue
+(serve.gather)."""
+
+from benchmark.metrics import _serve_spans
+
+
+def read(rec):
+    return _serve_spans.idle_pct(rec, "gather")

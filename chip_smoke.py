@@ -33,8 +33,7 @@ retinanet_r101_fpn serving "off" and "on", training, and multi-scale
 steps at 512 and 640 with batch-statistics BatchNorm); then R50-640
 training under each of detjax's backbone A/B knobs (``knobs``:
 ``dot_1x1``, ``remat_early``, ``f8_remat_stages``, each against its
-baseline, timed in turns) and the port's bench,
-``python -m detjax_torch.cli.bench``, in a fresh process (``bench``);
+baseline, timed in turns);
 then data parallelism (``detjax_torch.parallel``) at config 5's model,
 coco_v5e8 at its per-chip batch 16 (``parallel``: ``fit`` on a world-1
 NCCL group bit-equal to ``fit`` without a mesh and timed in turns with
@@ -5681,42 +5680,6 @@ def phase_knobs(report: dict, state: dict) -> None:
     state["knobs"] = rows
 
 
-BENCH_TIMEOUT_S = 600
-
-
-def phase_bench(state: dict) -> None:
-    """``python -m detjax_torch.cli.bench`` in a fresh process: its last
-    line parses, every engine's min <= median <= max over at least 5
-    windows, and the card it names is this one; the line is echoed."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "detjax_torch.cli.bench"],
-                          cwd=str(Path(__file__).resolve().parent),
-                          capture_output=True, text=True,
-                          timeout=BENCH_TIMEOUT_S)
-    wall_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise SystemExit(f"bench exited {proc.returncode}: "
-                         f"{proc.stderr[-4000:]}")
-    line = json.loads(proc.stdout.strip().splitlines()[-1])
-    spreads = {"int8": line["int8"]}
-    for engine in ("train", "infer"):
-        for fused in ("off", "on"):
-            spreads[f"{engine}_{fused}"] = line[engine][fused]
-    bad = {k: v for k, v in spreads.items()
-           if not (len(v["windows"]) >= 5
-                   and 0 < v["min"] <= v["median"] <= v["max"])}
-    emit({"phase": "bench", "wall_s": wall_s, "line": line})
-    card = ", ".join([line["device"]["name"], line["device"]["power_limit"]])
-    if bad or line["value"] != line["train"]["off"]["median"]:
-        raise SystemExit(f"bench: spreads out of order or too few windows: "
-                         f"{bad}")
-    if card != state["card"]:
-        raise SystemExit(f"bench names {card!r}, not {state['card']!r}")
-    state["bench"] = line
-
-
-
-
 def ssd_gate(steps: int = 1500) -> int:
     """detjax's SSD gate on the card (scripts/e2e_gate.py:269-297): fit the
     recipe for ``steps`` steps on its 8 scenes, then AP50 on them through
@@ -7401,7 +7364,6 @@ def main() -> int:
     run(phase_ssd, report, state)
     run(phase_r101, report, state)
     run(phase_knobs, report, state)
-    run(phase_bench, state)
     run(phase_parallel, report, state)
     run(phase_spatial, report, state)
     run(phase_space_serve, report, state)

@@ -25,8 +25,7 @@ int8 PTQ engine (``quantize_model`` -> ``detect_int8`` /
 ``load_detect``), each behind the server too; detjax's backbone A/B
 knobs (``model.dot_1x1``, ``model.remat_early``,
 ``model.f8_remat_stages``, ``models/resnet.py``); and the CLIs
-(``python -m detjax_torch.cli.{train,export,serve,detect,evaluate,bench}``;
-the bench is ``detjax_torch.bench``).
+(``python -m detjax_torch.cli.{train,export,serve,detect,evaluate}``).
 detjax's Pallas kernels on those paths are
 replaced by CUDA kernels written by hand for ``sm_90a``: NMS
 (``detjax_torch/csrc/nms.cu``), anchor matching

@@ -33,12 +33,16 @@ HTTP API (stdlib ThreadingHTTPServer; no extra deps):
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import queue
 import threading
+import time
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
+
+from detjax_torch.utils import profiling
 
 
 class Overloaded(RuntimeError):
@@ -51,6 +55,15 @@ class MicroBatcher:
     ``run_batch`` is called with a [B, H, W, 3] uint8 canvas batch and must
     return per-slot results; requests beyond ``batch_size`` wait for the
     next cycle. Thread-safe; one worker thread owns the device.
+
+    While spans record (:mod:`detjax_torch.utils.profiling`), each request
+    records ``serve.queue_wait`` (its ``put`` to the worker's ``get``; ids
+    ``request``, ``batch``), and the worker's phases abut: ``serve.gather``
+    (its waits in the queue), ``serve.assemble`` (the padded batch),
+    ``serve.dispatch`` (the engine's dispatch) and ``serve.finalize`` (the
+    engine's finalize and the waiters' release), each with the ``batch``
+    id and, but for gathering, ``n``, the requests in it. ``batches`` and
+    ``slots`` count the batches dispatched and the requests in them.
     """
 
     def __init__(self, run_batch: Callable[[np.ndarray], Sequence],
@@ -81,6 +94,10 @@ class MicroBatcher:
         self.submitted = 0
         self.completed = 0  # worker-thread only
         self.rejected = 0
+        self.batches = 0  # worker-thread only
+        self.slots = 0  # worker-thread only
+        self._requests = itertools.count(1)  # request ids of the spans
+        self._phases = profiling.Phases()  # worker-thread only
         self._worker = threading.Thread(target=self._loop, daemon=True)
         self._worker.start()
 
@@ -99,7 +116,10 @@ class MicroBatcher:
         if self._stop.is_set():
             raise RuntimeError("MicroBatcher is closed")
         done = threading.Event()
-        slot = {"canvas": canvas, "done": done, "result": None, "error": None}
+        slot = {"canvas": canvas, "done": done, "result": None, "error": None,
+                "t": profiling.clock()}
+        if slot["t"]:
+            slot["request"] = next(self._requests)
         try:
             self._q.put_nowait(slot)
         except queue.Full:
@@ -135,9 +155,20 @@ class MicroBatcher:
                 slot["done"].set()
                 self.completed += 1  # keep /healthz submitted==completed
 
+    def _get(self, batch: int, timeout: Optional[float] = None):
+        """The next queued slot, recording its wait as it leaves the queue
+        for batch ``batch``."""
+        slot = self._q.get(timeout=timeout)
+        if slot is not None and slot["t"]:
+            profiling.add_span("serve.queue_wait", slot["t"],
+                               time.perf_counter_ns(),
+                               request=slot["request"], batch=batch)
+        return slot
+
     def _finish(self, pending):
         """Block on a dispatched batch's handle and release its waiters."""
-        slots, handle = pending
+        slots, handle, batch = pending
+        self._phases.enter("serve.finalize", batch, len(slots))
         try:
             results = self._finalize(handle, len(slots))
             for i, s in enumerate(slots):
@@ -153,18 +184,21 @@ class MicroBatcher:
     def _loop(self):
         h, w = self.canvas_hw
         pending = None  # previously dispatched, not yet finalized
+        made = 0  # batches assembled; the one being gathered is made + 1
         while not self._stop.is_set():
+            b = made + 1
+            self._phases.enter("serve.gather", b)
             if pending is not None:
                 # device is busy with `pending` — poll briefly for the next
                 # batch so its dispatch can overlap, else finalize now
                 try:
-                    first = self._q.get(timeout=self.max_wait)
+                    first = self._get(b, self.max_wait)
                 except queue.Empty:
                     self._finish(pending)
                     pending = None
                     continue
             else:
-                first = self._q.get()
+                first = self._get(b)
             if first is None:
                 if pending is not None:
                     self._finish(pending)
@@ -175,7 +209,7 @@ class MicroBatcher:
             # coalescing window for stragglers
             while len(slots) < self.batch_size:
                 try:
-                    nxt = self._q.get(timeout=self.max_wait)
+                    nxt = self._get(b, self.max_wait)
                 except queue.Empty:
                     break
                 if nxt is None:
@@ -183,12 +217,17 @@ class MicroBatcher:
                 slots.append(nxt)
             try:  # NOTHING outside this try: an escaped exception would
                 # kill the worker thread and hang every future submit()
+                made = b
+                self._phases.enter("serve.assemble", b, len(slots))
                 batch = np.zeros((self.batch_size, h, w, 3), np.uint8)
                 for i, s in enumerate(slots):
                     batch[i] = s["canvas"]
                 # async dispatch FIRST: batch N+1's normalize+H2D rides
                 # along while batch N (pending) still computes
+                self._phases.enter("serve.dispatch", b, len(slots))
                 handle = self._dispatch(batch)
+                self.batches += 1
+                self.slots += len(slots)
             except Exception as e:
                 for s in slots:
                     s["error"] = e
@@ -200,12 +239,27 @@ class MicroBatcher:
                 self._finish(pending)
                 pending = None
             if handle is not None:
-                pending = (slots, handle)
+                pending = (slots, handle, b)
                 if self._q.empty():  # idle: no latency hiding to gain
                     self._finish(pending)
                     pending = None
         if pending is not None:
             self._finish(pending)
+        self._phases.enter(None)
+
+
+def finalize_batch(det, n: int):
+    """Every engine's finalize: the first ``n`` slots of a dispatched
+    batch's detections, copied to the host (``serve.fetch``), which waits
+    for the device."""
+    t = profiling.open_span("serve.fetch")
+    boxes = det.boxes.cpu().numpy()
+    scores = det.scores.cpu().numpy()
+    labels = det.labels.cpu().numpy()
+    nv = det.num_valid.cpu().numpy()
+    if t:
+        profiling.close_span(t)
+    return [(boxes[i], scores[i], labels[i], int(nv[i])) for i in range(n)]
 
 
 def _build_engine(model, cfg, engine: str, batch_size: int,
@@ -321,14 +375,6 @@ def _build_engine(model, cfg, engine: str, batch_size: int,
         # enqueues the device work and returns device tensors: the NEXT
         # batch's H2D and normalize are issued while this one computes
         return run(canvases_u8)
-
-    def finalize_batch(det, n: int):
-        boxes = det.boxes.cpu().numpy()  # waits for the device
-        scores = det.scores.cpu().numpy()
-        labels = det.labels.cpu().numpy()
-        nv = det.num_valid.cpu().numpy()
-        return [(boxes[i], scores[i], labels[i], int(nv[i]))
-                for i in range(n)]
 
     def run_batch(canvases_u8: np.ndarray):
         return finalize_batch(dispatch_batch(canvases_u8),
@@ -510,7 +556,9 @@ class DetectionServer:
                         "buckets": [list(hw) for hw, _ in outer._buckets],
                         "submitted": sum(b.submitted for b in bs),
                         "completed": sum(b.completed for b in bs),
-                        "rejected": sum(b.rejected for b in bs)})
+                        "rejected": sum(b.rejected for b in bs),
+                        "batches": sum(b.batches for b in bs),
+                        "slots": sum(b.slots for b in bs)})
                 else:
                     self._json(404, {"error": "not found"})
 
