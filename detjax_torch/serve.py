@@ -1,12 +1,14 @@
 """Micro-batching detection server over the port's detect path.
 
 The counterpart of ``detjax/serve.py``. ``Overloaded`` and ``MicroBatcher``
-are host code, ported verbatim: concurrent requests coalesce into
-fixed-size padded batches, one worker thread owns the device, and with a
-split-phase engine the worker dispatches batch N+1 before it finalizes
-batch N. The fp engine's ``dispatch`` enqueues ``detect_u8`` on the
-current CUDA stream and returns device tensors; ``finalize`` copies them to
-the host, which waits for the device.
+are host code: concurrent requests coalesce into fixed-size padded
+batches and one worker thread owns the device. With a split-phase engine
+the worker assembles batch N+1 while batch N computes, into the other of
+two reused batch buffers (page-locked on a CUDA engine), then finalizes
+batch N and dispatches batch N+1. The fp engine's ``dispatch`` uploads the
+buffer asynchronously and enqueues ``detect_u8`` on the current CUDA
+stream, returning device tensors; ``finalize`` copies them to the host,
+which waits for the device.
 
 Three engines behind one callable interface, as in detjax: the live fp
 path (``detect_u8``), the int8 PTQ engine (``quant.detect_int8_u8``,
@@ -56,6 +58,17 @@ class MicroBatcher:
     return per-slot results; requests beyond ``batch_size`` wait for the
     next cycle. Thread-safe; one worker thread owns the device.
 
+    The batcher holds two batch buffers, made once by ``new_buffer(shape)``
+    (zeroed uint8; the engine's choice: page-locked memory for a CUDA
+    engine, plain numpy by default), and assembles batch b into buffer
+    b % 2: its canvases in the first rows, and zeros in the rows that held
+    a canvas of that buffer's last batch and are padding now. Each cycle
+    runs gather N+1, assemble N+1, finalize N, dispatch N+1, so batch N+1
+    is assembled while batch N computes, N's fetch waits for N's own work
+    alone, and a buffer is written only after the batch it last held was
+    finalized. With a synchronous ``run_batch``, N is released before N+1
+    runs.
+
     While spans record (:mod:`detjax_torch.utils.profiling`), each request
     records ``serve.queue_wait`` (its ``put`` to the worker's ``get``; ids
     ``request``, ``batch``), and the worker's phases abut: ``serve.gather``
@@ -63,21 +76,24 @@ class MicroBatcher:
     ``serve.dispatch`` (the engine's dispatch) and ``serve.finalize`` (the
     engine's finalize and the waiters' release), each with the ``batch``
     id and, but for gathering, ``n``, the requests in it. ``batches`` and
-    ``slots`` count the batches dispatched and the requests in them.
+    ``slots`` count the batches dispatched and the requests in them;
+    ``ahead`` the batches assembled while an earlier batch was dispatched
+    and not yet finalized.
     """
 
     def __init__(self, run_batch: Callable[[np.ndarray], Sequence],
                  batch_size: int, canvas_hw, max_wait_ms: float = 2.0,
                  max_queue_batches: int = 8,
                  dispatch: Optional[Callable] = None,
-                 finalize: Optional[Callable] = None):
+                 finalize: Optional[Callable] = None,
+                 new_buffer: Callable[[tuple], np.ndarray] = (
+                     lambda shape: np.zeros(shape, np.uint8))):
         self.run_batch = run_batch
         # split-phase engine (serving overlap): ``dispatch`` enqueues the
         # device work asynchronously and returns a handle; ``finalize``
         # blocks on the handle and builds per-slot results. When a loaded
-        # queue holds the NEXT batch already, the worker dispatches it
-        # BEFORE finalizing the current one, so batch N+1's normalize+H2D
-        # overlaps batch N's compute. Without the pair, run_batch runs
+        # queue holds the NEXT batch already, the worker assembles it
+        # while the current one computes. Without the pair, run_batch runs
         # synchronously (no overlap, identical results).
         self._dispatch = dispatch if dispatch is not None else run_batch
         self._finalize = (finalize if finalize is not None
@@ -85,6 +101,9 @@ class MicroBatcher:
         self.batch_size = batch_size
         self.canvas_hw = tuple(canvas_hw)
         self.max_wait = max_wait_ms / 1e3
+        self._buffers = [new_buffer((batch_size, *self.canvas_hw, 3))
+                         for _ in range(2)]
+        self._filled = [0, 0]  # rows holding a canvas, a buffer
         # bounded admission: past ``max_queue_batches`` worth of waiting
         # requests, reject instead of letting latency grow without bound
         self._q: "queue.Queue" = queue.Queue(
@@ -96,6 +115,7 @@ class MicroBatcher:
         self.rejected = 0
         self.batches = 0  # worker-thread only
         self.slots = 0  # worker-thread only
+        self.ahead = 0  # worker-thread only
         self._requests = itertools.count(1)  # request ids of the spans
         self._phases = profiling.Phases()  # worker-thread only
         self._worker = threading.Thread(target=self._loop, daemon=True)
@@ -174,15 +194,32 @@ class MicroBatcher:
             for i, s in enumerate(slots):
                 s["result"] = results[i]
         except Exception as e:  # propagate to every waiter in the batch
-            for s in slots:
-                s["error"] = e
-        finally:
-            self.completed += len(slots)
-            for s in slots:
-                s["done"].set()
+            self._fail(slots, e)
+            return
+        self._release(slots)
+
+    def _fail(self, slots, error):
+        for s in slots:
+            s["error"] = error
+        self._release(slots)
+
+    def _release(self, slots):
+        self.completed += len(slots)
+        for s in slots:
+            s["done"].set()
+
+    def _assemble(self, batch: int, slots) -> np.ndarray:
+        """Batch ``batch``'s canvases in the first rows of its buffer, the
+        rows left from the buffer's last batch zeroed."""
+        k, n = batch % 2, len(slots)
+        buf = self._buffers[k]
+        buf[n:self._filled[k]] = 0
+        self._filled[k] = n
+        for i, s in enumerate(slots):
+            buf[i] = s["canvas"]
+        return buf
 
     def _loop(self):
-        h, w = self.canvas_hw
         pending = None  # previously dispatched, not yet finalized
         made = 0  # batches assembled; the one being gathered is made + 1
         while not self._stop.is_set():
@@ -190,7 +227,7 @@ class MicroBatcher:
             self._phases.enter("serve.gather", b)
             if pending is not None:
                 # device is busy with `pending` — poll briefly for the next
-                # batch so its dispatch can overlap, else finalize now
+                # batch so its assembly can overlap, else finalize now
                 try:
                     first = self._get(b, self.max_wait)
                 except queue.Empty:
@@ -215,34 +252,35 @@ class MicroBatcher:
                 if nxt is None:
                     break
                 slots.append(nxt)
-            try:  # NOTHING outside this try: an escaped exception would
+            made = b
+            try:  # NOTHING outside a try: an escaped exception would
                 # kill the worker thread and hang every future submit()
-                made = b
                 self._phases.enter("serve.assemble", b, len(slots))
-                batch = np.zeros((self.batch_size, h, w, 3), np.uint8)
-                for i, s in enumerate(slots):
-                    batch[i] = s["canvas"]
-                # async dispatch FIRST: batch N+1's normalize+H2D rides
-                # along while batch N (pending) still computes
+                batch = self._assemble(b, slots)
+                if pending is not None:
+                    self.ahead += 1
+            except Exception as e:
+                self._fail(slots, e)
+                slots = None
+            if pending is not None:
+                # batch N: its fetch waits for its own work alone, and
+                # its buffer is free for batch N+2 once it returns
+                self._finish(pending)
+                pending = None
+            if slots is None:
+                continue
+            try:
                 self._phases.enter("serve.dispatch", b, len(slots))
                 handle = self._dispatch(batch)
                 self.batches += 1
                 self.slots += len(slots)
             except Exception as e:
-                for s in slots:
-                    s["error"] = e
-                self.completed += len(slots)
-                for s in slots:
-                    s["done"].set()
-                handle = None
-            if pending is not None:
+                self._fail(slots, e)
+                continue
+            pending = (slots, handle, b)
+            if self._q.empty():  # idle: nothing to assemble meanwhile
                 self._finish(pending)
                 pending = None
-            if handle is not None:
-                pending = (slots, handle, b)
-                if self._q.empty():  # idle: no latency hiding to gain
-                    self._finish(pending)
-                    pending = None
         if pending is not None:
             self._finish(pending)
         self._phases.enter(None)
@@ -267,8 +305,10 @@ def _build_engine(model, cfg, engine: str, batch_size: int,
                   calib_mode: str = "absmax"):
     """One detect engine at ``cfg.model.image_size``.
 
-    Returns ``(dispatch, finalize, run_batch, close)``, the MicroBatcher
-    trio and what ends the engine's shard threads. ``engine``: "fp" (the
+    Returns ``(dispatch, finalize, run_batch, close, new_buffer)``: the
+    MicroBatcher trio, what ends the engine's shard threads, and what makes
+    the batcher's batch buffers (page-locked on a CUDA engine, so that a
+    one-device engine uploads a batch asynchronously). ``engine``: "fp" (the
     live model), "int8" (the PTQ engine, :mod:`detjax_torch.quant`,
     calibrated on ``calibration``: uint8 canvases of the served shape,
     REQUIRED, on whole images on the model's device, as detjax calibrates
@@ -358,6 +398,7 @@ def _build_engine(model, cfg, engine: str, batch_size: int,
         from detjax_torch.export import load_detect
 
         artifact = load_detect(engine)
+        dev = artifact.device  # where the program runs
         want = (batch_size, h, w, 3)
         if artifact.in_shape != want:
             raise ValueError(
@@ -369,19 +410,36 @@ def _build_engine(model, cfg, engine: str, batch_size: int,
             run = artifact  # normalization inside the program
         else:
             def run(canvases_u8):
-                return artifact(_normalize(canvases_u8, artifact.device))
+                return artifact(_normalize(canvases_u8, dev))
+
+    upload = mesh is None and dev.type == "cuda"
 
     def dispatch_batch(canvases_u8: np.ndarray):
-        # enqueues the device work and returns device tensors: the NEXT
-        # batch's H2D and normalize are issued while this one computes
-        return run(canvases_u8)
+        # enqueues the device work and returns device tensors. On one CUDA
+        # device the batch goes up asynchronously on the current stream;
+        # the batcher writes its buffer again only after this batch's
+        # fetch. A mesh's shards upload their own slices from the host.
+        if not upload:
+            return run(canvases_u8)
+        x = torch.as_tensor(canvases_u8).to(dev, non_blocking=True)
+        try:
+            return run(x)
+        except Exception:
+            # the buffer is the batcher's to write again: let the upload end
+            torch.cuda.current_stream(dev).synchronize()
+            raise
 
     def run_batch(canvases_u8: np.ndarray):
         return finalize_batch(dispatch_batch(canvases_u8),
                               canvases_u8.shape[0])
 
+    def new_buffer(shape) -> np.ndarray:
+        if dev.type != "cuda":
+            return np.zeros(shape, np.uint8)
+        return torch.zeros(shape, dtype=torch.uint8, pin_memory=True).numpy()
+
     return (dispatch_batch, finalize_batch, run_batch,
-            getattr(run, "close", lambda: None))
+            getattr(run, "close", lambda: None), new_buffer)
 
 
 def _resize_canvases_u8(canvases: np.ndarray, size_hw) -> np.ndarray:
@@ -456,15 +514,16 @@ class DetectionServer:
                     cfg_b.model.image_size:
                 cal_b = _resize_canvases_u8(
                     np.asarray(calibration, np.uint8), cfg_b.model.image_size)
-            dispatch, finalize, run_batch, close = _build_engine(
-                model, cfg_b, engine, batch_size, cal_b, mesh=mesh,
-                calib_mode=int8_calib_mode)
+            dispatch, finalize, run_batch, close, new_buffer = \
+                _build_engine(model, cfg_b, engine, batch_size, cal_b,
+                              mesh=mesh, calib_mode=int8_calib_mode)
             self._closers.append(close)
             batcher = MicroBatcher(
                 run_batch, batch_size, cfg_b.model.image_size, max_wait_ms,
                 max_queue_batches=max_queue_batches,
                 dispatch=dispatch if overlap else None,
-                finalize=finalize if overlap else None)
+                finalize=finalize if overlap else None,
+                new_buffer=new_buffer)
             self._buckets.append((cfg_b.model.image_size, batcher))
             self._runs.append(run_batch)
         # `.batcher` is the largest (base) bucket
@@ -558,7 +617,8 @@ class DetectionServer:
                         "completed": sum(b.completed for b in bs),
                         "rejected": sum(b.rejected for b in bs),
                         "batches": sum(b.batches for b in bs),
-                        "slots": sum(b.slots for b in bs)})
+                        "slots": sum(b.slots for b in bs),
+                        "ahead": sum(b.ahead for b in bs)})
                 else:
                     self._json(404, {"error": "not found"})
 

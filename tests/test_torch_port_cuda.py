@@ -208,6 +208,57 @@ def test_detect_path_runs_the_kernel(cuda):
         assert torch.equal(a, b)
 
 
+def test_server_batches_from_page_locked_buffers_equal_detect_u8(cuda):
+    """The fp engine's two batch buffers are page-locked, and a batch goes
+    up from them asynchronously: a full batch, then two partial ones (the
+    second in the buffer the full batch used, its padding zeroed again),
+    each answer bit-equal to ``detect_u8`` on the same zero-padded batch."""
+    import threading
+
+    import detjax_torch
+    from detjax_torch.serve import DetectionServer
+
+    cfg = detjax_torch.get_config("retinanet_r50_640", **{
+        "model.backbone_depth": 18, "model.image_size": (128, 128),
+        "model.num_classes": 8, "model.prior_prob": 0.3})
+    model = detjax_torch.build_model(cfg, seed=0)
+    canvases = np.random.default_rng(1).integers(0, 256, (7, 128, 128, 3),
+                                                 np.uint8)
+    srv = DetectionServer(model, cfg, batch_size=4, max_wait_ms=500.0,
+                          score_threshold=0.0)
+    mb = srv.batcher
+    answers = [None] * len(canvases)
+    try:
+        assert len(mb._buffers) == 2
+        assert all(torch.from_numpy(b).is_pinned() for b in mb._buffers)
+        for batch in ((0, 1, 2, 3), (4, 5), (6,)):
+            threads = []
+            for i in batch:  # queued in order, so slot j holds batch[j]
+
+                def hit(i=i):
+                    answers[i] = mb.submit(canvases[i])
+                threads.append(threading.Thread(target=hit))
+                threads[-1].start()
+                while mb.submitted < i + 1:
+                    threading.Event().wait(0.001)
+            for t in threads:
+                t.join(timeout=120)
+            assert not any(t.is_alive() for t in threads)
+    finally:
+        srv.shutdown()
+    assert mb.batches == 3 and mb.slots == 7
+    for batch in ((0, 1, 2, 3), (4, 5), (6,)):
+        padded = np.zeros((4, 128, 128, 3), np.uint8)
+        padded[:len(batch)] = canvases[list(batch)]
+        want = detjax_torch.detect_u8(model, padded, cfg)
+        for j, i in enumerate(batch):
+            boxes, scores, labels, nv = answers[i]
+            assert nv == int(want.num_valid[j])
+            assert np.array_equal(boxes, want.boxes[j].cpu().numpy())
+            assert np.array_equal(scores, want.scores[j].cpu().numpy())
+            assert np.array_equal(labels, want.labels[j].cpu().numpy())
+
+
 # -- anchor matching ---------------------------------------------------------
 
 def _match_case(seed, b, a, g):

@@ -5,6 +5,7 @@ the CPU."""
 import json
 import sys
 import threading
+import time
 import urllib.request
 from collections import Counter
 
@@ -240,6 +241,132 @@ def test_a_failed_dispatch_counts_no_batch(spans_on):
     assert names["serve.finalize"] == names["serve.fetch"] == 0
 
 
+def _staging_engine(log, gate, work_s=0.005):
+    """A split-phase engine whose handle keeps the dispatched batch array
+    itself, not a copy: dispatch waits for ``gate``; finalize, after
+    ``work_s`` of stand-in device work, logs whether the array still
+    holds what was dispatched, and answers each slot with its row's first
+    value."""
+    def dispatch(batch):
+        assert gate.wait(30)
+        log.append({"buffer": batch.ctypes.data})
+        return batch, batch.copy(), len(log)
+
+    def finalize(handle, n):
+        batch, sent, k = handle
+        time.sleep(work_s)
+        log[k - 1]["intact"] = np.array_equal(batch, sent)
+        return [int(sent[i, 0, 0, 0]) for i in range(n)]
+    return dispatch, finalize
+
+
+def _loaded(values, batch_size=4):
+    """Serve a canvas full of each value from its own thread through
+    ``_staging_engine`` under a loaded queue: the first dispatch waits
+    until every request is queued. (answers, log, batcher)"""
+    log, gate = [], threading.Event()
+    dispatch, finalize = _staging_engine(log, gate)
+    mb = MicroBatcher(None, batch_size, (4, 4), max_wait_ms=20.0,
+                      max_queue_batches=len(values) // batch_size + 1,
+                      dispatch=dispatch, finalize=finalize)
+    out = {}
+
+    def go(v):
+        out[v] = mb.submit(np.full((4, 4, 3), v, np.uint8))
+
+    threads = [threading.Thread(target=go, args=(v,)) for v in values]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 30
+    while mb.submitted < len(values) and time.monotonic() < deadline:
+        time.sleep(0.001)
+    gate.set()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    mb.close()
+    return out, log, mb
+
+
+def test_a_buffer_in_flight_is_never_written(spans_off):
+    values = list(range(1, 49))
+    out, log, mb = _loaded(values)
+    assert all(out[v] == v for v in values)  # each its own batch's row
+    assert all(entry["intact"] for entry in log)
+    assert {e["buffer"] for e in log} == {b.ctypes.data for b in mb._buffers}
+    assert len(mb._buffers) == 2
+    assert mb.batches == len(log) and mb.slots == len(values)
+    # every batch after the first was assembled while one was in flight
+    assert mb.ahead == mb.batches - 1 >= 10
+
+
+def test_padding_rows_are_zero_after_a_fuller_batch(spans_off):
+    """A first request holds the engine while four more queue, so they
+    make one full batch; two single requests follow, the second in the
+    buffer the full batch used."""
+    seen, where = [], []
+    entered, gate = threading.Event(), threading.Event()
+
+    def run_batch(batch):
+        entered.set()
+        assert gate.wait(30)
+        seen.append(batch.copy())
+        where.append(batch.ctypes.data)
+        return [int(batch[i, 0, 0, 0]) for i in range(batch.shape[0])]
+
+    mb = MicroBatcher(run_batch, 4, (4, 4), max_wait_ms=20.0)
+    out = {}
+
+    def go(v):
+        out[v] = mb.submit(np.full((4, 4, 3), v, np.uint8))
+
+    try:
+        threads = [threading.Thread(target=go, args=(v,))
+                   for v in (1, 11, 12, 13, 14)]
+        threads[0].start()
+        assert entered.wait(30)  # the engine holds request 1
+        for t in threads[1:]:
+            t.start()
+        deadline = time.monotonic() + 30
+        while mb.submitted < 5 and time.monotonic() < deadline:
+            time.sleep(0.001)
+        gate.set()
+        for t in threads:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+        for v in (21, 31):
+            go(v)
+    finally:
+        mb.close()
+    assert all(out[v] == v for v in out) and len(out) == 7
+    assert [int(np.count_nonzero(b[:, 0, 0, 0])) for b in seen] == [1, 4, 1, 1]
+    assert where[3] == where[1] != where[2] == where[0]
+    assert sorted(seen[1][:, 0, 0, 0]) == [11, 12, 13, 14]
+    assert (seen[1] != 0).all()
+    for b, v in zip(seen[2:], (21, 31)):
+        assert (b[0] == v).all() and not b[1:].any()
+
+
+def test_the_order_under_load_is_assemble_finalize_dispatch(spans_on):
+    values = list(range(1, 41))
+    out, log, mb = _loaded(values)
+    assert all(out[v] == v for v in values)
+    got = profiling.spans()
+    by = {name: {s.ids["batch"]: s for s in got if s.name == name}
+          for name in PHASES[1:]}
+    ids = sorted(by["serve.dispatch"])
+    assert ids == list(range(1, len(log) + 1))
+    ahead = 0
+    for k in ids[1:]:
+        a, d = by["serve.assemble"][k], by["serve.dispatch"][k]
+        f = by["serve.finalize"][k - 1]  # batch N, before N+1 goes out
+        assert f.end_ns <= d.start_ns
+        if a.start_ns < f.start_ns:  # assembled while N was in flight
+            ahead += 1
+            assert a.end_ns <= f.start_ns
+    assert ahead == mb.ahead == len(ids) - 1
+
+
 def test_healthz_reports_batches_and_slots(spans_on):
     cfg = detjax_torch.get_config(
         "retinanet_r50_640", **{
@@ -271,3 +398,5 @@ def test_healthz_reports_batches_and_slots(spans_on):
     assert health["slots"] == srv.batcher.slots == sum(
         s.ids["n"] for s in dispatched) == 3
     assert health["submitted"] == health["completed"] == 3
+    # one request at a time: nothing in flight while a batch is assembled
+    assert health["ahead"] == srv.batcher.ahead == 0
